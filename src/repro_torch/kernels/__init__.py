@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+Every kernel package holds ``ref.py`` (the plain version, used for CPU
+tensors and as the oracle on the card) and ``ops.py`` (the wrapper:
+checks, build on first use, launch, launch counter).
+"""

@@ -1,0 +1,166 @@
+"""Multi-tenant serving driver (the paper's deployment scenario).
+
+Schedules the CNN zoo's inference requests (paper Table 2 workloads) on
+the heterogeneous MAS with the chosen policy and reports global and
+per-tenant SLA satisfaction.  Runs on ``--device cuda`` (the default;
+it raises without a GPU) or ``--device cpu``.
+
+Two serving modes:
+
+- default: per-episode reference loop (``serve_episode_host``), one
+  full trace per episode;
+- ``--batched``: ``--streams`` concurrent request streams drawn by the
+  ``serving.loadgen`` scenario generator (``--scenario``/
+  ``--rate-scale``/``--requests``), served by one tick per period
+  across all streams; prints aggregate SLA, the per-tenant table and
+  the tick wall times.
+
+The last line of standard output is one JSON summary.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload mixed \
+      --fleet paper6 --hidden 256 --batched --streams 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload light \
+      --policy herald --device cpu --episodes 2
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+from repro_torch.serving.loadgen import LoadGenConfig, request_streams
+from repro_torch.serving.service import MultiTenantService
+from repro_torch.sim.arrivals import ArrivalConfig
+from repro_torch.sim.env import EnvConfig
+from repro_torch.workloads import WORKLOADS, build_registry
+
+LM_WORKLOADS = ("lm_light", "lm_heavy", "lm_mixed", "lm_all")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", default="mixed",
+                    choices=list(WORKLOADS) + list(LM_WORKLOADS))
+    ap.add_argument("--policy", default="relmas",
+                    choices=["relmas", "fcfs", "prema", "herald"])
+    ap.add_argument("--ckpt", default=None,
+                    help="JAX-written specialist checkpoint directory")
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--episodes", type=int, default=3)
+    ap.add_argument("--periods", type=int, default=60)
+    ap.add_argument("--qos", default="medium",
+                    choices=["high", "medium", "low"])
+    ap.add_argument("--qos-factor", type=float, default=3.0)
+    ap.add_argument("--load", type=float, default=0.9)
+    ap.add_argument("--bandwidth", type=float, default=-1.0,
+                    help="shared DRAM GB/s (<=0: fleet default)")
+    ap.add_argument("--fleet", default=None,
+                    help="accelerator fleet preset "
+                         "(repro_torch.costmodel.fleets; default paper6)")
+    ap.add_argument("--t-s", type=float, default=-1.0)
+    ap.add_argument("--max-rq", type=int, default=96)
+    ap.add_argument("--max-jobs", type=int, default=64)
+    ap.add_argument("--batched", action="store_true",
+                    help="serve loadgen streams through the batched tick "
+                         "instead of per-episode loops")
+    ap.add_argument("--streams", type=int, default=16,
+                    help="concurrent request streams (--batched)")
+    ap.add_argument("--tick-k", type=int, default=8,
+                    help="max admissions per stream per tick (--batched)")
+    ap.add_argument("--scenario", default="steady",
+                    choices=["default", "steady", "burst", "diurnal",
+                             "heavy_tail"],
+                    help="loadgen arrival scenario (--batched)")
+    ap.add_argument("--rate-scale", type=float, default=1.0,
+                    help="offered-load multiplier on the calibrated base "
+                         "arrival rate (--batched)")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="requests per stream (--batched)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="device of the queues, tables and actor")
+    return ap.parse_args(argv)
+
+
+def build_service(args) -> MultiTenantService:
+    if args.workload in LM_WORKLOADS:
+        raise NotImplementedError(
+            f"workload {args.workload!r}: the LM workload stack is ported "
+            f"with the LM slice; this package serves the CNN workloads "
+            f"{sorted(WORKLOADS)}")
+    registry = build_registry(args.workload, mas=args.fleet or "paper6")
+    t_s = args.t_s if args.t_s > 0 else 500.0
+    # bandwidth <= 0 -> SchedulingEnv resolves the fleet's dram_gbps
+    ecfg = EnvConfig(t_s_us=t_s, periods=args.periods, max_rq=args.max_rq,
+                     max_jobs=args.max_jobs, bandwidth_gbps=args.bandwidth)
+    arr = ArrivalConfig(max_jobs=args.max_jobs, load=args.load,
+                        qos_factor=args.qos_factor, qos_level=args.qos,
+                        horizon_us=ecfg.horizon_us, slack_us=2 * ecfg.t_s_us)
+    return MultiTenantService(registry, policy=args.policy,
+                              ckpt_dir=args.ckpt, hidden=args.hidden,
+                              env_cfg=ecfg, arrivals=arr, device=args.device)
+
+
+def serve_batched(svc: MultiTenantService, args) -> tuple[dict, dict]:
+    """Drive the batched path on loadgen traffic.  Returns the summary
+    dict and the full ``serve_stream`` result."""
+    lg = LoadGenConfig(scenario=args.scenario, rate_scale=args.rate_scale,
+                       n_requests=args.requests,
+                       qos_factor=args.qos_factor, qos_level=args.qos)
+    reqs = request_streams(svc.env, lg, args.streams, seed=9000)
+    res = svc.serve_stream(reqs, tick_k=args.tick_k)
+    agg, st = res["aggregate"], res["stats"]
+    tick_p50 = float(np.percentile(st["tick_wall_us"], 50))
+    tick_p99 = float(np.percentile(st["tick_wall_us"], 99))
+    print(f"[serve batched] streams={args.streams} "
+          f"scenario={args.scenario} rate={args.rate_scale} "
+          f"sla={agg['sla_rate']:.3f} jobs={agg['counted']} "
+          f"energy={agg['energy_uj']:.0f}uJ", flush=True)
+    print(f"    ticks={st['ticks']} tick_p50={tick_p50:.0f}us "
+          f"tick_p99={tick_p99:.0f}us admitted={st['admitted']} "
+          f"deferred={st['deferred']} unserved={st['unserved']} "
+          f"mean_depth={st['mean_depth']:.1f}", flush=True)
+    for name, row in agg["per_tenant"].items():
+        sla = f"{row['sla_rate']:.3f}" if row["sla_rate"] is not None \
+            else "n/a"
+        print(f"    {name:>18s}: jobs={row['jobs']:3d} sla={sla}",
+              flush=True)
+    out = {"policy": args.policy, "workload": args.workload,
+           "scenario": args.scenario, "rate_scale": args.rate_scale,
+           "streams": args.streams, "device": str(svc.device),
+           "sla_rate": agg["sla_rate"], "counted": agg["counted"],
+           "deferred": st["deferred"], "ticks": st["ticks"],
+           "tick_p50_us": tick_p50, "tick_p99_us": tick_p99}
+    return out, res
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    svc = build_service(args)
+    if args.batched:
+        out, _ = serve_batched(svc, args)
+        print(json.dumps(out), flush=True)
+        return out
+    rates, energies = [], []
+    for ep in range(args.episodes):
+        m = svc.run_episode(seed=9000 + ep)
+        rates.append(m["sla_rate"])
+        energies.append(m["energy_uj"])
+        print(f"[serve ep {ep}] sla={m['sla_rate']:.3f} "
+              f"jobs={int(m['counted'])} energy={m['energy_uj']:.0f}uJ",
+              flush=True)
+        for tname, tm in m["per_tenant"].items():
+            if tm["jobs"]:
+                print(f"    {tname:>18s}: jobs={tm['jobs']:3d} "
+                      f"sla={tm['sla_rate']:.3f}", flush=True)
+    out = {"policy": args.policy, "workload": args.workload,
+           "device": str(svc.device),
+           "sla_rate_mean": float(np.mean(rates)),
+           "energy_uj_mean": float(np.mean(energies))}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

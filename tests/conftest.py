@@ -10,3 +10,5 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line("markers",
                             "slow: long-running (subprocess dry-runs, e2e)")
+    config.addinivalue_line("markers",
+                            "gpu: needs a CUDA card (skips without one)")

@@ -1,0 +1,64 @@
+"""The PyTorch port stands alone: no JAX, nothing of ``repro``, and no
+quiet fallback to the CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|"
+                       r"from\s+repro(\.|\s))", re.M)
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    text = path.read_text()
+    hits = [m.group(0).strip() for m in FORBIDDEN.finditer(text)]
+    assert not hits, f"{path}: {hits}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 20
+
+
+def test_default_device_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from repro_torch.core.policy import Actor, PolicyConfig
+    from repro_torch.launch import serve
+    from repro_torch.serving import MultiTenantService
+    from repro_torch.sim.env import EnvConfig, SchedulingEnv
+    from repro_torch.workloads import build_registry
+    reg = build_registry("light")
+    for fn in (lambda: MultiTenantService(reg),
+               lambda: SchedulingEnv(reg, EnvConfig()),
+               lambda: Actor(PolicyConfig(feat_dim=16, act_dim=7)),
+               lambda: serve.main(["--workload", "light", "--batched"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            fn()
