@@ -7,8 +7,9 @@ Run from the root of a checkout, with one card and ``nvcc``:
 Phases, each printed as it ends; any failure exits non-zero and prints
 no result:
 
-1. ``build``            compile every kernel of the serving path from
-                        ``src/repro_torch/csrc`` with ``nvcc`` (sm_90a);
+1. ``build``            delete and rebuild every kernel library from
+                        ``src/repro_torch/csrc`` with ``nvcc`` (sm_90a),
+                        one ``nvcc`` per source, all started together;
 2. ``kernel:lstm_seq``  the kernel against its plain PyTorch version on
                         the card at four shapes with ragged, all-false
                         and random masks (atol = rtol = 1e-4: the same
@@ -16,18 +17,50 @@ no result:
                         recurrent steps); kernel, plain and cuDNN
                         ``torch.nn.LSTM`` times at the serving shape
                         beside the kernel's bound;
-3. ``serve:relmas``     the driver ``repro_torch.launch.serve.main`` at
+3. ``kernel:flash_attention``  the prefill attention kernel against
+                        ``attention_chunked`` at the internlm2-1.8b
+                        prefill shape and three others (causal, window,
+                        MHA with D = 64, float32 with odd S), each
+                        element within ``kernels.attn_tolerance`` (one
+                        bf16 ulp plus 1.5e-2 of its row's RMS; 1e-4 in
+                        float32); kernel, plain and
+                        ``scaled_dot_product_attention`` times beside
+                        the bound;
+4. ``kernel:decode_gqa``  the decode attention kernel against
+                        ``decode_attention_ref`` at the decode shape of
+                        phase 8 and four others (ragged lengths, a
+                        32768-slot cache, float32, short bf16 rows where
+                        one dropped key fails the check), the same
+                        tolerance; the same times;
+5. ``serve:relmas``     the driver ``repro_torch.launch.serve.main`` at
                         the paper's policy width (hidden 256, paper6
                         fleet, mixed workload, 96 RQ slots, 64 jobs,
                         60 periods, 32 streams); the kernel must launch
                         exactly once per tick;
-4. ``serve:fcfs``       the same streams under the FCFS heuristic;
-5. ``parity``           the same streams through the port on the CPU
+6. ``serve:fcfs``       the same streams under the FCFS heuristic;
+7. ``parity``           the same streams through the port on the CPU
                         (plain versions) and on the card, relmas and
                         fcfs: equal ``counted``, per-stream ``hits``
                         within 1% of ``counted``; with host-clock
                         spans (synchronised) around the engine, the
-                        actor and the greedy heuristic on the card run.
+                        actor and the greedy heuristic on the card run;
+8. ``lm:prefill_decode``  internlm2-1.8b at full width (24 layers,
+                        bf16 weights drawn on the card from seed 0):
+                        ``make_prefill_step`` on 4 prompts of 2048
+                        tokens (cache padded to 2176 slots), then 128
+                        greedy ``make_decode_step`` steps; exactly 24
+                        ``flash_attention`` launches per prefill and 24
+                        ``decode_gqa`` launches per step;
+9. ``lm:batcher``       ``ContinuousBatcher`` at full width, 16 slots,
+                        smax 512, 48 requests of 32 prompt and 64 new
+                        tokens; all served, 24 ``decode_gqa`` launches
+                        per batched decode step;
+10. ``lm:parity``       the same weights cut to 2 layers, on the CPU
+                        (plain versions) and on the card (kernels):
+                        prefill of 2 x 256 tokens and 16 teacher-forced
+                        decode steps, logits within the bf16 tolerance
+                        ``LM_TOL`` and greedy ids equal wherever the
+                        CPU's top-2 gap exceeds it.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -35,7 +68,9 @@ Then a ``kernels`` JSON line, the card's name and power limit as
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,8 +84,28 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 TOL = 1e-4
+# (B, Hq, Hkv, S, D, window, dtype); causal throughout; the first is the
+# internlm2-1.8b prefill of phase 8
+FLASH_SHAPES = [(4, 16, 8, 2048, 128, 0, torch.bfloat16),
+                (1, 16, 8, 4096, 128, 1024, torch.bfloat16),
+                (2, 36, 36, 1024, 64, 0, torch.bfloat16),
+                (3, 4, 2, 300, 64, 0, torch.float32)]
+# (B, Hq, Hkv, S, D, lengths, dtype); the first is the internlm2-1.8b
+# decode of phase 8 halfway through its 128 steps
+LM_B, LM_S, LM_PAD, LM_STEPS = 4, 2048, 2048 + 128, 128
+DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, "mid", torch.bfloat16),
+                 (32, 16, 8, 4096, 128, "ragged", torch.bfloat16),
+                 (4, 16, 8, 32768, 128, "full", torch.bfloat16),
+                 (3, 4, 4, 100, 64, "ragged", torch.float32),
+                 (16, 16, 8, 64, 128, "ragged", torch.bfloat16)]
+LM_ARCH = "internlm2-1.8b"
+# card (kernels) against CPU (plain versions), bf16 weights and
+# activations: the tolerance of the port against JAX on the CPU
+# (tests/test_torch_lm.py), a few bf16 ulps of |logit| < 8 per logit
+LM_TOL = dict(atol=0.1, rtol=0.02, mean=0.01)
 SERVE_ARGS = ["--workload", "mixed", "--fleet", "paper6", "--hidden", "256",
               "--batched", "--streams", "32", "--requests", "32",
               "--scenario", "steady", "--rate-scale", "1.0",
@@ -170,6 +225,147 @@ def check_kernel(ops, ref, CARD):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def build_all(names) -> None:
+    """Delete every built library of ``names`` and rebuild them from
+    source, one ``nvcc`` per source, all started together."""
+    from repro_torch.kernels import _build
+    for name in names:
+        for f in _build.BUILD_DIR.glob(f"lib{name}_*.so"):
+            f.unlink()
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return lib, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for lib, sec in pool.map(one, names):
+            print(f"  nvcc {lib.name}: {sec:.1f}s", flush=True)
+
+
+def attn_bound_ms(flops, nbytes, dtype) -> tuple[float, str]:
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+
+
+def visible_pairs(S, window) -> int:
+    """(query, key) pairs a causal (sliding-window) call computes."""
+    i = np.arange(S)
+    return int(np.minimum(i + 1, window if window > 0 else S).sum())
+
+
+def check_flash(ops, ref, CARD):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn_tolerance import attn_err
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    main = None
+    max_err = 0.0
+    with torch.no_grad():
+        for (B, Hq, Hkv, S, D, window, dt) in FLASH_SHAPES:
+            q = torch.randn((B, Hq, S, D), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((B, Hkv, S, D), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            got = ops.flash_attention(q, k, v, causal=True, window=window)
+            want = ref.attention_chunked(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            err, over = attn_err(got, want)
+            ok = over <= 1.0
+            if window > 0:      # the same function: an explicit band mask
+                i = torch.arange(S, device="cuda")
+                mask = (i[:, None] >= i[None, :]) & \
+                    (i[:, None] - i[None, :] < window)
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            lib_err = (lib().float() - want.float()).abs().max().item()
+            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                     window=window), reps=10)
+            plain_ms = cuda_ms(lambda: ref.attention_chunked(
+                q, k, v, causal=True, window=window), reps=3, warmup=1)
+            library_ms = cuda_ms(lib, reps=10)
+            esz = q.element_size()
+            flops = 4.0 * B * Hq * D * visible_pairs(S, window)
+            nbytes = esz * B * S * D * (2 * Hq + 2 * Hkv)
+            bound_ms, bound_by = attn_bound_ms(flops, nbytes, dt)
+            print(f"  flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+                  f"window={window} {str(dt)[6:]} [{CARD}]: "
+                  f"max_abs_err={err:.3e} err/bound={over:.3f} ok={ok} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"sdpa_ms={library_ms:.4f} (max_abs_err vs plain "
+                  f"{lib_err:.2e}) bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"TFLOP/s={flops / ms / 1e9:.1f}", flush=True)
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees with its "
+                                     f"plain version at {(B, Hq, Hkv, S, D)}")
+            max_err = max(max_err, err)
+            if main is None:
+                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms)
+    return dict(max_abs_err=max_err, **main)
+
+
+def check_decode(ops, ref, CARD):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn_tolerance import attn_err
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    main = None
+    max_err = 0.0
+    with torch.no_grad():
+        for (B, Hq, Hkv, S, D, lengths, dt) in DECODE_SHAPES:
+            q = torch.randn((B, Hq, 1, D), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((B, Hkv, S, D), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            if lengths == "full":
+                length = torch.full((B,), S, dtype=torch.int32, device="cuda")
+            elif lengths == "mid":
+                length = torch.full((B,), LM_S + LM_STEPS // 2,
+                                    dtype=torch.int32, device="cuda")
+            else:
+                length = torch.randint(1, S + 1, (B,), generator=gen,
+                                       device="cuda", dtype=torch.int32)
+            got = ops.decode_attention(q, k, v, length)
+            want = ref.decode_attention_ref(q, k, v, length)
+            torch.cuda.synchronize()
+            err, over = attn_err(got, want)
+            ok = over <= 1.0
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    < length[:, None])[:, None, None, :]
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_err = (lib().float() - want.float()).abs().max().item()
+            ms = cuda_ms(lambda: ops.decode_attention(q, k, v, length),
+                         reps=50)
+            plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
+                q, k, v, length), reps=10)
+            library_ms = cuda_ms(lib, reps=50)
+            esz = q.element_size()
+            rows = int(length.sum().item())
+            flops = 4.0 * rows * (Hq // Hkv) * Hkv * D
+            nbytes = esz * (2 * rows * Hkv * D + 2 * B * Hq * D) + 4 * B
+            bound_ms, bound_by = attn_bound_ms(flops, nbytes, dt)
+            print(f"  decode_gqa B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+                  f"length={lengths} (sum {rows}) {str(dt)[6:]} [{CARD}]: "
+                  f"max_abs_err={err:.3e} err/bound={over:.3f} ok={ok} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"sdpa_ms={library_ms:.4f} (max_abs_err vs plain "
+                  f"{lib_err:.2e}) bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"GB/s={nbytes / ms / 1e6:.0f}", flush=True)
+            if not ok:
+                raise AssertionError(f"decode_gqa disagrees with its plain "
+                                     f"version at {(B, Hq, Hkv, S, D)}")
+            max_err = max(max_err, err)
+            if main is None:
+                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms)
+    return dict(max_abs_err=max_err, **main)
+
+
 class Spans:
     """Synchronised host-clock spans around named functions of a module,
     installed for one run and removed after it."""
@@ -263,11 +459,263 @@ def parity_phase(serve_cli, policy, CARD):
           f"completions differing={n_diff}", flush=True)
 
 
+def lm_counts():
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return fa_ops, dec_ops
+
+
+def lm_model(n_layers=None):
+    """internlm2-1.8b at full width, bf16 weights drawn on the card from
+    seed 0; ``n_layers`` cuts the depth."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    cfg = get_arch(LM_ARCH)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return LM(cfg, device="cuda").init(gen)
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def profile_window(fn, label, CARD, top=6):
+    """Run ``fn()`` under ``torch.profiler`` and print the device's busy
+    share of the window (kernel time over host wall time), the kernel
+    count, the kernels with the most device time and the operations
+    with the most host time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+    kernels = [e for e in events if e.device_type ==
+               torch.autograd.DeviceType.CUDA and dev(e) > 0]
+    dev_us = sum(dev(e) for e in kernels)
+    if dev_us == 0:
+        print(f"  profile {label} [{CARD}]: wall_ms={wall_us / 1e3:.2f} "
+              f"device time not measured (the profiler saw no kernel)",
+              flush=True)
+        return
+    n_kernels = sum(e.count for e in kernels)
+    by_dev = sorted(kernels, key=dev, reverse=True)[:top]
+    host = [e for e in events if e.device_type ==
+            torch.autograd.DeviceType.CPU]
+    by_host = sorted(host, key=lambda e: e.self_cpu_time_total,
+                     reverse=True)[:top]
+    print(f"  profile {label} [{CARD}]: wall_ms={wall_us / 1e3:.2f} "
+          f"kernel_ms={dev_us / 1e3:.2f} device_busy_share="
+          f"{dev_us / wall_us:.4f} kernels={n_kernels}", flush=True)
+    print("    device: " + "; ".join(
+        f"{e.key[:48]} x{e.count} {dev(e) / 1e3:.2f}ms" for e in by_dev),
+        flush=True)
+    print("    host: " + "; ".join(
+        f"{e.key[:32]} x{e.count} {e.self_cpu_time_total / 1e3:.2f}ms"
+        for e in by_host), flush=True)
+
+
+def lm_prefill_decode_phase(model, CARD):
+    from repro_torch.models import make_decode_step, make_prefill_step
+    fa_ops, dec_ops = lm_counts()
+    cfg = model.cfg
+    prefill = make_prefill_step(model, pad_to=LM_PAD)
+    decode = make_decode_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def run(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        step_ms, out = [], [tok]
+        for i in range(steps):
+            pos = torch.full((LM_B,), LM_S + i, dtype=torch.int32,
+                             device="cuda")
+            t0 = time.perf_counter()
+            tok, logits, cache = decode(cache, {"token": tok[:, None],
+                                                "pos": pos})
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(tok)
+        return prefill_ms, step_ms, torch.stack(out, 1), logits, cache
+
+    run(2)                                      # warm-up: cuBLAS, kernels
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    prefill_ms, step_ms, toks, logits, cache = run(LM_STEPS)
+    launches = (fa_ops.LAUNCHES, dec_ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != (cfg.n_layers, cfg.n_layers * LM_STEPS):
+        raise AssertionError(f"lm:prefill_decode: launches flash_attention="
+                             f"{launches[0]} decode_gqa={launches[1]}, "
+                             f"expected {cfg.n_layers} and "
+                             f"{cfg.n_layers * LM_STEPS}")
+    if not torch.isfinite(logits.float()).all() or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()):
+        raise AssertionError("lm:prefill_decode: non-finite logits or ids "
+                             "out of range")
+    if tuple(cache["k"].shape) != (cfg.n_layers, LM_B, cfg.n_kv, LM_PAD,
+                                   cfg.head_dim):
+        raise AssertionError(f"lm:prefill_decode: cache {cache['k'].shape}")
+    with torch.no_grad():
+        profile_window(lambda: prefill({"tokens": tokens}), "prefill", CARD)
+        pos = torch.full((LM_B,), LM_S, dtype=torch.int32, device="cuda")
+        tok = toks[:, :1]
+        profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})
+                                for _ in range(4)], "4 decode steps", CARD)
+    n_params = model.param_count()
+    wbytes = n_params * 2
+    kv_bytes = 2 * cfg.n_layers * LM_B * cfg.n_kv * cfg.head_dim * 2 * (
+        LM_S + LM_STEPS // 2)
+    dec_s = sum(step_ms) / 1e3
+    print(f"  lm:prefill_decode {cfg.name} params={n_params} "
+          f"B={LM_B} S={LM_S} pad_to={LM_PAD} steps={LM_STEPS} [{CARD}]: "
+          f"prefill_ms={prefill_ms:.2f} decode_p50_ms={pct(step_ms, 50):.3f} "
+          f"decode_p99_ms={pct(step_ms, 99):.3f} "
+          f"decode_tokens_per_s={LM_B * LM_STEPS / dec_s:.1f} "
+          f"prefill_tokens_per_s={LM_B * LM_S / prefill_ms * 1e3:.0f} "
+          f"peak_mem_gb={peak_gb:.2f} "
+          f"launches flash_attention={launches[0]} "
+          f"decode_gqa={launches[1]} "
+          f"step_weight_read_bound_ms={wbytes / PEAK_BYTES * 1e3:.3f} "
+          f"(+kv {kv_bytes / PEAK_BYTES * 1e3:.3f})", flush=True)
+    return launches
+
+
+def lm_batcher_phase(model, CARD):
+    from repro_torch.serving import ContinuousBatcher, synth_requests
+    _, dec_ops = lm_counts()
+    cfg = model.cfg
+    reqs = synth_requests([cfg.name], n=48, horizon_us=1000.0,
+                          qos_budget_us={cfg.name: 1e9}, vocab=cfg.vocab,
+                          prompt_len=32, max_new=64, seed=1)
+    batcher = ContinuousBatcher(model, n_slots=16, smax=512)
+    steps = [0]
+    inner = batcher._step
+
+    def counted_step():
+        steps[0] += 1
+        return inner()
+    batcher._step = counted_step
+    dec_ops.LAUNCHES = 0
+    pending, done = list(reqs), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pending or batcher.active():
+        while pending and batcher.has_free_slot():
+            batcher.add(pending.pop(0))
+        done += batcher.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dec_ops.LAUNCHES
+    n_tok = sum(len(r.tokens_out) for r in done)
+    if len(done) != len(reqs) or n_tok != 64 * len(reqs):
+        raise AssertionError(f"lm:batcher served {len(done)} of {len(reqs)} "
+                             f"requests, {n_tok} tokens")
+    if launches != cfg.n_layers * steps[0]:
+        raise AssertionError(f"lm:batcher: decode_gqa launched {launches} "
+                             f"times in {steps[0]} steps")
+    if not all(0 <= t < cfg.vocab_padded for r in done for t in r.tokens_out):
+        raise AssertionError("lm:batcher: ids out of range")
+    print(f"  lm:batcher {cfg.name} slots=16 smax=512 [{CARD}]: "
+          f"requests={len(done)} tokens_out={n_tok} "
+          f"batched_decode_steps={steps[0]} (prompt feeding included) "
+          f"wall_s={wall:.2f} tokens_out_per_s={n_tok / wall:.1f} "
+          f"ms_per_step={wall / steps[0] * 1e3:.3f} "
+          f"decode_gqa launches={launches}", flush=True)
+
+
+def lm_parity_phase(model_full, CARD):
+    """2 layers of the full-width weights, CPU (plain) against card."""
+    from repro_torch.models import LM
+    fa_ops, dec_ops = lm_counts()
+    cfg = dataclasses.replace(model_full.cfg, n_layers=2)
+    gpu, cpu = LM(cfg, device="cuda"), LM(cfg, device="cpu")
+    gpu.params = dict(model_full.params)
+    gpu.params["stack"] = {k: {n: w[:2] for n, w in v.items()}
+                           for k, v in model_full.params["stack"].items()}
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+    cpu.params = to_cpu(gpu.params)
+    B, S, steps = 2, 256, 16
+    rng = np.random.default_rng(4)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, S + steps)).astype(np.int32))
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    history, caches = [], {}
+    with torch.no_grad():
+        out = {}
+        for name, m in (("cpu", cpu), ("gpu", gpu)):
+            out[name], caches[name] = m.prefill({"tokens": tokens[:, :S]},
+                                                pad_to=S + steps)
+        history.append(("prefill", out["cpu"].float(),
+                        out["gpu"].float().cpu()))
+        for i in range(steps):          # teacher forcing: the given ids
+            batch = {"token": tokens[:, S + i:S + i + 1],
+                     "pos": torch.full((B,), S + i, dtype=torch.int32)}
+            for name, m in (("cpu", cpu), ("gpu", gpu)):
+                out[name], caches[name] = m.decode_step(caches[name], batch)
+            history.append(("decode", out["cpu"].float(),
+                            out["gpu"].float().cpu()))
+    if (fa_ops.LAUNCHES, dec_ops.LAUNCHES) != (2, 2 * steps):
+        raise AssertionError(f"lm:parity: launches {fa_ops.LAUNCHES}, "
+                             f"{dec_ops.LAUNCHES}")
+    atol, rtol = LM_TOL["atol"], LM_TOL["rtol"]
+    worst = {"prefill": 0.0, "decode": 0.0}
+    mean_err, checked = [], 0
+    for kind, c, g in history:
+        diff = (c - g).abs()
+        worst[kind] = max(worst[kind], diff.max().item())
+        mean_err.append(diff.mean().item())
+        if not torch.allclose(g, c, atol=atol, rtol=rtol):
+            raise AssertionError(f"lm:parity: {kind} logits differ by "
+                                 f"{diff.max().item():.3e}")
+        # greedy ids must agree where the CPU's top-2 gap exceeds the
+        # tolerance
+        top2 = torch.topk(c, 2, dim=-1)
+        gap = top2.values[:, 0] - top2.values[:, 1]
+        sure = gap > atol + rtol * top2.values[:, 0].abs()
+        checked += int(sure.sum())
+        if not bool(((top2.indices[:, 0] == g.argmax(-1)) | ~sure).all()):
+            raise AssertionError(f"lm:parity: greedy id differs at a "
+                                 f"{kind} step with a top-2 gap above "
+                                 f"the tolerance")
+    if max(mean_err) > LM_TOL["mean"]:
+        raise AssertionError(f"lm:parity: mean logit difference "
+                             f"{max(mean_err):.3e}")
+    print(f"  lm:parity {cfg.name} cut to {cfg.n_layers} layers, B={B} "
+          f"S={S} + {steps} teacher-forced steps, CPU vs [{CARD}]: "
+          f"max_abs_err prefill={worst['prefill']:.3e} "
+          f"decode={worst['decode']:.3e} (atol {atol}, rtol {rtol}) "
+          f"max_mean_abs_err={max(mean_err):.3e} (limit {LM_TOL['mean']}) "
+          f"greedy ids equal where compared={checked} "
+          f"(of {B * (steps + 1)})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs one GPU", file=sys.stderr)
         return 1
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.decode_gqa import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.lstm_seq import ops, ref
     from repro_torch.launch import serve as serve_cli
 
@@ -278,14 +726,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     with phase("build"):
-        for f in ops.BUILD_DIR.glob("liblstm_seq_*.so"):
-            f.unlink()                      # build from source in this run
-        t0 = time.perf_counter()
-        lib = ops.build()
-        print(f"  nvcc {lib.name}: {time.perf_counter() - t0:.1f}s",
-              flush=True)
+        build_all(["lstm_seq", "flash_attention", "decode_gqa"])
     with phase("kernel:lstm_seq"):
         kinfo = check_kernel(ops, ref, CARD)
+    with phase("kernel:flash_attention"):
+        fa_info = check_flash(fa_ops, fa_ref, CARD)
+    with phase("kernel:decode_gqa"):
+        dec_info = check_decode(dec_ops, dec_ref, CARD)
     with phase("serve:relmas"):
         launches = serve_phase(serve_cli, ops, "relmas", CARD)
     with phase("serve:fcfs"):
@@ -293,11 +740,28 @@ def main() -> int:
     with phase("parity"):
         for policy in ("relmas", "fcfs"):
             parity_phase(serve_cli, policy, CARD)
+    with phase("lm:prefill_decode"):
+        model = lm_model()
+        lm_launches = lm_prefill_decode_phase(model, CARD)
+    with phase("lm:batcher"):
+        lm_batcher_phase(model, CARD)
+    with phase("lm:parity"):
+        lm_parity_phase(model, CARD)
 
-    kernels = [dict(name="lstm_seq", route="cuda",
-                    source="src/repro_torch/csrc/lstm_seq.cu",
-                    replaces="src/repro/kernels/lstm_seq/lstm_seq.py:70",
-                    launches=launches, **kinfo)]
+    kernels = [
+        dict(name="lstm_seq", route="cuda",
+             source="src/repro_torch/csrc/lstm_seq.cu",
+             replaces="src/repro/kernels/lstm_seq/lstm_seq.py:70",
+             launches=launches, **kinfo),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:87",
+             launches=lm_launches[0], **fa_info),
+        dict(name="decode_gqa", route="cuda",
+             source="src/repro_torch/csrc/decode_gqa.cu",
+             replaces="src/repro/kernels/decode_gqa/decode_gqa.py:65",
+             launches=lm_launches[1], **dec_info)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
     Entry points default to ``"cuda"``.  Without a GPU they raise rather
     than fall back to the CPU: a caller that wants the plain CPU path
-    (the tests, the parity phase of ``chip_smoke.py``) passes
+    (the tests, the parity phases of ``chip_smoke.py``) passes
     ``device="cpu"``.  Float32 products stay full float32 on the card:
-    TF32 is switched off for matmuls and cuDNN alike.
+    TF32 is switched off for matmuls and cuDNN alike; bf16 matmuls keep
+    float32 sums (no reduced-precision split-K reductions).
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -21,6 +22,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "False; pass device='cpu' to run the plain CPU path")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev

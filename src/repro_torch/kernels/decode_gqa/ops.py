@@ -1,0 +1,112 @@
+"""Wrapper of the one-token decode attention kernel
+(``csrc/decode_gqa.cu``).
+
+``decode_attention`` takes the plain version
+(``ref.decode_attention_ref``) only when its tensors lie on the CPU.
+For CUDA tensors it launches the kernel or raises; there is no
+fallback.  The kernel is built at first use by
+:mod:`repro_torch.kernels._build`.
+
+``LAUNCHES`` counts kernel launches (and nothing else), so a run can
+show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_gqa.ref import decode_attention_ref
+
+LAUNCHES = 0
+HEAD_DIMS = (64, 128)
+GROUPS = (1, 2, 4, 8, 16)
+DTYPES = (torch.float32, torch.bfloat16)
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("decode_gqa")
+        lib.decode_gqa_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.decode_gqa_launch.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(q, k, v, length):
+    if q.ndim != 4 or q.shape[2] != 1:
+        raise ValueError(f"decode_attention: q must be (B, Hq, 1, D), got "
+                         f"{tuple(q.shape)}")
+    B, Hq, _, D = q.shape
+    if k.ndim != 4 or k.shape[0] != B or k.shape[3] != D \
+            or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"decode_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be (B, Hkv, S, D) with q "
+                         f"{tuple(q.shape)}")
+    Hkv, S = k.shape[1], k.shape[2]
+    if tuple(length.shape) != (B,):
+        raise ValueError(f"decode_attention: length has shape "
+                         f"{tuple(length.shape)}, expected ({B},)")
+    if Hkv == 0 or Hq % Hkv or Hq // Hkv not in GROUPS:
+        raise ValueError(f"decode_attention kernel takes Hq/Hkv in "
+                         f"{GROUPS}, got Hq={Hq}, Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel takes D in {HEAD_DIMS}, "
+                         f"got D={D}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype not in DTYPES:
+            raise TypeError(f"decode_attention kernel takes float32 or "
+                            f"bfloat16, {name} is {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"decode_attention: {name} is {x.dtype}, q is "
+                            f"{q.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"decode_attention: {name} is not contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} does not start on a "
+                             f"16-byte boundary (the kernel reads 16-byte "
+                             f"vectors)")
+    for name, x in (("k", k), ("v", v), ("length", length)):
+        if x.device != q.device:
+            raise ValueError(f"decode_attention: {name} is on {x.device}, q "
+                             f"on {q.device}")
+    if B > 65535 or Hkv > 65535:
+        raise ValueError(f"decode_attention kernel takes B, Hkv <= 65535, "
+                         f"got B={B}, Hkv={Hkv}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("decode_attention kernel has no backward; call "
+                           "it under torch.no_grad()")
+    return B, Hq, Hkv, S, D
+
+
+def decode_attention(q, k, v, length):
+    """q (B,Hq,1,D), k/v (B,Hkv,S,D), length (B,) ints -> (B,Hq,1,D).
+
+    CPU tensors go through :func:`decode_attention_ref`; CUDA tensors
+    through the kernel, which takes contiguous float32 or bfloat16
+    inputs with ``D in {64, 128}`` and ``Hq/Hkv in {1, 2, 4, 8, 16}``.
+    """
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, length)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    B, Hq, Hkv, S, D = _check(q, k, v, length)
+    lib = _lib()
+    length = length.to(torch.int32).contiguous()
+    o = torch.empty_like(q)
+    if B == 0 or Hq == 0:
+        return o
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.decode_gqa_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+            o.data_ptr(), B, Hq, Hkv, S, D, int(q.dtype == torch.bfloat16),
+            stream)
+    _build.raise_on_error(lib, "decode_gqa", err)
+    LAUNCHES += 1
+    return o

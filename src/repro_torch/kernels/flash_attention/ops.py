@@ -1,0 +1,110 @@
+"""Wrapper of the prefill attention kernel (``csrc/flash_attention.cu``).
+
+``flash_attention`` takes the plain version (``ref.attention_chunked``)
+only when its tensors lie on the CPU.  For CUDA tensors it launches the
+kernel or raises; there is no fallback.  The kernel is built at first
+use by :mod:`repro_torch.kernels._build`.
+
+``LAUNCHES`` counts kernel launches (and nothing else), so a run can
+show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_chunked
+
+LAUNCHES = 0
+HEAD_DIMS = (64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("flash_attention")
+        lib.flash_attention_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
+        _LIB = lib
+    return _LIB
+
+
+def _check(q, k, v):
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash_attention: q, k, v must be (B, H, S, D)")
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if tuple(k.shape) != (B, Hkv, S, D) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be (B, Hkv, S, D) with q "
+                         f"{tuple(q.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of "
+                         f"Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes D in {HEAD_DIMS}, "
+                         f"got D={D}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype not in DTYPES:
+            raise TypeError(f"flash_attention kernel takes float32 or "
+                            f"bfloat16, {name} is {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {x.dtype}, q is "
+                            f"{q.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {x.device}, q "
+                             f"on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"flash_attention: {name} is not contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} does not start on a "
+                             f"16-byte boundary (the kernel reads 16-byte "
+                             f"vectors)")
+    if Hq > 65535 or B > 65535:
+        raise ValueError(f"flash_attention kernel takes Hq, B <= 65535, got "
+                         f"Hq={Hq}, B={B}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention kernel has no backward; call it "
+                           "under torch.no_grad()")
+    return B, Hq, Hkv, S, D
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B,Hq,S,D), k/v (B,Hkv,S,D) -> (B,Hq,S,D) in q's dtype.
+
+    CPU tensors go through :func:`attention_chunked`; CUDA tensors
+    through the kernel, which takes contiguous float32 or bfloat16
+    inputs with ``D in {64, 128}``.
+    """
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return attention_chunked(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, Hq, Hkv, S, D = _check(q, k, v)
+    lib = _lib()
+    smem = lib.flash_attention_smem_bytes(D)
+    limit = getattr(torch.cuda.get_device_properties(q.device),
+                    "shared_memory_per_block_optin", None)
+    if limit is not None and smem > limit:
+        raise ValueError(f"flash_attention: D={D} needs {smem} B of shared "
+                         f"memory per block, the card allows {limit}")
+    o = torch.empty_like(q)
+    if B == 0 or S == 0 or Hq == 0:
+        return o
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
+            Hkv, S, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
+            int(window), stream)
+    _build.raise_on_error(lib, "flash_attention", err)
+    LAUNCHES += 1
+    return o

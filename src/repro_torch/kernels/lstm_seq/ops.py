@@ -2,9 +2,9 @@
 
 ``lstm_seq`` takes the plain version (``ref.lstm_seq_ref``) only when
 its tensors lie on the CPU.  For CUDA tensors it launches the kernel or
-raises; there is no fallback.  The CUDA source is compiled with
-``nvcc`` for ``sm_90a`` into ``build/kernels/`` at first use, as a
-shared library with a plain C interface loaded through ``ctypes``.
+raises; there is no fallback.  The CUDA source is built at first use
+by :mod:`repro_torch.kernels._build` (``nvcc``, ``sm_90a``, a shared
+library with a plain C interface loaded through ``ctypes``).
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
@@ -12,77 +12,27 @@ show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.lstm_seq.ref import lstm_seq_ref
 
 LAUNCHES = 0
-
-_PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
-SOURCE = _PKG / "csrc" / "lstm_seq.cu"
-BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 UNITS_PER_CTA = 32
 MAX_CLUSTER = 8          # portable thread-block cluster size
 _LIB = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = Path(home) / "bin" / "nvcc"
-        if cand.exists():
-            path = str(cand)
-    if path is None:
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin): cannot build lstm_seq")
-    return path
-
-
-def build() -> Path:
-    """Compile the kernel (once per source content) and return the
-    library's path.  The name carries a hash of the source and flags,
-    and the file is written under a temporary name and renamed, so
-    concurrent builders never load a half-written library."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"liblstm_seq_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                       check=True, capture_output=True, text=True)
-    except subprocess.CalledProcessError as e:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{e.stderr}") \
-            from None
-    os.replace(tmp, out)
-    return out
-
-
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load("lstm_seq")
         lib.lstm_seq_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.lstm_seq_launch.restype = ctypes.c_int
         lib.lstm_seq_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.lstm_seq_smem_bytes.restype = ctypes.c_size_t
-        lib.lstm_seq_error_string.argtypes = [ctypes.c_int]
-        lib.lstm_seq_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
@@ -150,9 +100,6 @@ def lstm_seq(xs, mask, wx, wh, b):
         err = lib.lstm_seq_launch(
             xs.data_ptr(), mask.data_ptr(), wx.data_ptr(), wh.data_ptr(),
             b.data_ptr(), hs.data_ptr(), T, B, F, H, stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_seq launch failed: "
-                           f"{lib.lstm_seq_error_string(err).decode()} "
-                           f"(cudaError {err})")
+    _build.raise_on_error(lib, "lstm_seq", err)
     LAUNCHES += 1
     return hs

@@ -1,9 +1,12 @@
 """Multi-tenant serving driver (the paper's deployment scenario).
 
-Schedules the CNN zoo's inference requests (paper Table 2 workloads) on
-the heterogeneous MAS with the chosen policy and reports global and
-per-tenant SLA satisfaction.  Runs on ``--device cuda`` (the default;
-it raises without a GPU) or ``--device cpu``.
+Schedules DNN/LM inference requests on the heterogeneous MAS with the
+chosen policy and reports global and per-tenant SLA satisfaction.
+Tenants: the paper's CNN zoo (Table 2 workloads) or the ten LM
+architectures (``workloads.llm_zoo``, ``--phase``/``--seq``; the
+``datacenter`` fleet and a 2000 us period by default).  Runs on
+``--device cuda`` (the default; it raises without a GPU) or
+``--device cpu``.
 
 Two serving modes:
 
@@ -22,6 +25,8 @@ Usage:
       --fleet paper6 --hidden 256 --batched --streams 32
   PYTHONPATH=src python -m repro_torch.launch.serve --workload light \
       --policy herald --device cpu --episodes 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm_mixed \
+      --policy herald --episodes 3
 """
 from __future__ import annotations
 
@@ -34,9 +39,8 @@ from repro_torch.serving.loadgen import LoadGenConfig, request_streams
 from repro_torch.serving.service import MultiTenantService
 from repro_torch.sim.arrivals import ArrivalConfig
 from repro_torch.sim.env import EnvConfig
-from repro_torch.workloads import WORKLOADS, build_registry
-
-LM_WORKLOADS = ("lm_light", "lm_heavy", "lm_mixed", "lm_all")
+from repro_torch.workloads import (LM_WORKLOADS, WORKLOADS, build_registry,
+                                   build_llm_registry)
 
 
 def parse_args(argv=None):
@@ -58,10 +62,14 @@ def parse_args(argv=None):
                     help="shared DRAM GB/s (<=0: fleet default)")
     ap.add_argument("--fleet", default=None,
                     help="accelerator fleet preset "
-                         "(repro_torch.costmodel.fleets; default paper6)")
+                         "(repro_torch.costmodel.fleets; default: paper6, "
+                         "or datacenter for lm_* workloads)")
     ap.add_argument("--t-s", type=float, default=-1.0)
     ap.add_argument("--max-rq", type=int, default=96)
     ap.add_argument("--max-jobs", type=int, default=64)
+    ap.add_argument("--phase", default="decode",
+                    choices=["decode", "prefill"])
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batched", action="store_true",
                     help="serve loadgen streams through the batched tick "
                          "instead of per-episode loops")
@@ -85,12 +93,14 @@ def parse_args(argv=None):
 
 def build_service(args) -> MultiTenantService:
     if args.workload in LM_WORKLOADS:
-        raise NotImplementedError(
-            f"workload {args.workload!r}: the LM workload stack is ported "
-            f"with the LM slice; this package serves the CNN workloads "
-            f"{sorted(WORKLOADS)}")
-    registry = build_registry(args.workload, mas=args.fleet or "paper6")
-    t_s = args.t_s if args.t_s > 0 else 500.0
+        registry = build_llm_registry(
+            args.workload, phase=args.phase, seq=args.seq,
+            mas=args.fleet or "datacenter")
+        t_s = 2000.0                      # LM layer latencies are larger
+    else:
+        registry = build_registry(args.workload, mas=args.fleet or "paper6")
+        t_s = 500.0
+    t_s = args.t_s if args.t_s > 0 else t_s
     # bandwidth <= 0 -> SchedulingEnv resolves the fleet's dram_gbps
     ecfg = EnvConfig(t_s_us=t_s, periods=args.periods, max_rq=args.max_rq,
                      max_jobs=args.max_jobs, bandwidth_gbps=args.bandwidth)

@@ -1,0 +1,7 @@
+"""LM model zoo, dense family: layers, the decoder stack, the ``LM``
+module and its serving steps (a port of ``repro.models``)."""
+from repro_torch.models.model import LM, lm_params_from_numpy
+from repro_torch.models.steps import make_decode_step, make_prefill_step
+
+__all__ = ["LM", "lm_params_from_numpy", "make_prefill_step",
+           "make_decode_step"]

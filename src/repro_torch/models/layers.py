@@ -1,0 +1,152 @@
+"""Model building blocks: RMSNorm, RoPE, GQA attention, gated MLP,
+embeddings, and their initialisers.
+
+A port of ``repro.models.layers`` for one device (no sharding context).
+Parameters are plain dicts of tensors; the forward functions are pure
+except :func:`attention_decode`, which writes the new key and value into
+the cache in place (one slot per sequence) instead of returning a
+rewritten copy.  Compute dtype follows the input; norm and softmax
+statistics are float32.  Attention goes through the hand-written
+kernels' wrappers: their CUDA kernels for tensors on the card, their
+plain versions for CPU tensors.
+
+Initialisers take an explicit ``torch.Generator`` and draw on its
+device; they match the JAX package's distributions, not its numbers.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_gqa.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+
+def truncated_normal(gen, shape, scale, dtype):
+    """N(0, 1) truncated to [-2, 2], times ``scale``, drawn in float32
+    and cast to ``dtype``."""
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * scale).to(dtype)
+
+
+def dense_init(gen, shape, dtype, fan_in=None):
+    fan_in = fan_in if fan_in is not None else shape[0]
+    return truncated_normal(gen, shape, fan_in ** -0.5, dtype)
+
+
+# ---------------------------------------------------------------------------
+def rmsnorm_init(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+# ---------------------------------------------------------------------------
+def rope(x, positions, theta: float = 10000.0):
+    """x (..., S, H, D) rotated at ``positions`` (..., S); float32
+    arithmetic, the result cast back to ``x.dtype``."""
+    D = x.shape[-1]
+    half = D // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs              # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def attention_init(gen, d, n_heads, n_kv, head_dim, dtype):
+    return {
+        "wq": dense_init(gen, (d, n_heads, head_dim), dtype, d),
+        "wk": dense_init(gen, (d, n_kv, head_dim), dtype, d),
+        "wv": dense_init(gen, (d, n_kv, head_dim), dtype, d),
+        "wo": dense_init(gen, (n_heads, head_dim, d), dtype,
+                         n_heads * head_dim),
+    }
+
+
+def _proj(x, w):
+    """x (..., d) @ w (d, H, Dh) -> (..., H, Dh)."""
+    d, H, Dh = w.shape
+    return (x @ w.reshape(d, H * Dh)).unflatten(-1, (H, Dh))
+
+
+def _out_proj(o, w):
+    """o (B, S, H, Dh) @ w (H, Dh, d) -> (B, S, d)."""
+    H, Dh, d = w.shape
+    return o.flatten(-2) @ w.reshape(H * Dh, d)
+
+
+def attention_fwd(p, x, *, window=0, rope_theta=10000.0):
+    """Causal full-sequence attention (prefill) at positions 0..S-1.
+    x (B,S,d) -> (out (B,S,d), (k, v) each (B,Hkv,S,D))."""
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k = rope(q, positions, rope_theta), rope(k, positions, rope_theta)
+    q = q.transpose(1, 2).contiguous()
+    k = k.transpose(1, 2).contiguous()
+    v = v.transpose(1, 2).contiguous()
+    o = flash_attention(q, k, v, causal=True, window=window)
+    out = _out_proj(o.transpose(1, 2), p["wo"])
+    return out, (k, v)
+
+
+def attention_decode(p, x, cache, pos, *, window=0, rope_theta=10000.0):
+    """One-token decode. x (B,1,d); cache dict(k, v (B,Hkv,Smax,D)),
+    updated in place; pos (B,) int.  Returns (out (B,1,d), cache).
+
+    With a sliding window the cache is a ring buffer of ``window`` slots
+    (keys carry absolute-position RoPE before being written): the slot
+    is ``pos % window``, clipped to ``Smax - 1``, and the attended
+    length is ``min(pos + 1, Smax)``.
+    """
+    B = x.shape[0]
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q = rope(q, pos[:, None], rope_theta)
+    k = rope(k, pos[:, None], rope_theta)
+    Smax = cache["k"].shape[2]
+    slot = pos % max(window, 1) if window > 0 else pos
+    slot = torch.clamp(slot, max=Smax - 1).long()
+    rows = torch.arange(B, device=x.device)
+    cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
+    length = torch.clamp(pos + 1, max=Smax).to(torch.int32)
+    o = decode_attention(q.transpose(1, 2).contiguous(), cache["k"],
+                         cache["v"], length)
+    out = _out_proj(o.transpose(1, 2), p["wo"])
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+def embedding_init(gen, vocab: int, d: int, dtype):
+    return truncated_normal(gen, (vocab, d), d ** -0.5, dtype)
+
+
+def embedding(table, tokens):
+    """tokens (...) int -> (..., d) rows of ``table``."""
+    return table[tokens.long()]
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SiLU)
+# ---------------------------------------------------------------------------
+def mlp_init(gen, d, f, dtype):
+    return {"w_up": dense_init(gen, (d, f), dtype),
+            "w_down": dense_init(gen, (f, d), dtype, f),
+            "w_gate": dense_init(gen, (d, f), dtype)}
+
+
+def mlp_fwd(p, x):
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

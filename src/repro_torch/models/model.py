@@ -1,0 +1,164 @@
+"""Top-level decoder-only LM: embeddings -> dense stack -> head.
+
+A port of ``repro.models.model.LM`` for the dense family (the other
+families raise ``NotImplementedError`` naming their slice).  The module
+owns its parameters, a nested dict of tensors on its device with the
+JAX package's layout (stacked ``(L, ...)`` layers, ``wq (d, H, Dh)``
+and so on), in bfloat16 where ``cfg.param_dtype == "bfloat16"``.
+
+API:
+  LM(cfg, device).init(generator)   random weights drawn on the device
+  forward(batch)                    -> logits (B, S, Vp)
+  prefill(batch, pad_to=)           -> (last logits (B, Vp), cache)
+  decode_step(cache, batch)         -> (logits (B, Vp), cache), the cache
+                                       updated in place
+  init_cache(B, smax, dtype)        -> {"k", "v": (L, B, Hkv, Smax, D)}
+  param_count()
+
+``batch`` keys: ``tokens`` (B, S) int; ``token`` (B, 1) and ``pos``
+(B,) for a decode step.  :func:`lm_params_from_numpy` carries the JAX
+package's parameters (its pytree mapped to NumPy) into the port.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def param_dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+
+def _to_tensor(a, dtype, device):
+    a = np.array(a)                         # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes.bfloat16
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree, device="cpu"):
+    """The JAX package's ``LM.init`` params, as a nested dict of NumPy
+    arrays (``jax.tree.map(np.asarray, params)``), as the port's params
+    in the config's dtype on ``device``."""
+    T.check_family(cfg)
+    dt = param_dtype(cfg)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _to_tensor(x, dt, device)
+
+    want = {"embed", "final_norm", "stack"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    if set(tree) != want:
+        raise ValueError(f"{cfg.name}: params have keys {sorted(tree)}, "
+                         f"expected {sorted(want)}")
+    return conv(tree)
+
+
+def _pad_cache_seq(cache, smax: int):
+    """Zero-pad the k/v cache tensors (stacked (L,B,H,S,D)) to ``smax``
+    sequence slots."""
+    out = {}
+    for name, x in cache.items():
+        S = x.shape[3]
+        out[name] = x if S >= smax else torch.nn.functional.pad(
+            x, (0, 0, 0, smax - S))
+    return out
+
+
+class LM(torch.nn.Module):
+    def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
+        super().__init__()
+        T.check_family(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = param_dtype(cfg)
+        self.params: dict | None = None
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator):
+        """Draw random weights with ``generator``, which must live on
+        the module's device."""
+        if torch.device(generator.device).type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, module on "
+                             f"{self.device}")
+        cfg, dt, gen = self.cfg, self.dtype, generator
+        params = {
+            "embed": L.embedding_init(gen, cfg.vocab_padded, cfg.d_model, dt),
+            "final_norm": L.rmsnorm_init(cfg.d_model, dt, self.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(
+                gen, (cfg.d_model, cfg.vocab_padded), dt)
+        params["stack"] = T.stack_init(gen, cfg, dt)
+        self.params = params
+        return self
+
+    def load_numpy(self, tree):
+        """Take the JAX package's params (a pytree of NumPy arrays)."""
+        self.params = lm_params_from_numpy(self.cfg, tree, self.device)
+        return self
+
+    def param_count(self) -> int:
+        def count(x):
+            if isinstance(x, dict):
+                return sum(count(v) for v in x.values())
+            return x.numel()
+        return count(self.params)
+
+    # ------------------------------------------------------------ pieces
+    def _embed(self, tokens):
+        return L.embedding(self.params["embed"], tokens.to(self.device))
+
+    def _head(self, x):
+        x = L.rmsnorm(self.params["final_norm"], x)
+        if self.cfg.tie_embeddings:
+            return x @ self.params["embed"].t()
+        return x @ self.params["lm_head"]
+
+    # --------------------------------------------------------------- forward
+    def forward(self, batch):
+        """tokens (B, S) -> logits (B, S, Vp)."""
+        x = self._embed(batch["tokens"])
+        x, _ = T.stack_fwd(self.params["stack"], x, self.cfg)
+        return self._head(x)
+
+    # --------------------------------------------------------------- prefill
+    def prefill(self, batch, *, pad_to: int | None = None):
+        """tokens (B, S) -> (logits of the last position (B, Vp), cache).
+        ``pad_to`` grows the cache to that many sequence slots so that
+        decode steps can append."""
+        x = self._embed(batch["tokens"])
+        x, cache = T.stack_fwd(self.params["stack"], x, self.cfg,
+                               collect_cache=True)
+        logits = self._head(x[:, -1])
+        if pad_to is not None:
+            cache = _pad_cache_seq(cache, pad_to)
+        return logits, cache
+
+    # ----------------------------------------------------------- decode step
+    def decode_step(self, cache, batch):
+        """token (B, 1), pos (B,) -> (logits (B, Vp), cache); writes this
+        token's keys and values into ``cache`` in place."""
+        x = self._embed(batch["token"])                   # (B, 1, d)
+        pos = batch["pos"].to(self.device)
+        x, cache = T.stack_decode(self.params["stack"], cache, x, pos,
+                                  self.cfg)
+        return self._head(x[:, 0]), cache
+
+    # ------------------------------------------------------------ init_cache
+    def init_cache(self, B: int, smax: int, dtype=torch.bfloat16):
+        cfg = self.cfg
+        if cfg.window > 0:
+            smax = min(smax, cfg.window)        # sliding-window ring buffer
+        shape = (cfg.n_layers, B, cfg.n_kv, smax, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}

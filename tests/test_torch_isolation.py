@@ -50,15 +50,21 @@ def test_every_module_imports_with_jax_blocked():
 def test_default_device_entry_points_raise_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
+    from repro_torch.configs import get_arch
     from repro_torch.core.policy import Actor, PolicyConfig
     from repro_torch.launch import serve
-    from repro_torch.serving import MultiTenantService
+    from repro_torch.models import LM
+    from repro_torch.serving import ContinuousBatcher, MultiTenantService
     from repro_torch.sim.env import EnvConfig, SchedulingEnv
     from repro_torch.workloads import build_registry
     reg = build_registry("light")
+    cfg = get_arch("internlm2-1.8b", smoke=True)
     for fn in (lambda: MultiTenantService(reg),
                lambda: SchedulingEnv(reg, EnvConfig()),
                lambda: Actor(PolicyConfig(feat_dim=16, act_dim=7)),
-               lambda: serve.main(["--workload", "light", "--batched"])):
+               lambda: serve.main(["--workload", "light", "--batched"]),
+               lambda: serve.main(["--workload", "lm_light", "--batched"]),
+               lambda: LM(cfg),
+               lambda: ContinuousBatcher(LM(cfg))):
         with pytest.raises(RuntimeError, match="cuda"):
             fn()

@@ -6,13 +6,20 @@ file runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance atol = rtol = 1e-4: float32 sums in another order over up to
-97 recurrent steps.
+Tolerances: ``lstm_seq`` atol = rtol = 1e-4 (float32 sums in another
+order over up to 97 recurrent steps); the attention kernels each element
+within ``repro_torch.kernels.attn_tolerance`` (one bf16 ulp plus 1.5e-2
+of the row's RMS in bfloat16, 1e-4 of both in float32).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.attn_tolerance import attn_err
+from repro_torch.kernels.decode_gqa import ops as dec_ops
+from repro_torch.kernels.decode_gqa import ref as dec_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.lstm_seq import lstm_seq_ref, ops
 
 torch.set_num_threads(1)
@@ -63,3 +70,84 @@ def test_lstm_seq_kernel_rejects_what_it_does_not_take(card):
             ops.lstm_seq(x2, m2, wx2, wh2, b2)
     with pytest.raises(RuntimeError, match="no backward"):
         ops.lstm_seq(xs, mask, wx.requires_grad_(), wh, b)
+
+
+def _randn(shape, dtype, rng):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                           ).to(dtype).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window,dtype", [
+    (2, 16, 8, 512, 128, True, 0, torch.bfloat16),
+    (1, 8, 8, 300, 64, True, 0, torch.float32),
+    (1, 4, 2, 777, 128, True, 128, torch.bfloat16),
+    (2, 4, 1, 130, 64, False, 0, torch.float32),
+    (1, 4, 2, 200, 64, False, 50, torch.bfloat16)])
+def test_flash_attention_kernel_matches_plain(card, B, Hq, Hkv, S, D, causal,
+                                              window, dtype):
+    rng = np.random.default_rng(3)
+    q = _randn((B, Hq, S, D), dtype, rng)
+    k, v = (_randn((B, Hkv, S, D), dtype, rng) for _ in range(2))
+    before = fa_ops.LAUNCHES
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention_chunked(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype
+    assert attn_err(got, want)[1] <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype", [
+    (8, 16, 8, 1024, 128, torch.bfloat16),
+    (3, 4, 4, 100, 64, torch.float32),
+    (2, 32, 2, 333, 64, torch.bfloat16),
+    (2, 8, 1, 999, 128, torch.float32),
+    (16, 16, 8, 64, 128, torch.bfloat16)])
+def test_decode_gqa_kernel_matches_plain(card, B, Hq, Hkv, S, D, dtype):
+    rng = np.random.default_rng(4)
+    q = _randn((B, Hq, 1, D), dtype, rng)
+    k, v = (_randn((B, Hkv, S, D), dtype, rng) for _ in range(2))
+    length = torch.as_tensor(rng.integers(1, S + 1, size=B).astype(np.int32)
+                             ).cuda()
+    before = dec_ops.LAUNCHES
+    got = dec_ops.decode_attention(q, k, v, length)
+    want = dec_ref.decode_attention_ref(q, k, v, length)
+    torch.cuda.synchronize()
+    assert dec_ops.LAUNCHES == before + 1
+    assert attn_err(got, want)[1] <= 1.0
+
+
+@pytest.mark.gpu
+def test_attention_kernels_reject_what_they_do_not_take(card):
+    rng = np.random.default_rng(5)
+    q = _randn((1, 4, 16, 32), torch.bfloat16, rng)
+    k = _randn((1, 2, 16, 32), torch.bfloat16, rng)
+    with pytest.raises(ValueError, match="D=32"):
+        fa_ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="D=32"):
+        dec_ops.decode_attention(q[:, :, :1].contiguous(), k, k,
+                                 torch.ones(1, dtype=torch.int32).cuda())
+    q = _randn((1, 4, 16, 64), torch.float16, rng)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa_ops.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_reject_misaligned_views(card):
+    """A contiguous view that starts off a 16-byte boundary raises
+    instead of faulting in the kernel's vector loads."""
+    rng = np.random.default_rng(6)
+    buf = _randn((1 + 4 * 16 * 64,), torch.bfloat16, rng)
+    q = buf[1:].view(1, 4, 16, 64)          # 2 bytes past the start
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = _randn((1, 2, 16, 64), torch.bfloat16, rng)
+    before = (fa_ops.LAUNCHES, dec_ops.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="16-byte"):
+        dec_ops.decode_attention(buf[1:1 + 4 * 64].view(1, 4, 1, 64), k, k,
+                                 torch.ones(1, dtype=torch.int32).cuda())
+    torch.cuda.synchronize()                # the context is still sound
+    assert (fa_ops.LAUNCHES, dec_ops.LAUNCHES) == before

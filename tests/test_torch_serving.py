@@ -144,8 +144,12 @@ def test_cli_prints_json_summary(capsys, batched):
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert json.loads(last) == out
     assert out["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="LM"):
-        serve_cli.main(["--workload", "lm_light", "--device", "cpu"])
+    # the LM tenants are served too (datacenter fleet, 2000 us period)
+    lm = serve_cli.main(["--workload", "lm_light"] + argv[2:]
+                        + (["--batched"] if batched else []))
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last) == lm
+    assert lm["workload"] == "lm_light" and lm["device"] == "cpu"
 
 
 def _tiny_env(max_jobs=4):
