@@ -60,11 +60,35 @@ no result:
                         prefill of 2 x 256 tokens and 16 teacher-forced
                         decode steps, logits within the bf16 tolerance
                         ``LM_TOL`` and greedy ids equal wherever the
-                        CPU's top-2 gap exceeds it.
+                        CPU's top-2 gap exceeds it;
+11. ``kernel:ssd_chunk``  the Mamba-2 SSD intra-chunk kernel against
+                        ``ssd_intra_ref`` at the mamba2-2.7b prefill
+                        shape and two small ones (C = 16 and 64, head
+                        counts 7 and 9 that no 4-head group divides), in
+                        two draws (decays kept above exp(-60) over a
+                        chunk, and the model's range of A, which drives
+                        them past the clip), each element within 1e-4 of
+                        its (batch*chunk, head) block's RMS
+                        (``ssd_chunk.ref.ssd_err``); ``ssd_forward``
+                        with a ragged T = 100 (chunk 32) against the
+                        sequential ``ssd_scan_ref``; kernel and plain
+                        times beside the bound;
+12. ``lm:mamba2_prefill_decode``  mamba2-2.7b at full width and depth (64
+                        layers, bf16 weights drawn on the card from seed
+                        0): ``make_prefill_step`` on 4 prompts of 2048
+                        tokens, then 32 greedy decode steps; exactly 64
+                        ``ssd_chunk`` launches per prefill;
+13. ``lm:mamba2_batcher``  ``ContinuousBatcher`` on the full model, 8
+                        slots, smax 128, 16 requests of 16 prompt and 16
+                        new tokens (decode runs no kernel: the one-token
+                        recurrence is plain in the reference too);
+14. ``lm:mamba2_parity``  the mamba2 weights cut to 2 layers, CPU
+                        against card as in phase 10, within
+                        ``MAMBA_TOL``.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Every phase prints its seconds.
 """
 from __future__ import annotations
 
@@ -106,6 +130,17 @@ LM_ARCH = "internlm2-1.8b"
 # activations: the tolerance of the port against JAX on the CPU
 # (tests/test_torch_lm.py), a few bf16 ulps of |logit| < 8 per logit
 LM_TOL = dict(atol=0.1, rtol=0.02, mean=0.01)
+# the mamba2 2-layer parity: bf16 weights and activations are rounded
+# at more places per layer than in the dense model (projections, the
+# conv sum, the gate, two norms), so a bf16 ulp flip anywhere moves the
+# logits further; LM_TOL with 1.5x its atol and twice its mean bound
+MAMBA_TOL = dict(atol=0.15, rtol=0.02, mean=0.02)
+MAMBA_ARCH = "mamba2-2.7b"
+MB_B, MB_S, MB_STEPS = 4, 2048, 32
+# (BC, C, N, H, P); the first is the mamba2-2.7b prefill of phase 12:
+# 4 prompts of 2048 tokens in chunks of 128, 80 heads of 64, state 128
+SSD_SHAPES = [(MB_B * MB_S // 128, 128, 128, 80, 64), (6, 16, 32, 7, 16),
+              (5, 64, 128, 9, 64)]
 SERVE_ARGS = ["--workload", "mixed", "--fleet", "paper6", "--hidden", "256",
               "--batched", "--streams", "32", "--requests", "32",
               "--scenario", "steady", "--rate-scale", "1.0",
@@ -522,6 +557,29 @@ def profile_window(fn, label, CARD, top=6):
         for e in by_host), flush=True)
 
 
+def timed_prefill_decode(prefill, decode, tokens, steps):
+    """One prefill of ``tokens`` (B, S), then ``steps`` greedy decode
+    steps, each timed on the host clock and ended by a synchronise.
+    Returns (prefill_ms, step_ms, ids (B, steps + 1), logits, cache)."""
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step_ms, out = [], [tok]
+    for i in range(steps):
+        pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+        t0 = time.perf_counter()
+        tok, logits, cache = decode(cache, {"token": tok[:, None],
+                                            "pos": pos})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+    return prefill_ms, step_ms, torch.stack(out, 1), logits, cache
+
+
 def lm_prefill_decode_phase(model, CARD):
     from repro_torch.models import make_decode_step, make_prefill_step
     fa_ops, dec_ops = lm_counts()
@@ -531,25 +589,7 @@ def lm_prefill_decode_phase(model, CARD):
     gen = torch.Generator(device="cuda").manual_seed(3)
     tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=gen,
                            device="cuda", dtype=torch.int32)
-
-    def run(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill({"tokens": tokens})
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        step_ms, out = [], [tok]
-        for i in range(steps):
-            pos = torch.full((LM_B,), LM_S + i, dtype=torch.int32,
-                             device="cuda")
-            t0 = time.perf_counter()
-            tok, logits, cache = decode(cache, {"token": tok[:, None],
-                                                "pos": pos})
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            out.append(tok)
-        return prefill_ms, step_ms, torch.stack(out, 1), logits, cache
+    run = lambda steps: timed_prefill_decode(prefill, decode, tokens, steps)
 
     run(2)                                      # warm-up: cuBLAS, kernels
     torch.cuda.reset_peak_memory_stats()
@@ -594,14 +634,15 @@ def lm_prefill_decode_phase(model, CARD):
     return launches
 
 
-def lm_batcher_phase(model, CARD):
+def serve_batcher(model, *, n, n_slots, smax, prompt_len, max_new):
+    """``n`` synthetic requests through a ``ContinuousBatcher`` until
+    all are served.  Returns (done, batched decode steps, wall s)."""
     from repro_torch.serving import ContinuousBatcher, synth_requests
-    _, dec_ops = lm_counts()
     cfg = model.cfg
-    reqs = synth_requests([cfg.name], n=48, horizon_us=1000.0,
+    reqs = synth_requests([cfg.name], n=n, horizon_us=1000.0,
                           qos_budget_us={cfg.name: 1e9}, vocab=cfg.vocab,
-                          prompt_len=32, max_new=64, seed=1)
-    batcher = ContinuousBatcher(model, n_slots=16, smax=512)
+                          prompt_len=prompt_len, max_new=max_new, seed=1)
+    batcher = ContinuousBatcher(model, n_slots=n_slots, smax=smax)
     steps = [0]
     inner = batcher._step
 
@@ -609,7 +650,6 @@ def lm_batcher_phase(model, CARD):
         steps[0] += 1
         return inner()
     batcher._step = counted_step
-    dec_ops.LAUNCHES = 0
     pending, done = list(reqs), []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -619,44 +659,61 @@ def lm_batcher_phase(model, CARD):
         done += batcher.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    n_tok = sum(len(r.tokens_out) for r in done)
+    if len(done) != n or n_tok != max_new * n:
+        raise AssertionError(f"batcher served {len(done)} of {n} requests, "
+                             f"{n_tok} tokens")
+    if not all(0 <= t < cfg.vocab_padded for r in done for t in r.tokens_out):
+        raise AssertionError("batcher: ids out of range")
+    return done, steps[0], wall
+
+
+def lm_batcher_phase(model, CARD):
+    _, dec_ops = lm_counts()
+    cfg = model.cfg
+    dec_ops.LAUNCHES = 0
+    done, steps, wall = serve_batcher(model, n=48, n_slots=16, smax=512,
+                                      prompt_len=32, max_new=64)
     launches = dec_ops.LAUNCHES
     n_tok = sum(len(r.tokens_out) for r in done)
-    if len(done) != len(reqs) or n_tok != 64 * len(reqs):
-        raise AssertionError(f"lm:batcher served {len(done)} of {len(reqs)} "
-                             f"requests, {n_tok} tokens")
-    if launches != cfg.n_layers * steps[0]:
+    if launches != cfg.n_layers * steps:
         raise AssertionError(f"lm:batcher: decode_gqa launched {launches} "
-                             f"times in {steps[0]} steps")
-    if not all(0 <= t < cfg.vocab_padded for r in done for t in r.tokens_out):
-        raise AssertionError("lm:batcher: ids out of range")
+                             f"times in {steps} steps")
     print(f"  lm:batcher {cfg.name} slots=16 smax=512 [{CARD}]: "
           f"requests={len(done)} tokens_out={n_tok} "
-          f"batched_decode_steps={steps[0]} (prompt feeding included) "
+          f"batched_decode_steps={steps} (prompt feeding included) "
           f"wall_s={wall:.2f} tokens_out_per_s={n_tok / wall:.1f} "
-          f"ms_per_step={wall / steps[0] * 1e3:.3f} "
+          f"ms_per_step={wall / steps * 1e3:.3f} "
           f"decode_gqa launches={launches}", flush=True)
 
 
-def lm_parity_phase(model_full, CARD):
-    """2 layers of the full-width weights, CPU (plain) against card."""
+def cut_layers(tree, n):
+    """The first ``n`` layers of stacked (L, ...) parameters."""
+    if isinstance(tree, dict):
+        return {k: cut_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def parity_run(model_full, tol, label, CARD, B=2, S=256, steps=16):
+    """2 layers of the full-width weights, CPU (plain versions) against
+    the card (kernels): prefill of B x S tokens, then ``steps``
+    teacher-forced decode steps; logits within ``tol`` and greedy ids
+    equal wherever the CPU's top-2 gap exceeds it."""
     from repro_torch.models import LM
-    fa_ops, dec_ops = lm_counts()
     cfg = dataclasses.replace(model_full.cfg, n_layers=2)
     gpu, cpu = LM(cfg, device="cuda"), LM(cfg, device="cpu")
     gpu.params = dict(model_full.params)
-    gpu.params["stack"] = {k: {n: w[:2] for n, w in v.items()}
-                           for k, v in model_full.params["stack"].items()}
-
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        return tree.cpu()
+    gpu.params["stack"] = cut_layers(model_full.params["stack"], 2)
     cpu.params = to_cpu(gpu.params)
-    B, S, steps = 2, 256, 16
     rng = np.random.default_rng(4)
     tokens = torch.as_tensor(
         rng.integers(0, cfg.vocab, (B, S + steps)).astype(np.int32))
-    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
     history, caches = [], {}
     with torch.no_grad():
         out = {}
@@ -672,10 +729,7 @@ def lm_parity_phase(model_full, CARD):
                 out[name], caches[name] = m.decode_step(caches[name], batch)
             history.append(("decode", out["cpu"].float(),
                             out["gpu"].float().cpu()))
-    if (fa_ops.LAUNCHES, dec_ops.LAUNCHES) != (2, 2 * steps):
-        raise AssertionError(f"lm:parity: launches {fa_ops.LAUNCHES}, "
-                             f"{dec_ops.LAUNCHES}")
-    atol, rtol = LM_TOL["atol"], LM_TOL["rtol"]
+    atol, rtol = tol["atol"], tol["rtol"]
     worst = {"prefill": 0.0, "decode": 0.0}
     mean_err, checked = [], 0
     for kind, c, g in history:
@@ -683,7 +737,7 @@ def lm_parity_phase(model_full, CARD):
         worst[kind] = max(worst[kind], diff.max().item())
         mean_err.append(diff.mean().item())
         if not torch.allclose(g, c, atol=atol, rtol=rtol):
-            raise AssertionError(f"lm:parity: {kind} logits differ by "
+            raise AssertionError(f"{label}: {kind} logits differ by "
                                  f"{diff.max().item():.3e}")
         # greedy ids must agree where the CPU's top-2 gap exceeds the
         # tolerance
@@ -692,19 +746,216 @@ def lm_parity_phase(model_full, CARD):
         sure = gap > atol + rtol * top2.values[:, 0].abs()
         checked += int(sure.sum())
         if not bool(((top2.indices[:, 0] == g.argmax(-1)) | ~sure).all()):
-            raise AssertionError(f"lm:parity: greedy id differs at a "
-                                 f"{kind} step with a top-2 gap above "
-                                 f"the tolerance")
-    if max(mean_err) > LM_TOL["mean"]:
-        raise AssertionError(f"lm:parity: mean logit difference "
+            raise AssertionError(f"{label}: greedy id differs at a {kind} "
+                                 f"step with a top-2 gap above the "
+                                 f"tolerance")
+    if max(mean_err) > tol["mean"]:
+        raise AssertionError(f"{label}: mean logit difference "
                              f"{max(mean_err):.3e}")
-    print(f"  lm:parity {cfg.name} cut to {cfg.n_layers} layers, B={B} "
+    print(f"  {label} {cfg.name} cut to {cfg.n_layers} layers, B={B} "
           f"S={S} + {steps} teacher-forced steps, CPU vs [{CARD}]: "
           f"max_abs_err prefill={worst['prefill']:.3e} "
           f"decode={worst['decode']:.3e} (atol {atol}, rtol {rtol}) "
-          f"max_mean_abs_err={max(mean_err):.3e} (limit {LM_TOL['mean']}) "
+          f"max_mean_abs_err={max(mean_err):.3e} (limit {tol['mean']}) "
           f"greedy ids equal where compared={checked} "
           f"(of {B * (steps + 1)})", flush=True)
+    return steps
+
+
+def lm_parity_phase(model_full, CARD):
+    fa_ops, dec_ops = lm_counts()
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    steps = parity_run(model_full, LM_TOL, "lm:parity", CARD)
+    if (fa_ops.LAUNCHES, dec_ops.LAUNCHES) != (2, 2 * steps):
+        raise AssertionError(f"lm:parity: launches {fa_ops.LAUNCHES}, "
+                             f"{dec_ops.LAUNCHES}")
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2
+# ---------------------------------------------------------------------------
+def ssd_inputs(BC, C, N, H, P, draw, gen):
+    """cm, bm, xdt, cum on the card.  ``draw`` "kernels" is
+    tests/test_kernels.py's range (dt = softplus(z) / 2,
+    A = -exp(0.3 z)): decays stay far above exp(-60) over a chunk, so an
+    error far below the diagonal shows.  "model" is the model's range
+    (A down to -16, as ssm_init sets it), which drives cum past the
+    clip."""
+    import torch.nn.functional as F
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    cm, bm = rnd(BC, C, N) * 0.3, rnd(BC, C, N) * 0.3
+    xdt = rnd(BC, H, C, P) * 0.25
+    if draw == "kernels":
+        la = -F.softplus(rnd(BC, H, C)) * 0.5 * torch.exp(
+            rnd(H) * 0.3)[None, :, None]
+    else:
+        la = -F.softplus(rnd(BC, H, C) + 1.0) * torch.linspace(
+            1.0, 16.0, H, device="cuda")[None, :, None]
+    return cm, bm, xdt, torch.cumsum(la, dim=-1)
+
+
+def ssd_bound_ms(BC, C, N, H, P) -> tuple[float, str]:
+    """Least time for the call: its float32 operations with S computed
+    once per chunk over the lower triangle (2N per entry), then per head
+    the decay product (1) and (S o L) . xdt (2P per entry), over the
+    float32 peak; or its bytes (cm, bm, xdt, cum read once, y written
+    once) over the memory rate; whichever is larger.  The exps are left
+    out."""
+    tri = C * (C + 1) // 2
+    flops = BC * tri * 2.0 * N + BC * H * tri * (2.0 * P + 1.0)
+    nbytes = 4 * (2 * BC * C * N + 2 * BC * H * C * P + BC * H * C)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+
+
+def check_ssd(ops, ref, CARD):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    main = None
+    max_err = 0.0
+    with torch.no_grad():
+        for (BC, C, N, H, P) in SSD_SHAPES:
+            for draw in ("kernels", "model"):
+                args = ssd_inputs(BC, C, N, H, P, draw, gen)
+                # the plain version first: the kernel's output then never
+                # lands on a freed block that already holds the answer
+                want = ref.ssd_intra_ref(*args)
+                got = ops.ssd_intra(*args)
+                torch.cuda.synchronize()
+                err, over = ref.ssd_err(got, want)
+                ok = over <= 1.0
+                print(f"  ssd_chunk BC={BC} C={C} N={N} H={H} P={P} "
+                      f"draw={draw} min_cum={args[3].min().item():.1f} "
+                      f"[{CARD}]: max_abs_err={err:.3e} "
+                      f"err/bound={over:.4f} ok={ok}", flush=True)
+                if not ok:
+                    raise AssertionError(f"ssd_chunk disagrees with its "
+                                         f"plain version at "
+                                         f"{(BC, C, N, H, P)}, {draw}")
+                max_err = max(max_err, err)
+            ms = cuda_ms(lambda: ops.ssd_intra(*args), reps=20)
+            plain_ms = cuda_ms(lambda: ref.ssd_intra_ref(*args), reps=5,
+                               warmup=1)
+            bound_ms, bound_by = ssd_bound_ms(BC, C, N, H, P)
+            print(f"  ssd_chunk BC={BC} C={C} N={N} H={H} P={P} [{CARD}]: "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms=none "
+                  f"(no single PyTorch call computes it)", flush=True)
+            if main is None:
+                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None)
+        # the public forward with a ragged T, against the sequential scan
+        # (tests/test_kernels.py's tolerance between the JAX routes)
+        B, T, H, P, N, chunk = 2, 100, 5, 32, 64, 32
+        rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        x = rnd(B, T, H, P) * 0.5
+        dt = torch.nn.functional.softplus(rnd(B, T, H)) * 0.5
+        A = -torch.exp(rnd(H) * 0.3)
+        Bm, Cm = rnd(B, T, N) * 0.3, rnd(B, T, N) * 0.3
+        y, S = ops.ssd_forward(x, dt, A, Bm, Cm, chunk=chunk)
+        ys, Ss = ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+        torch.cuda.synchronize()
+        err = max((y - ys).abs().max().item(), (S - Ss).abs().max().item())
+        ok = torch.allclose(y, ys, atol=5e-4, rtol=1e-3) and \
+            torch.allclose(S, Ss, atol=5e-4, rtol=1e-3)
+        print(f"  ssd_forward B={B} T={T} H={H} P={P} N={N} chunk={chunk} "
+              f"against ssd_scan_ref [{CARD}]: max_abs_err={err:.3e} "
+              f"(atol 5e-4, rtol 1e-3) ok={ok}", flush=True)
+        if not ok:
+            raise AssertionError("ssd_forward disagrees with ssd_scan_ref")
+    return dict(max_abs_err=max_err, **main)
+
+
+def mamba_model():
+    """mamba2-2.7b at full width and depth, bf16 weights drawn on the
+    card from seed 0."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return LM(get_arch(MAMBA_ARCH), device="cuda").init(gen)
+
+
+def mamba_prefill_decode_phase(model, CARD):
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.models import make_decode_step, make_prefill_step
+    cfg = model.cfg
+    prefill = make_prefill_step(model, pad_to=MB_S + MB_STEPS)
+    decode = make_decode_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (MB_B, MB_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    run = lambda steps: timed_prefill_decode(prefill, decode, tokens, steps)
+
+    run(2)                                      # warm-up: cuBLAS, kernels
+    torch.cuda.reset_peak_memory_stats()
+    ssd_ops.LAUNCHES = 0
+    prefill_ms, step_ms, toks, logits, cache = run(MB_STEPS)
+    launches = ssd_ops.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != cfg.n_layers:
+        raise AssertionError(f"lm:mamba2_prefill_decode: ssd_chunk launched "
+                             f"{launches} times in one prefill, expected "
+                             f"{cfg.n_layers}")
+    if not torch.isfinite(logits.float()).all() or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()):
+        raise AssertionError("lm:mamba2_prefill_decode: non-finite logits "
+                             "or ids out of range")
+    H, N, P = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_headdim
+    conv_dim = cfg.ssm_expand * cfg.d_model + 2 * N
+    if tuple(cache["ssm"].shape) != (cfg.n_layers, MB_B, H, N, P) or \
+            tuple(cache["conv"].shape) != (cfg.n_layers, MB_B,
+                                           cfg.ssm_conv - 1, conv_dim) or \
+            not torch.isfinite(cache["ssm"]).all():
+        raise AssertionError(f"lm:mamba2_prefill_decode: cache "
+                             f"{tuple(cache['ssm'].shape)} "
+                             f"{tuple(cache['conv'].shape)}")
+    with torch.no_grad():
+        profile_window(lambda: prefill({"tokens": tokens}), "mamba2 prefill",
+                       CARD, top=12)
+        pos = torch.full((MB_B,), MB_S, dtype=torch.int32, device="cuda")
+        tok = toks[:, :1]
+        profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})
+                                for _ in range(4)], "mamba2 4 decode steps",
+                       CARD)
+    n_params = model.param_count()
+    wbytes = n_params * 2
+    state_bytes = 2 * cache["ssm"].numel() * 4     # read and written
+    dec_s = sum(step_ms) / 1e3
+    print(f"  lm:mamba2_prefill_decode {cfg.name} params={n_params} "
+          f"B={MB_B} S={MB_S} steps={MB_STEPS} [{CARD}]: "
+          f"prefill_ms={prefill_ms:.2f} decode_p50_ms={pct(step_ms, 50):.3f} "
+          f"decode_p99_ms={pct(step_ms, 99):.3f} "
+          f"decode_tokens_per_s={MB_B * MB_STEPS / dec_s:.1f} "
+          f"prefill_tokens_per_s={MB_B * MB_S / prefill_ms * 1e3:.0f} "
+          f"peak_mem_gb={peak_gb:.2f} ssd_chunk launches={launches} "
+          f"step_weight_read_bound_ms={wbytes / PEAK_BYTES * 1e3:.3f} "
+          f"(+ssm state {state_bytes / PEAK_BYTES * 1e3:.3f})", flush=True)
+    return launches
+
+
+def mamba_batcher_phase(model, CARD):
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    ssd_ops.LAUNCHES = 0
+    done, steps, wall = serve_batcher(model, n=16, n_slots=8, smax=128,
+                                      prompt_len=16, max_new=16)
+    n_tok = sum(len(r.tokens_out) for r in done)
+    if ssd_ops.LAUNCHES != 0:
+        raise AssertionError(f"lm:mamba2_batcher: ssd_chunk launched "
+                             f"{ssd_ops.LAUNCHES} times; decode runs none")
+    print(f"  lm:mamba2_batcher {model.cfg.name} slots=8 smax=128 "
+          f"[{CARD}]: requests={len(done)} tokens_out={n_tok} "
+          f"batched_decode_steps={steps} (prompt feeding included) "
+          f"wall_s={wall:.2f} tokens_out_per_s={n_tok / wall:.1f} "
+          f"ms_per_step={wall / steps * 1e3:.3f}", flush=True)
+
+
+def mamba_parity_phase(model_full, CARD):
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    ssd_ops.LAUNCHES = 0
+    parity_run(model_full, MAMBA_TOL, "lm:mamba2_parity", CARD)
+    if ssd_ops.LAUNCHES != 2:
+        raise AssertionError(f"lm:mamba2_parity: ssd_chunk launched "
+                             f"{ssd_ops.LAUNCHES} times, expected 2")
 
 
 def main() -> int:
@@ -717,6 +968,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.lstm_seq import ops, ref
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.kernels.ssd_chunk import ref as ssd_ref
     from repro_torch.launch import serve as serve_cli
 
     CARD = card()
@@ -726,7 +979,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     with phase("build"):
-        build_all(["lstm_seq", "flash_attention", "decode_gqa"])
+        build_all(["lstm_seq", "flash_attention", "decode_gqa", "ssd_chunk"])
     with phase("kernel:lstm_seq"):
         kinfo = check_kernel(ops, ref, CARD)
     with phase("kernel:flash_attention"):
@@ -747,6 +1000,17 @@ def main() -> int:
         lm_batcher_phase(model, CARD)
     with phase("lm:parity"):
         lm_parity_phase(model, CARD)
+    del model
+    torch.cuda.empty_cache()
+    with phase("kernel:ssd_chunk"):
+        ssd_info = check_ssd(ssd_ops, ssd_ref, CARD)
+    with phase("lm:mamba2_prefill_decode"):
+        model = mamba_model()
+        ssd_launches = mamba_prefill_decode_phase(model, CARD)
+    with phase("lm:mamba2_batcher"):
+        mamba_batcher_phase(model, CARD)
+    with phase("lm:mamba2_parity"):
+        mamba_parity_phase(model, CARD)
 
     kernels = [
         dict(name="lstm_seq", route="cuda",
@@ -761,7 +1025,11 @@ def main() -> int:
         dict(name="decode_gqa", route="cuda",
              source="src/repro_torch/csrc/decode_gqa.cu",
              replaces="src/repro/kernels/decode_gqa/decode_gqa.py:65",
-             launches=lm_launches[1], **dec_info)]
+             launches=lm_launches[1], **dec_info),
+        dict(name="ssd_chunk", route="cuda",
+             source="src/repro_torch/csrc/ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:45",
+             launches=ssd_launches, **ssd_info)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""Top-level decoder-only LM: embeddings -> dense stack -> head.
+"""Top-level decoder-only LM: embeddings -> family stack -> head.
 
-A port of ``repro.models.model.LM`` for the dense family (the other
-families raise ``NotImplementedError`` naming their slice).  The module
-owns its parameters, a nested dict of tensors on its device with the
-JAX package's layout (stacked ``(L, ...)`` layers, ``wq (d, H, Dh)``
-and so on), in bfloat16 where ``cfg.param_dtype == "bfloat16"``.
+A port of ``repro.models.model.LM`` for the dense and Mamba-2 (``ssm``)
+families (the others raise ``NotImplementedError`` naming their slice).
+The module owns its parameters, a nested dict of tensors on its device
+with the JAX package's layout (stacked ``(L, ...)`` layers,
+``wq (d, H, Dh)``, ``w_in (d, 2*d_inner + 2*N + H)`` and so on), in
+bfloat16 where ``cfg.param_dtype == "bfloat16"`` except the SSM's
+``A_log``, ``D`` and ``dt_bias``, which are float32 as in the reference.
 
 API:
   LM(cfg, device).init(generator)   random weights drawn on the device
@@ -13,6 +15,9 @@ API:
   decode_step(cache, batch)         -> (logits (B, Vp), cache), the cache
                                        updated in place
   init_cache(B, smax, dtype)        -> {"k", "v": (L, B, Hkv, Smax, D)}
+                                       (dense), {"ssm": (L, B, H, N, P)
+                                       float32, "conv": (L, B, K-1,
+                                       conv_dim) in ``dtype``} (ssm)
   param_count()
 
 ``batch`` keys: ``tokens`` (B, S) int; ``token`` (B, 1) and ``pos``
@@ -28,6 +33,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.ssm import FLOAT32_KEYS, ssm_init_state
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -46,31 +52,36 @@ def _to_tensor(a, dtype, device):
 def lm_params_from_numpy(cfg: ArchConfig, tree, device="cpu"):
     """The JAX package's ``LM.init`` params, as a nested dict of NumPy
     arrays (``jax.tree.map(np.asarray, params)``), as the port's params
-    in the config's dtype on ``device``."""
+    on ``device``: in the config's dtype, except the leaves the
+    reference keeps in float32 (``ssm.FLOAT32_KEYS``), which stay
+    float32 bit for bit."""
     T.check_family(cfg)
     dt = param_dtype(cfg)
 
-    def conv(x):
+    def conv(x, key=""):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _to_tensor(x, dt, device)
+            return {k: conv(v, k) for k, v in x.items()}
+        return _to_tensor(x, torch.float32 if key in FLOAT32_KEYS else dt,
+                          device)
 
     want = {"embed", "final_norm", "stack"} | (
         set() if cfg.tie_embeddings else {"lm_head"})
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: params have keys {sorted(tree)}, "
                          f"expected {sorted(want)}")
+    T.check_stack_keys(cfg, tree["stack"])
     return conv(tree)
 
 
 def _pad_cache_seq(cache, smax: int):
     """Zero-pad the k/v cache tensors (stacked (L,B,H,S,D)) to ``smax``
-    sequence slots."""
+    sequence slots.  Other leaves (the SSM and conv states) have no
+    sequence dimension and pass through untouched."""
     out = {}
     for name, x in cache.items():
-        S = x.shape[3]
-        out[name] = x if S >= smax else torch.nn.functional.pad(
-            x, (0, 0, 0, smax - S))
+        if name in ("k", "v") and x.shape[3] < smax:
+            x = torch.nn.functional.pad(x, (0, 0, 0, smax - x.shape[3]))
+        out[name] = x
     return out
 
 
@@ -147,7 +158,8 @@ class LM(torch.nn.Module):
     # ----------------------------------------------------------- decode step
     def decode_step(self, cache, batch):
         """token (B, 1), pos (B,) -> (logits (B, Vp), cache); writes this
-        token's keys and values into ``cache`` in place."""
+        token's keys and values (dense) or the new SSM and conv states
+        (ssm) into ``cache`` in place."""
         x = self._embed(batch["token"])                   # (B, 1, d)
         pos = batch["pos"].to(self.device)
         x, cache = T.stack_decode(self.params["stack"], cache, x, pos,
@@ -157,6 +169,10 @@ class LM(torch.nn.Module):
     # ------------------------------------------------------------ init_cache
     def init_cache(self, B: int, smax: int, dtype=torch.bfloat16):
         cfg = self.cfg
+        if cfg.family == "ssm":                 # no sequence dimension
+            state = ssm_init_state(B, cfg.d_model, cfg, dtype, self.device)
+            return {k: v.new_zeros((cfg.n_layers, *v.shape))
+                    for k, v in state.items()}
         if cfg.window > 0:
             smax = min(smax, cfg.window)        # sliding-window ring buffer
         shape = (cfg.n_layers, B, cfg.n_kv, smax, cfg.head_dim)

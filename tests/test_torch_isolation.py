@@ -65,6 +65,7 @@ def test_default_device_entry_points_raise_without_gpu():
                lambda: serve.main(["--workload", "light", "--batched"]),
                lambda: serve.main(["--workload", "lm_light", "--batched"]),
                lambda: LM(cfg),
+               lambda: LM(get_arch("mamba2-2.7b", smoke=True)),
                lambda: ContinuousBatcher(LM(cfg))):
         with pytest.raises(RuntimeError, match="cuda"):
             fn()

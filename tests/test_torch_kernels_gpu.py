@@ -9,7 +9,10 @@ file runs on a machine that has only PyTorch:
 Tolerances: ``lstm_seq`` atol = rtol = 1e-4 (float32 sums in another
 order over up to 97 recurrent steps); the attention kernels each element
 within ``repro_torch.kernels.attn_tolerance`` (one bf16 ulp plus 1.5e-2
-of the row's RMS in bfloat16, 1e-4 of both in float32).
+of the row's RMS in bfloat16, 1e-4 of both in float32); ``ssd_chunk``
+each element within 1e-4 of its (batch*chunk, head) block's RMS
+(``ssd_chunk.ref.ssd_err``: float32 sums over N and C in another
+order).
 """
 import numpy as np
 import pytest
@@ -21,6 +24,8 @@ from repro_torch.kernels.decode_gqa import ref as dec_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.lstm_seq import lstm_seq_ref, ops
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.kernels.ssd_chunk import ref as ssd_ref
 
 torch.set_num_threads(1)
 
@@ -151,3 +156,101 @@ def test_attention_kernels_reject_misaligned_views(card):
                                  torch.ones(1, dtype=torch.int32).cuda())
     torch.cuda.synchronize()                # the context is still sound
     assert (fa_ops.LAUNCHES, dec_ops.LAUNCHES) == before
+
+
+def _ssd_inputs(BC, C, N, H, P, decay, seed=8):
+    """cm, bm, xdt and cum on the card.  decay "kernels" keeps the
+    cumulative decay far above exp(-60) over a chunk (an error far below
+    the diagonal shows); "model" takes the model's range of A (down to
+    -16), which drives cum past the clip."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    cm, bm = f(BC, C, N) * 0.3, f(BC, C, N) * 0.3
+    xdt = f(BC, H, C, P) * 0.25
+    if decay == "kernels":
+        la = -np.logaddexp(f(BC, H, C), 0.0) * 0.5 * np.exp(
+            f(H) * 0.3)[None, :, None]
+    else:
+        la = -np.logaddexp(f(BC, H, C) + 1.0, 0.0) * np.linspace(
+            1.0, 16.0, H)[None, :, None]
+    cum = np.cumsum(la, axis=-1).astype(np.float32)
+    return [torch.as_tensor(a).cuda() for a in (cm, bm, xdt, cum)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", ["kernels", "model"])
+@pytest.mark.parametrize("BC,C,N,H,P", [(64, 128, 128, 80, 64),
+                                        (6, 16, 32, 7, 16),
+                                        (5, 64, 128, 9, 64),
+                                        (3, 32, 64, 5, 32),
+                                        (2, 128, 16, 3, 16)])
+def test_ssd_chunk_kernel_matches_plain(card, BC, C, N, H, P, decay):
+    args = _ssd_inputs(BC, C, N, H, P, decay)
+    before = ssd_ops.LAUNCHES
+    with torch.no_grad():
+        got = ssd_ops.ssd_intra(*args)
+        want = ssd_ref.ssd_intra_ref(*args)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert ssd_ref.ssd_err(got, want)[1] <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,chunk", [(100, 32), (256, 128), (48, 16)])
+def test_ssd_forward_on_the_card_matches_the_scan(card, T, chunk):
+    """ssd_forward (the kernel plus the inter-chunk bmm's) against the
+    sequential scan, as tests/test_kernels.py holds the JAX routes."""
+    rng = np.random.default_rng(9)
+    B, H, P, N = 2, 5, 32, 64
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
+        np.float32)).cuda()
+    x = f(B, T, H, P) * 0.5
+    dt = torch.nn.functional.softplus(f(B, T, H)) * 0.5
+    A = -torch.exp(f(H) * 0.3)
+    Bm, Cm = f(B, T, N) * 0.3, f(B, T, N) * 0.3
+    before = ssd_ops.LAUNCHES
+    with torch.no_grad():
+        y, S = ssd_ops.ssd_forward(x, dt, A, Bm, Cm, chunk=chunk)
+        ys, Ss = ssd_ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(y, ys, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(S, Ss, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_kernel_rejects_what_it_does_not_take(card):
+    cm, bm, xdt, cum = _ssd_inputs(2, 32, 16, 3, 16, "kernels")
+    before = ssd_ops.LAUNCHES
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="float32"):
+            ssd_ops.ssd_intra(cm.double(), bm, xdt, cum)
+        with pytest.raises(TypeError, match="float32"):
+            ssd_ops.ssd_intra(cm, bm, xdt.bfloat16(), cum)
+        with pytest.raises(ValueError, match="on cpu"):
+            ssd_ops.ssd_intra(cm, bm.cpu(), xdt, cum)
+        with pytest.raises(ValueError, match="contiguous"):
+            ssd_ops.ssd_intra(cm, bm, xdt.transpose(2, 3).contiguous()
+                              .transpose(2, 3), cum)
+        with pytest.raises(ValueError, match="C=48"):
+            a = _ssd_inputs(2, 48, 16, 3, 16, "kernels")
+            ssd_ops.ssd_intra(*a)
+        with pytest.raises(ValueError, match="P=8"):
+            a = _ssd_inputs(2, 32, 16, 3, 8, "kernels")
+            ssd_ops.ssd_intra(*a)
+        with pytest.raises(ValueError, match="N=256"):
+            a = _ssd_inputs(2, 32, 256, 3, 16, "kernels")
+            ssd_ops.ssd_intra(*a)
+        with pytest.raises(ValueError, match="do not agree"):
+            ssd_ops.ssd_intra(cm, bm, xdt, cum[:, :2].contiguous())
+        buf = torch.zeros(1 + cm.numel(), device="cuda")
+        view = buf[1:].view_as(cm)          # 4 bytes past the start
+        view.copy_(cm)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            ssd_ops.ssd_intra(view, bm, xdt, cum)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_ops.ssd_intra(cm.clone().requires_grad_(), bm, xdt, cum)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before

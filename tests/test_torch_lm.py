@@ -1,10 +1,15 @@
-"""The port's dense LM (``repro_torch.models``) against the JAX package's
+"""The port's LM (``repro_torch.models``) against the JAX package's
 ``LM`` on smoke configs, with the JAX parameters carried over by
 ``lm_params_from_numpy``.
 
 Configs: internlm2 (GQA), minicpm (MHA, tied embeddings) and deepseek
-(MHA), each in float32 (their smoke dtype) and in a bfloat16 variant
-made with ``dataclasses.replace``.  Token ids are drawn with NumPy.
+(MHA) of the dense family, and mamba2 (the SSM family: 2 layers,
+d_model 64, 8 SSM heads of 16, state 16, chunk 16), each in float32
+(their smoke dtype) and in a bfloat16 variant made with
+``dataclasses.replace``.  Token ids are drawn with NumPy.  The mamba2
+prompts are S = 16 (a multiple of the chunk) and S = 37, where the JAX
+stack falls back to chunk 1 (``_pick_chunk``) and the port pads to the
+chunk: the same function either way.
 
 Tolerances:
 - float32: atol = rtol = 2e-5 (the same float32 arithmetic, summed in
@@ -25,13 +30,17 @@ import pytest
 import torch
 
 from repro.configs.registry import get_arch as jax_get_arch
+from repro.models import ssm as jax_ssm
 from repro.models.layers import Ctx
 from repro.models.model import build_model as jax_build_model
 from repro_torch.configs import ARCHS, SMOKES, get_arch
 from repro_torch.kernels.decode_gqa import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.models import (LM, lm_params_from_numpy, make_decode_step,
                                 make_prefill_step)
+from repro_torch.models import ssm as SSM
+from repro_torch.models.transformer import layer_params
 
 torch.set_num_threads(1)
 ARCH_NAMES = ["internlm2-1.8b", "minicpm-2b", "deepseek-7b"]
@@ -185,10 +194,221 @@ def test_lm_params_from_numpy_checks_keys():
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "olmoe-1b-7b",
-                                  "mamba2-2.7b", "jamba-v0.1-52b",
-                                  "whisper-tiny", "internvl2-76b"])
+                                  "jamba-v0.1-52b", "whisper-tiny",
+                                  "internvl2-76b"])
 def test_later_families_raise(name):
     with pytest.raises(NotImplementedError, match="slice"):
         LM(get_arch(name, smoke=True), device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
         lm_params_from_numpy(get_arch(name, smoke=True), {})
+
+
+def test_hybrid_names_the_moe_slice():
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        LM(get_arch("jamba-v0.1-52b", smoke=True), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (the SSM family)
+# ---------------------------------------------------------------------------
+MAMBA = "mamba2-2.7b"
+SSM_S = (16, 37)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def mamba(request):
+    dtype = request.param
+    jcfg = dataclasses.replace(jax_get_arch(MAMBA, smoke=True),
+                               param_dtype=dtype)
+    cfg = dataclasses.replace(get_arch(MAMBA, smoke=True), param_dtype=dtype)
+    jmodel = jax_build_model(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(0))
+    model = LM(cfg, device="cpu").load_numpy(
+        jax.tree.map(np.asarray, params))
+    return dict(jmodel=jmodel, params=params, model=model, dtype=dtype,
+                cfg=cfg, jcfg=jcfg)
+
+
+def _toks(cfg, S, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+
+
+def test_ssm_family_builds():
+    """mamba2 is no longer a later family: it builds, draws the JAX
+    layout (A_log, D, dt_bias in float32 in a bf16 model) and runs."""
+    cfg = get_arch(MAMBA, smoke=True)
+    jparams = jax_build_model(jax_get_arch(MAMBA, smoke=True)).init(
+        jax.random.PRNGKey(0))
+    bf16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+    model = LM(bf16, device="cpu").init(torch.Generator().manual_seed(0))
+    shapes = jax.tree.map(lambda x: tuple(x.shape), jparams)
+
+    def tshapes(x):
+        if isinstance(x, dict):
+            return {k: tshapes(v) for k, v in x.items()}
+        return tuple(x.shape)
+    assert tshapes(model.params) == shapes
+    mixer = model.params["stack"]["mixer"]
+    assert mixer["w_in"].dtype == torch.bfloat16
+    for k in SSM.FLOAT32_KEYS:
+        assert mixer[k].dtype == torch.float32
+    np.testing.assert_allclose(mixer["A_log"][0].numpy(),
+                               np.log(np.linspace(1.0, 16.0, 8)), rtol=1e-6)
+    assert model.param_count() == sum(
+        x.size for x in jax.tree.leaves(jparams))
+    assert torch.isfinite(model.forward(
+        {"tokens": torch.zeros((1, 5), dtype=torch.int32)}).float()).all()
+
+
+def test_ssm_params_carry_over_bit_for_bit(mamba):
+    """A_log, D and dt_bias stay float32 in the bf16 variant, bit for bit
+    (cast to bf16, A_log would move every decay rate); the weights take
+    the config's dtype."""
+    model, params = mamba["model"], mamba["params"]
+    mixer, jmixer = model.params["stack"]["mixer"], params["stack"]["mixer"]
+    for k in SSM.FLOAT32_KEYS:
+        assert mixer[k].dtype == torch.float32
+        np.testing.assert_array_equal(mixer[k].numpy(), np.asarray(jmixer[k]))
+    assert mixer["w_in"].dtype == model.dtype
+    np.testing.assert_array_equal(
+        mixer["w_in"].float().numpy(),
+        np.asarray(jmixer["w_in"].astype(jnp.float32)))
+
+
+def test_lm_params_from_numpy_checks_ssm_keys(mamba):
+    tree = jax.tree.map(np.asarray, mamba["params"])
+    del tree["stack"]["mixer"]["A_log"]
+    with pytest.raises(ValueError, match="A_log"):
+        lm_params_from_numpy(mamba["cfg"], tree)
+    tree = jax.tree.map(np.asarray, mamba["params"])
+    tree["stack"]["ffn"] = {}
+    with pytest.raises(ValueError, match="ffn"):
+        lm_params_from_numpy(mamba["cfg"], tree)
+
+
+@pytest.mark.parametrize("S", SSM_S)
+def test_ssm_forward_matches_jax(mamba, S):
+    toks = _toks(mamba["cfg"], S)
+    jlogits, _ = mamba["jmodel"].forward(
+        mamba["params"], {"tokens": jnp.asarray(toks)}, Ctx())
+    logits = mamba["model"].forward({"tokens": torch.as_tensor(toks)})
+    _close(logits, jlogits, mamba["dtype"])
+
+
+@pytest.mark.parametrize("S", SSM_S)
+def test_ssm_prefill_and_decode_match_jax(mamba, S):
+    """prefill(pad_to=) logits and the ssm/conv caches, then three
+    decode steps' logits and caches, against the JAX LM."""
+    jmodel, params, model = mamba["jmodel"], mamba["params"], mamba["model"]
+    cfg, dtype = mamba["cfg"], mamba["dtype"]
+    toks = _toks(cfg, S)
+    jl, jc = jmodel.prefill(params, {"tokens": jnp.asarray(toks)}, Ctx(),
+                            pad_to=S + STEPS)
+    logits, cache = make_prefill_step(model, pad_to=S + STEPS)(
+        {"tokens": torch.as_tensor(toks)})
+    _close(logits, jl, dtype)
+    assert set(cache) == {"ssm", "conv"}
+    assert cache["ssm"].dtype == torch.float32
+    assert cache["conv"].dtype == model.dtype
+    for name in ("ssm", "conv"):
+        _close(cache[name], jc[name], dtype)
+    rng = np.random.default_rng(2)
+    decode = make_decode_step(model)
+    for step in range(STEPS):
+        tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+        pos = np.full((B,), S + step, np.int32)
+        jl, jc = jmodel.decode_step(params, jc, {"token": jnp.asarray(tok),
+                                                 "pos": jnp.asarray(pos)},
+                                    Ctx())
+        nxt, logits, cache = decode(cache, {"token": torch.as_tensor(tok),
+                                            "pos": torch.as_tensor(pos)})
+        _close(logits, jl, dtype)
+        for name in ("ssm", "conv"):
+            _close(cache[name], jc[name], dtype)
+        np.testing.assert_array_equal(nxt.numpy(),
+                                      logits.argmax(-1).numpy())
+
+
+@pytest.mark.parametrize("S", SSM_S)
+def test_ssm_fwd_matches_the_jax_pallas_route(mamba, S):
+    """One layer's Mamba-2 block against the JAX block's kernel route,
+    ``ssm_fwd(use_pallas=True)`` (the Pallas kernel in interpret mode),
+    which pads T to the chunk as the port does."""
+    cfg, jcfg, params = mamba["cfg"], mamba["jcfg"], mamba["params"]
+    jp = jax.tree.map(lambda x: x[0], params["stack"]["mixer"])
+    rng = np.random.default_rng(3)
+    h = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    jh = jnp.asarray(h, params["embed"].dtype)
+    jy, jstate = jax_ssm.ssm_fwd(jp, jh, Ctx(), jcfg, use_pallas=True,
+                                 chunk=jcfg.ssd_chunk)
+    p = layer_params(mamba["model"].params["stack"]["mixer"], 0)
+    y, state = SSM.ssm_fwd(p, torch.as_tensor(h).to(mamba["model"].dtype),
+                           cfg)
+    _close(y, jy, mamba["dtype"])
+    for name in ("ssm", "conv"):
+        _close(state[name], jstate[name], mamba["dtype"])
+
+
+def test_ssm_cache_passes_through_pad_to_unchanged(mamba):
+    """pad_to grows k/v caches only: the SSM and conv states have no
+    sequence dimension and come out of prefill(pad_to=) as they are."""
+    model = mamba["model"]
+    toks = torch.as_tensor(_toks(mamba["cfg"], 16))
+    _, plain = model.prefill({"tokens": toks})
+    _, padded = model.prefill({"tokens": toks}, pad_to=64)
+    for name in ("ssm", "conv"):
+        assert padded[name].shape == plain[name].shape
+        torch.testing.assert_close(padded[name], plain[name], atol=0, rtol=0)
+
+
+def test_ssm_fwd_conv_state_owns_its_memory(mamba):
+    """The conv state a prefill layer returns is a (B, K-1, conv_dim)
+    copy, not a view that keeps the whole padded input alive until the
+    layers' caches are stacked (64 x 88 MB at the mamba2-2.7b prefill)."""
+    cfg = mamba["cfg"]
+    p = layer_params(mamba["model"].params["stack"]["mixer"], 0)
+    h = torch.zeros((B, 37, cfg.d_model), dtype=mamba["model"].dtype)
+    _, state = SSM.ssm_fwd(p, h, cfg)
+    conv = state["conv"]
+    assert conv.untyped_storage().nbytes() == \
+        conv.numel() * conv.element_size()
+
+
+def test_ssm_prefill_plus_decode_is_forward(mamba):
+    """forward at position S-1 == prefill of S-1 tokens + one decode
+    step of token S-1 (the port against itself)."""
+    model, dtype = mamba["model"], mamba["dtype"]
+    toks = _toks(mamba["cfg"], 21)
+    full = model.forward({"tokens": torch.as_tensor(toks)})[:, -1]
+    _, cache = model.prefill({"tokens": torch.as_tensor(toks[:, :-1])})
+    logits, _ = model.decode_step(
+        cache, {"token": torch.as_tensor(toks[:, -1:]),
+                "pos": torch.full((B,), 20, dtype=torch.int32)})
+    _close(logits, full.float().numpy(), dtype)
+
+
+def test_ssm_cpu_path_launches_no_kernel(mamba):
+    before = ssd_ops.LAUNCHES
+    model = mamba["model"]
+    _, cache = model.prefill({"tokens": torch.as_tensor(
+        _toks(mamba["cfg"], 37))})
+    model.decode_step(cache, {"token": torch.zeros((B, 1), dtype=torch.int32),
+                              "pos": torch.full((B,), 37, dtype=torch.int32)})
+    assert ssd_ops.LAUNCHES == before
+
+
+def test_ssm_init_cache_layout():
+    cfg = get_arch(MAMBA, smoke=True)
+    cache = LM(cfg, device="cpu").init_cache(3, 40, torch.bfloat16)
+    conv_dim = cfg.ssm_expand * cfg.d_model + 2 * cfg.ssm_state
+    assert cache["ssm"].shape == (cfg.n_layers, 3, cfg.n_ssm_heads,
+                                  cfg.ssm_state, cfg.ssm_headdim)
+    assert cache["ssm"].dtype == torch.float32
+    assert cache["conv"].shape == (cfg.n_layers, 3, cfg.ssm_conv - 1,
+                                   conv_dim)
+    assert cache["conv"].dtype == torch.bfloat16
+    jcache = jax_build_model(jax_get_arch(MAMBA, smoke=True)).init_cache(
+        3, 40)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: tuple(v.shape) for k, v in jcache.items()}
