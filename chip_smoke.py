@@ -84,7 +84,37 @@ no result:
                         recurrence is plain in the reference too);
 14. ``lm:mamba2_parity``  the mamba2 weights cut to 2 layers, CPU
                         against card as in phase 10, within
-                        ``MAMBA_TOL``.
+                        ``MAMBA_TOL``;
+15. ``kernel:lstm_cell``  the fused LSTM step against ``lstm_cell_ref``
+                        at the rollout shape (B, F, H) = (8, 16, 256),
+                        the update shapes (32, 16, 256) and (32, 23, 256),
+                        the JAX kernel tests' shapes and H = 8 and 16, in
+                        float32 (within 1e-5) and bfloat16 (3e-2); the
+                        autograd Function's gradient against autograd of
+                        the plain version (1e-5); kernel, plain and
+                        ``torch.lstm_cell`` times (device time from a
+                        CUDA graph, and eager back-to-back calls) beside
+                        the bound;
+16. ``train:rl_train``  the training driver ``repro_torch.launch.rl_train.
+                        main`` at the paper's policy width (hidden 256,
+                        light workload, paper6, 96 RQ slots, 64 jobs, 60
+                        periods, 8 episodes a round, batch 32): three
+                        rounds, the first a warm-up round, one update per
+                        episode, a crash at ``--fail-at 16`` and a rerun
+                        in the same outdir that must resume, an eval on 2
+                        seeds and, in the rerun, the fcfs, prema and
+                        herald baselines;
+                        ``lstm_cell`` launches exactly T = 97 per rollout
+                        or eval period and 5 T per update; round,
+                        rollout-period and update times (synchronised
+                        host clock) and peak memory;
+17. ``train:parity``    one round (rollout, ring write, 4 updates) at
+                        hidden 256 and 8 periods from the same state,
+                        buffer and draws on the CPU (plain versions) and
+                        on the card (kernels): equal ``counted`` and
+                        ``hits``, transitions within ``TRAIN_TOL``,
+                        losses within rtol 1e-3, parameters within
+                        2 lr per update.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -147,6 +177,24 @@ SERVE_ARGS = ["--workload", "mixed", "--fleet", "paper6", "--hidden", "256",
               "--periods", "60", "--max-rq", "96", "--max-jobs", "64"]
 KERNEL_SHAPES = [(97, 32, 16, 256), (97, 1, 16, 256), (97, 32, 16, 64),
                  (12, 33, 23, 64)]
+# (B, F, H) of the lstm_cell check: the rollout step (8 episodes), the
+# update steps (batch 32; actor F = 16, critic F + G = 23), the JAX
+# kernel tests' shapes (tests/test_kernels.py), and H = 8 and 16
+CELL_SHAPES = [(8, 16, 256), (32, 16, 256), (32, 23, 256), (4, 16, 64),
+               (97, 16, 256), (32, 20, 128), (1, 7, 32), (129, 16, 64),
+               (8, 16, 8), (32, 23, 16)]
+CELL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+RL_T = 97                       # LSTM steps: 1 primer + 96 RQ slots
+RL_ARGS = ["--workload", "light", "--fleet", "paper6", "--hidden", "256",
+           "--max-rq", "96", "--max-jobs", "64", "--periods", "60",
+           "--batch-episodes", "8", "--batch-size", "32", "--episodes", "24",
+           "--updates-per-episode", "1", "--warmup-episodes", "8",
+           "--ckpt-every", "8", "--eval-every", "24", "--eval-seeds", "2"]
+RL_FAIL_AT = 16
+# card against CPU for one round: float32 sums in another order (the
+# kernel's FMA chains against the CPU's GEMMs over 97 steps; the
+# engine's event times)
+TRAIN_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def card() -> str:
@@ -408,6 +456,7 @@ class Spans:
     def __init__(self, targets):
         self.targets = targets          # [(module, attr, label)]
         self.us = {label: 0.0 for _, _, label in targets}
+        self.each = {label: [] for _, _, label in targets}
 
     def __enter__(self):
         self.saved = []
@@ -420,7 +469,9 @@ class Spans:
                 t0 = time.perf_counter()
                 out = _fn(*a, **k)
                 torch.cuda.synchronize()
-                self.us[_label] += (time.perf_counter() - t0) * 1e6
+                us = (time.perf_counter() - t0) * 1e6
+                self.us[_label] += us
+                self.each[_label].append(us)
                 return out
             setattr(mod, attr, timed)
         return self
@@ -958,6 +1009,308 @@ def mamba_parity_phase(model_full, CARD):
                              f"{ssd_ops.LAUNCHES} times, expected 2")
 
 
+# ---------------------------------------------------------------------------
+# RELMAS training
+# ---------------------------------------------------------------------------
+def graph_ms(fn, calls: int = 50) -> float:
+    """Device time of one ``fn()``: ``calls`` calls captured in one CUDA
+    graph, the graph replayed, the mean taken.  Host dispatch drops
+    out, so kernels of a few microseconds are timed and not the Python
+    that launches them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps=10) / calls
+
+
+def cell_inputs(B, F, H, dtype, gen):
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    args = [rnd(B, F), rnd(B, H), rnd(B, H), rnd(F, 4 * H) * 0.1,
+            rnd(H, 4 * H) * 0.1, rnd(4 * H) * 0.1]
+    return [a.to(dtype).contiguous() for a in args]
+
+
+def cell_bound_ms(B, F, H, esz) -> tuple[float, str]:
+    """Least time for one step: its multiply-adds (2 B (F+H) 4H) over the
+    float32 peak, or its bytes (x, h, c and the weights read once, h2
+    and c2 written once) over the memory rate, whichever is larger."""
+    flops = 2.0 * B * (F + H) * 4 * H
+    nbytes = esz * (B * F + 2 * B * H + (F + H) * 4 * H + 4 * H + 2 * B * H)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+
+
+def check_cell(ops, ref, CARD):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    max_err = 0.0
+    with torch.no_grad():
+        for (B, F, H) in CELL_SHAPES:
+            for dt, tol in CELL_TOL.items():
+                args = cell_inputs(B, F, H, dt, gen)
+                got = ops.lstm_cell(*args)
+                want = ref.lstm_cell_ref(*args)
+                torch.cuda.synchronize()
+                err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(got, want))
+                ok = all(torch.allclose(g.float(), w.float(), atol=tol,
+                                        rtol=tol) for g, w in zip(got, want))
+                print(f"  lstm_cell B={B} F={F} H={H} {str(dt)[6:]} "
+                      f"max_abs_err={err:.3e} (tol {tol}) ok={ok}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"lstm_cell disagrees with its "
+                                         f"plain version at {(B, F, H)} "
+                                         f"{dt}")
+                if dt == torch.float32:
+                    max_err = max(max_err, err)
+    # the Function's backward (plain, recomputed gates) after the kernel
+    # forward, against autograd through the plain version
+    B, F, H = 32, 23, 256
+    arrs = cell_inputs(B, F, H, torch.float32, gen)
+    wts = [torch.randn((B, H), generator=gen, device="cuda")
+           for _ in range(2)]
+    grads = []
+    for fn in (ops.lstm_cell, ref.lstm_cell_ref):
+        args = [a.clone().requires_grad_() for a in arrs]
+        h2, c2 = fn(*args)
+        ((h2 * wts[0]).sum() + (c2 * wts[1]).sum()).backward()
+        grads.append([a.grad for a in args])
+    gerr = max((g - w).abs().max().item() for g, w in zip(*grads))
+    gok = all(torch.allclose(g, w, atol=1e-5, rtol=1e-5)
+              for g, w in zip(*grads))
+    print(f"  lstm_cell gradient B={B} F={F} H={H} float32: max_abs_err="
+          f"{gerr:.3e} (tol 1e-5) ok={gok}", flush=True)
+    if not gok:
+        raise AssertionError("lstm_cell's gradient disagrees with autograd "
+                             "of its plain version")
+    main = None
+    with torch.no_grad():
+        for (B, F, H) in CELL_SHAPES[:3]:
+            args = cell_inputs(B, F, H, torch.float32, gen)
+            x, h, c, wx, wh, b = args
+            w_ih, w_hh = wx.t().contiguous(), wh.t().contiguous()
+            b0 = torch.zeros_like(b)
+            lib = lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, b0)
+            lib_err = max((g - w).abs().max().item() for g, w in
+                          zip(lib(), ref.lstm_cell_ref(*args)))
+            # eager: back-to-back calls from Python, what the step loop
+            # pays per call; graph: the device's time for the same work
+            eager = [cuda_ms(f, reps=200) for f in (
+                lambda: ops.lstm_cell(*args),
+                lambda: ref.lstm_cell_ref(*args), lib)]
+            ms, plain_ms, library_ms = (graph_ms(f) for f in (
+                lambda: ops.lstm_cell(*args),
+                lambda: ref.lstm_cell_ref(*args), lib))
+            bound_ms, bound_by = cell_bound_ms(B, F, H, 4)
+            print(f"  lstm_cell B={B} F={F} H={H} float32 [{CARD}]: "
+                  f"device (CUDA graph) kernel_ms={ms:.5f} "
+                  f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+                  f"(torch.lstm_cell, max_abs_err vs plain {lib_err:.2e}); "
+                  f"eager back-to-back kernel_ms={eager[0]:.5f} "
+                  f"plain_ms={eager[1]:.5f} library_ms={eager[2]:.5f}; "
+                  f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+            if main is None:            # the rollout step: most launches
+                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms)
+    return dict(max_abs_err=max_err, **main)
+
+
+def rl_expected_launches(rounds, eval_runs, updates, periods=60):
+    """lstm_cell launches the training phase implies: T per rollout or
+    eval period (the actor's step recurrence), 5 T per DDPG update
+    (target actor, target critic, critic, actor, critic on the actor's
+    actions)."""
+    return RL_T * (periods * (rounds + eval_runs) + 5 * updates)
+
+
+def rl_train_phase(CARD):
+    import io
+    import shutil
+
+    from repro_torch.core import ddpg, rollout
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.launch import rl_train
+    out = os.path.join(ROOT, "runs", "chip_smoke_rl_train")
+    shutil.rmtree(out, ignore_errors=True)
+    # the baselines are scored once, by the resumed run
+    args = RL_ARGS + ["--outdir", out]
+    base = ["--eval-baselines", "fcfs,prema,herald"]
+    spans = Spans([(rl_train, "train_rounds_host", "round"),
+                   (rollout, "collect_episodes", "rollout"),
+                   (ddpg, "ddpg_update", "update")])
+    torch.cuda.reset_peak_memory_stats()
+    cell_ops.LAUNCHES = 0
+    with spans:
+        try:
+            rl_train.main(args + ["--fail-at", str(RL_FAIL_AT)])
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+            print(f"  train:rl_train crashed as injected: {e}", flush=True)
+        else:
+            raise AssertionError("--fail-at did not crash the driver")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            res = rl_train.main(args + base)
+    launches = cell_ops.LAUNCHES
+    print(log.getvalue(), end="", flush=True)
+    if "[resume] restored checkpoint at episode 15" not in log.getvalue():
+        raise AssertionError("train:rl_train: the rerun did not resume")
+    # 3 rounds rolled out (2 before the crash, 1 after), one eval at the
+    # end, 8 updates in each of the two rounds past the warm-up
+    want = rl_expected_launches(rounds=3, eval_runs=1, updates=16)
+    if launches != want:
+        raise AssertionError(f"train:rl_train: lstm_cell launched "
+                             f"{launches} times, expected {want}")
+    hist = res["history"]
+    last = hist[-1]
+    if [h["episode"] for h in hist] != [23] or res["state"].step != 16 or \
+            not all(np.isfinite(last[k]) for k in
+                    ("critic_loss", "actor_loss", "q_mean", "target_mean")) \
+            or not 0.0 <= last["eval_sla"] <= 1.0:
+        raise AssertionError(f"train:rl_train: history {hist}, step "
+                             f"{res['state'].step}")
+    n = {k: len(v) for k, v in spans.each.items()}
+    if n != {"round": 3, "rollout": 3, "update": 16}:
+        raise AssertionError(f"train:rl_train: spans {n}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  train:rl_train light/paper6 hidden=256 T={RL_T} 8 episodes x "
+          f"60 periods a round, batch 32 [{CARD}]: rounds=3 (1 warm-up) "
+          f"updates=16 round_ms="
+          f"{'/'.join(f'{us / 1e3:.1f}' for us in spans.each['round'])} "
+          f"(a warm-up round, then two of 8 updates) rollout_period_ms="
+          f"{spans.us['rollout'] / 180e3:.2f} update_ms p50="
+          f"{pct(spans.each['update'], 50) / 1e3:.1f} mean="
+          f"{spans.us['update'] / 16e3:.1f} "
+          f"peak_mem_gb={peak_gb:.3f} lstm_cell launches={launches} "
+          f"critic_loss={last['critic_loss']} eval_sla={last['eval_sla']} "
+          f"baselines="
+          f"{ {k: v['sla_rate'] for k, v in res['baselines'].items()} }",
+          flush=True)
+    return launches
+
+
+def train_parity_phase(CARD):
+    """One round from the same state, buffer and draws on the CPU (plain
+    versions) and on the card (kernels)."""
+    from repro_torch.core import ddpg as D
+    from repro_torch.core import policy as P
+    from repro_torch.core import rollout
+    from repro_torch.core import train as TR
+    from repro_torch.core.replay import replay_init
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.launch import rl_train
+    kw = dict(batch_episodes=8, num_updates=4, batch_size=32,
+              sigma_min=0.05, sigma_decay=0.97)
+    cfg = rl_train.TrainConfig(workload="light", fleet="paper6", hidden=256,
+                               periods=8, max_rq=96, max_jobs=64)
+    envs = {d: rl_train.build_env(dataclasses.replace(cfg, device=d))
+            for d in ("cpu", "cuda")}
+    env = envs["cpu"]
+    dcfg = D.DDPGConfig(policy=P.PolicyConfig(
+        feat_dim=env.feat_dim, act_dim=env.act_dim, hidden=cfg.hidden))
+    state0 = D.init_ddpg(torch.Generator().manual_seed(0), dcfg, "cpu")
+    n = kw["batch_episodes"] * cfg.periods
+    draws = TR.round_draws(env, TR.round_keys(1, 0, 1)[0],
+                           batch_episodes=kw["batch_episodes"],
+                           num_updates=kw["num_updates"],
+                           batch_size=kw["batch_size"], size_after=n)
+    res, mets = {}, {}
+    inner = rollout.collect_episodes
+
+    def capture(*a, **k):
+        out = inner(*a, **k)
+        mets[dev] = out[3]
+        return out
+    rollout.collect_episodes = capture
+    try:
+        for dev in ("cpu", "cuda"):
+            state = D.DDPGState(**{
+                f.name: D.tree_map(lambda t: t.to(dev),
+                                   getattr(state0, f.name))
+                for f in dataclasses.fields(state0) if f.name != "step"},
+                step=0)
+            buf = replay_init(4000, env.seq_len, env.feat_dim, env.act_dim,
+                              dev)
+            cell_ops.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[dev] = TR._round_body(envs[dev], dcfg, **kw)(
+                state, buf, draws, 0.4, True)
+            torch.cuda.synchronize()
+            print(f"  train:parity round on {dev} [{CARD}]: "
+                  f"{time.perf_counter() - t0:.2f}s lstm_cell launches="
+                  f"{cell_ops.LAUNCHES}", flush=True)
+    finally:
+        rollout.collect_episodes = inner
+    want = RL_T * (cfg.periods + 5 * kw["num_updates"])
+    if cell_ops.LAUNCHES != want:
+        raise AssertionError(f"train:parity: {cell_ops.LAUNCHES} lstm_cell "
+                             f"launches on the card, expected {want}")
+    for k in ("counted", "hits"):
+        c, g = mets["cpu"][k].tolist(), mets["cuda"][k].cpu().tolist()
+        if c != g:
+            raise AssertionError(f"train:parity: {k} {g} on the card, {c} "
+                                 f"on the CPU")
+    (sc, bc, _, mc), (sg, bg, _, mg) = res["cpu"], res["cuda"]
+    worst = {}
+    for k in ("mask", "mask2"):
+        if not torch.equal(bc[k], bg[k].cpu()):
+            raise AssertionError(f"train:parity: ring field {k} differs")
+    for k in ("s", "a", "r", "s2"):
+        worst[k] = (bc[k] - bg[k].cpu()).abs().max().item()
+        if not torch.allclose(bg[k].cpu(), bc[k], **TRAIN_TOL):
+            raise AssertionError(f"train:parity: ring field {k} differs by "
+                                 f"{worst[k]:.3e}")
+    for k in TR.INFO_KEYS + ("sla", "reward", "energy_uj"):
+        if not np.isclose(mg[k], mc[k], atol=1e-5, rtol=1e-3):
+            raise AssertionError(f"train:parity: {k} {mg[k]} on the card, "
+                                 f"{mc[k]} on the CPU")
+    U = kw["num_updates"]
+    pworst = 0.0
+    for name, lr in (("actor", dcfg.actor_lr), ("critic", dcfg.critic_lr),
+                     ("target_actor", dcfg.tau * dcfg.actor_lr),
+                     ("target_critic", dcfg.tau * dcfg.critic_lr)):
+        for c, g in zip(D.tree_leaves(getattr(sc, name)),
+                        D.tree_leaves(getattr(sg, name))):
+            d = (c - g.cpu()).abs().max().item()
+            lim = 2 * lr * U + 1e-5 * c.abs().max().item()
+            pworst = max(pworst, d / lim)
+            if d > lim:
+                raise AssertionError(f"train:parity: {name} moved {d:.3e} "
+                                     f"apart (limit {lim:.3e})")
+    print(f"  train:parity hidden=256 8 episodes x {cfg.periods} periods, "
+          f"{U} updates, CPU vs [{CARD}]: counted="
+          f"{int(mets['cpu']['counted'].sum())} hits="
+          f"{int(mets['cpu']['hits'].sum())} (equal) ring max_abs_err "
+          + " ".join(f"{k}={v:.3e}" for k, v in worst.items())
+          + f" (atol/rtol {TRAIN_TOL['atol']}) critic_loss cpu="
+          f"{mc['critic_loss']:.6f} card={mg['critic_loss']:.6f} "
+          f"actor_loss cpu={mc['actor_loss']:.6f} "
+          f"card={mg['actor_loss']:.6f} params worst/limit={pworst:.3f}",
+          flush=True)
+    # where a round's time goes on the card: one update, one period
+    from repro_torch.core.replay import replay_sample
+    batch = replay_sample(bg, idx=draws["idx"][0].cuda())
+    profile_window(lambda: D.ddpg_update(sg, dcfg, batch),
+                   "one DDPG update (B = 32, T = 97)", CARD)
+    env = envs["cuda"]
+    tr, st = env.new_episodes_torch(torch.Generator(device="cuda")
+                                    .manual_seed(2), kw["batch_episodes"])
+    act = rollout._policy_act_fn(sg.actor, dcfg.policy)
+    with torch.no_grad():
+        profile_window(lambda: env.period(
+            st, tr, lambda f, m, sl, s_: act(f, m, sl, s_, None)),
+            "one rollout period (8 episodes)", CARD)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -967,6 +1320,8 @@ def main() -> int:
     from repro_torch.kernels.decode_gqa import ref as dec_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.kernels.lstm_cell import ref as cell_ref
     from repro_torch.kernels.lstm_seq import ops, ref
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.kernels.ssd_chunk import ref as ssd_ref
@@ -979,7 +1334,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     with phase("build"):
-        build_all(["lstm_seq", "flash_attention", "decode_gqa", "ssd_chunk"])
+        build_all(["lstm_seq", "flash_attention", "decode_gqa", "ssd_chunk",
+                   "lstm_cell"])
     with phase("kernel:lstm_seq"):
         kinfo = check_kernel(ops, ref, CARD)
     with phase("kernel:flash_attention"):
@@ -1011,6 +1367,14 @@ def main() -> int:
         mamba_batcher_phase(model, CARD)
     with phase("lm:mamba2_parity"):
         mamba_parity_phase(model, CARD)
+    del model
+    torch.cuda.empty_cache()
+    with phase("kernel:lstm_cell"):
+        cell_info = check_cell(cell_ops, cell_ref, CARD)
+    with phase("train:rl_train"):
+        cell_launches = rl_train_phase(CARD)
+    with phase("train:parity"):
+        train_parity_phase(CARD)
 
     kernels = [
         dict(name="lstm_seq", route="cuda",
@@ -1029,7 +1393,11 @@ def main() -> int:
         dict(name="ssd_chunk", route="cuda",
              source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:45",
-             launches=ssd_launches, **ssd_info)]
+             launches=ssd_launches, **ssd_info),
+        dict(name="lstm_cell", route="cuda",
+             source="src/repro_torch/csrc/lstm_cell.cu",
+             replaces="src/repro/kernels/lstm_cell/lstm_cell.py:51",
+             launches=cell_launches, **cell_info)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {

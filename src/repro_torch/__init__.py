@@ -5,8 +5,10 @@ for module: ``costmodel`` and ``workloads`` build the tables,
 ``sim`` holds the arrival process, the contention engine and the
 periodic environment, ``core`` the actor, heuristics and the serving
 tick, ``serving`` the request queue and service, ``launch.serve`` the
-driver; ``configs``, ``models`` and ``serving.batcher`` the LM data
-plane (dense and Mamba-2 families).  Every kernel of those paths
+driver; ``core.ddpg``/``replay``/``rollout``/``train``, ``ckpt`` and
+``launch.rl_train`` DDPG training on one device; ``configs``,
+``models`` and ``serving.batcher`` the LM data plane (dense and Mamba-2
+families).  Every kernel of those paths
 (``kernels.*``) is a hand-written CUDA kernel whenever its tensors are
 on the card.
 

@@ -1,2 +1,2 @@
-"""Scheduler core: the RELMAS actor, the heuristic baselines and the
-serving tick."""
+"""Scheduler core: the RELMAS actor and critic, the heuristic baselines,
+the serving tick, and DDPG training (replay, learner, rollouts, rounds)."""

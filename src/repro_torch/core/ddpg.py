@@ -1,0 +1,246 @@
+"""DDPG learner adapted to the RELMAS problem (paper Sec. 4.2).
+
+Standard Lillicrap-style DDPG (actor/critic + target twins, soft
+updates, replay) with the paper's adaptations:
+
+- both function approximators are the LSTM sequence nets of
+  :mod:`repro_torch.core.policy` (state = variable-length ready queue),
+  whose recurrence runs the hand-written ``lstm_cell`` kernel step by
+  step, forward and (through its ``autograd.Function``) backward;
+- the stored next state encodes the *residual* RQ only;
+- actions are the full continuous (R, G) tanh outputs; exploration is
+  additive clipped Gaussian noise.
+
+The counterpart of the JAX package's ``core/ddpg.py``, on one device.
+Parameters are the pytree layout as dicts of tensors; the learner state
+is a dataclass whose seven fields flatten in the JAX ``DDPGState``'s
+order, so checkpoints cross between the packages.  The optimizer is the
+reference's own Adam, ported literally (:func:`_adam_step`): one
+global-norm clip over the whole tree, bias correction at ``step + 1``.
+``torch.optim.Adam`` and ``clip_grad_norm_`` are not used: their clip
+epsilon differs.  The step counter is a host int.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import policy as P
+from repro_torch.core.replay import replay_sample
+from repro_torch.device import resolve_device
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPGConfig:
+    policy: P.PolicyConfig
+    gamma: float = 0.99          # RL discount (unstated in paper; standard)
+    tau: float = 0.005           # target soft-update rate
+    actor_lr: float = 1e-4
+    critic_lr: float = 1e-3
+    noise_sigma: float = 0.2
+    reward_scale: float = 0.1
+    grad_clip: float = 10.0
+
+
+@dataclasses.dataclass
+class DDPGState:
+    actor: Params
+    critic: Params
+    target_actor: Params
+    target_critic: Params
+    actor_opt: Params            # adam moments {"m": tree, "v": tree}
+    critic_opt: Params
+    step: int
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of equal structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in the JAX package's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _unflatten_like(tree, leaves):
+    it = iter(leaves)
+
+    def take(node):
+        if isinstance(node, dict):
+            return {k: take(node[k]) for k in sorted(node)}
+        return next(it)
+    return take(tree)
+
+
+def _adam_init(params: Params) -> Params:
+    return {"m": tree_map(torch.zeros_like, params),
+            "v": tree_map(torch.zeros_like, params)}
+
+
+@torch.no_grad()
+def _adam_step(params, grads, opt, lr: float, step: int, clip: float):
+    """The reference's Adam (ddpg.py:71-83): clip the whole tree to
+    global norm ``clip`` (``max(gnorm, 1e-9)``), then Adam with bias
+    correction at ``t = step + 1``.  Returns ``(new_params, new_opt)``;
+    nothing is updated in place."""
+    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+    scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    grads = tree_map(lambda g: g * scale, grads)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, opt["m"], grads)
+    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, opt["v"], grads)
+    t = np.float32(step + 1)
+    c1 = float(np.float32(1) - np.float32(b1) ** t)
+    c2 = float(np.float32(1) - np.float32(b2) ** t)
+    new = tree_map(lambda p, m_, v_: p - lr * (m_ / c1)
+                   / (torch.sqrt(v_ / c2) + eps), params, m, v)
+    return new, {"m": m, "v": v}
+
+
+def init_ddpg(gen: torch.Generator, cfg: DDPGConfig,
+              device: str | torch.device = "cuda") -> DDPGState:
+    """Actor then critic drawn from ``gen`` (CPU), targets as copies,
+    zero Adam moments, step 0."""
+    actor = P.init_actor(gen, cfg.policy, device)
+    critic = P.init_critic(gen, cfg.policy, device)
+    return DDPGState(
+        actor=actor, critic=critic,
+        target_actor=tree_map(torch.clone, actor),
+        target_critic=tree_map(torch.clone, critic),
+        actor_opt=_adam_init(actor), critic_opt=_adam_init(critic), step=0)
+
+
+def _field(tree, i: int, name: str):
+    if isinstance(tree, dict):
+        return tree[name] if name in tree else tree[i]
+    return getattr(tree, name)
+
+
+def ddpg_state_from_numpy(tree, cfg: DDPGConfig, *,
+                          device: str | torch.device = "cuda") -> DDPGState:
+    """A full JAX ``DDPGState`` as NumPy leaves -> a :class:`DDPGState`
+    on ``device``.  ``tree`` is the JAX state after ``tree_map(np.asarray,
+    ...)`` (fields by attribute), a dict by field name, or what
+    :func:`repro_torch.ckpt.restore_checkpoint` returns without ``like``
+    (fields by flat index 0-6).  Every shape is checked before anything
+    is copied."""
+    pc = cfg.policy
+    a_shapes = P.net_shapes(pc.feat_dim, pc.hidden, pc.act_dim)
+    c_shapes = P.net_shapes(pc.critic_in, pc.hidden, 1)
+    shapes = dict(actor=a_shapes, critic=c_shapes, target_actor=a_shapes,
+                  target_critic=c_shapes,
+                  actor_opt={"m": a_shapes, "v": a_shapes},
+                  critic_opt={"m": c_shapes, "v": c_shapes})
+    arrays = {name: P.checked_numpy(_field(tree, i, name), want,
+                                    f"[<flat index {i}>]")
+              for i, (name, want) in enumerate(shapes.items())}
+    step = np.asarray(_field(tree, 6, "step"))
+    if step.shape != ():
+        raise ValueError(f"[<flat index 6>]: step has shape {step.shape}")
+    dev = resolve_device(device)
+    return DDPGState(**{k: P.tree_to_device(v, dev)
+                        for k, v in arrays.items()}, step=int(step))
+
+
+def act(params: Params, cfg: P.PolicyConfig, feats, mask,
+        gen: torch.Generator | None = None, sigma: float = 0.0):
+    """feats (B,T,F), mask (B,T) -> (a (B,T-1,G), prio (B,T-1),
+    sa (B,T-1)); with ``gen`` and ``sigma > 0`` the actions get clipped
+    Gaussian noise drawn from ``gen``."""
+    with torch.no_grad():
+        a = P.actor_apply(params, cfg, feats, mask)
+        if gen is not None and sigma > 0:
+            noise = torch.randn(a.shape, generator=gen, device=a.device)
+            a = torch.clamp(a + sigma * noise, -1.0, 1.0)
+    return a, a[..., 0], torch.argmax(a[..., 1:], dim=-1)
+
+
+def _grads(loss_fn, params: Params):
+    """(loss, aux), d loss / d params as a tree like ``params``."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, aux = loss_fn(_unflatten_like(params, leaves))
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), aux, _unflatten_like(params, grads)
+
+
+def ddpg_update(state: DDPGState, cfg: DDPGConfig,
+                batch: dict) -> tuple[DDPGState, dict]:
+    """One DDPG update from a replay batch.
+
+    batch: s (B,T,F), mask (B,T), a (B,T-1,G), r (B,), s2 (B,T,F),
+    mask2 (B,T), and an optional ``act_mask`` (B, G) that masks the
+    action channels of the *regenerated* actions (the target actor's a2
+    and the actor loss's a) as the behaviour policy masked the stored
+    ones.  The target passes run under ``no_grad``; the critic loss and
+    the actor loss backpropagate through the recurrence.  Returns the
+    new state (fresh tensors; ``state`` is left as it was) and the info
+    dict ``critic_loss``, ``actor_loss``, ``q_mean``, ``target_mean``.
+    """
+    pc = cfg.policy
+    am = batch.get("act_mask")
+    remask = ((lambda a: a * am[:, None, :]) if am is not None
+              else (lambda a: a))
+    with torch.no_grad():
+        r = batch["r"] * cfg.reward_scale
+        a2 = remask(P.actor_apply(state.target_actor, pc, batch["s2"],
+                                  batch["mask2"]))
+        q2 = P.critic_apply(state.target_critic, pc, batch["s2"], a2,
+                            batch["mask2"])
+        y = r + cfg.gamma * q2
+
+    def critic_loss(cp):
+        q = P.critic_apply(cp, pc, batch["s"], batch["a"], batch["mask"])
+        return torch.mean((q - y) ** 2), q.detach()
+
+    closs, q, cgrads = _grads(critic_loss, state.critic)
+    new_critic, new_copt = _adam_step(state.critic, cgrads, state.critic_opt,
+                                      cfg.critic_lr, state.step,
+                                      cfg.grad_clip)
+
+    def actor_loss(ap):
+        a = remask(P.actor_apply(ap, pc, batch["s"], batch["mask"]))
+        return -torch.mean(P.critic_apply(new_critic, pc, batch["s"], a,
+                                          batch["mask"])), None
+
+    aloss, _, agrads = _grads(actor_loss, state.actor)
+    new_actor, new_aopt = _adam_step(state.actor, agrads, state.actor_opt,
+                                     cfg.actor_lr, state.step,
+                                     cfg.grad_clip)
+    tau = cfg.tau
+    with torch.no_grad():
+        soft = lambda tgt, new: tree_map(
+            lambda t_, n: (1 - tau) * t_ + tau * n, tgt, new)
+        new_state = DDPGState(
+            actor=new_actor, critic=new_critic,
+            target_actor=soft(state.target_actor, new_actor),
+            target_critic=soft(state.target_critic, new_critic),
+            actor_opt=new_aopt, critic_opt=new_copt, step=state.step + 1)
+    info = {"critic_loss": closs, "actor_loss": aloss,
+            "q_mean": torch.mean(q), "target_mean": torch.mean(y)}
+    return new_state, info
+
+
+def ddpg_update_rounds(state: DDPGState, cfg: DDPGConfig, buf: dict,
+                       idx) -> tuple[DDPGState, dict]:
+    """``len(idx)`` updates, update ``u`` on the replay rows ``idx[u]``
+    (idx: (num_updates, batch_size), drawn with
+    :func:`repro_torch.core.replay.sample_indices` or passed in).
+    Returns (new_state, infos stacked over the (num_updates,) axis)."""
+    infos = []
+    for u in range(len(idx)):
+        state, info = ddpg_update(state, cfg, replay_sample(buf, idx=idx[u]))
+        infos.append(info)
+    if not infos:
+        return state, {}
+    return state, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}

@@ -1,0 +1,160 @@
+"""RELMAS training rounds on one device.
+
+The counterpart of the JAX package's ``core/train.py``.  A round is
+
+    trace generation (``generate_traces_torch``, on the device)
+      -> batched rollout (:func:`repro_torch.core.rollout.collect_episodes`)
+      -> replay ring write (``replay_add``, in place)
+      -> ``num_updates`` DDPG updates (skipped during warm-up)
+      -> sigma decay.
+
+Each round is split into its **draws** and its **body**.  The draws
+(:func:`round_draws`) are everything random: the episodes' traces, the
+standard-normal exploration block and the replay indices of every
+update, all from one ``torch.Generator`` seeded per round.  The body
+(:func:`_round_body`) is deterministic given the draws, so the tests
+feed it the draws the JAX round takes from its key, and a CPU run and a
+card run of one round can take the same draws.
+
+Per-round seeds come from (seed, global round index) (:func:`round_keys`),
+so a driver resuming at a round draws what the uninterrupted run would
+have.  Where the JAX package fuses a round (and a chunk of rounds) into
+one jitted dispatch, here a round is eager PyTorch; the replay buffer
+and learner state are updated in place or rebound, as the JAX callers
+rebind donated arguments.  ``make_train_rounds`` and
+``train_rounds_host`` are the same per-round loop.
+
+Multi-device rounds, churn and the generalist are later slices.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import ddpg as D
+from repro_torch.core import rollout as R
+from repro_torch.core.replay import replay_add
+from repro_torch.sim.arrivals import generate_traces_torch
+from repro_torch.sim.env import SchedulingEnv
+
+# update-info keys mirrored by the warm-up (no-update) branch of the
+# round body: ddpg_update's info dict exactly
+INFO_KEYS = ("critic_loss", "actor_loss", "q_mean", "target_mean")
+
+
+def round_keys(seed: int, start_round: int, num_rounds: int) -> list[int]:
+    """Per-round generator seeds from (seed, global round index), so a
+    driver resuming at ``start_round`` draws the stream the uninterrupted
+    run would have."""
+    return [int(np.random.SeedSequence([seed, i]).generate_state(
+        1, np.uint64)[0]) for i in range(start_round,
+                                         start_round + num_rounds)]
+
+
+def round_draws(env: SchedulingEnv, seed: int, *, batch_episodes: int,
+                num_updates: int, batch_size: int, size_after: int,
+                arrivals=None) -> dict:
+    """Everything random in one round, from one generator on the env's
+    device seeded ``seed``: ``traces`` (batch_episodes, J), ``noise``
+    (batch_episodes, periods, max_rq, G) standard normal, and ``idx``
+    (num_updates, batch_size) replay indices in ``[0, size_after)``,
+    ``size_after`` being the ring's size after this round's write."""
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    traces = generate_traces_torch(env.min_lat, arrivals or env.arrivals,
+                                   gen, batch_episodes, env.device)
+    noise = R.noise_block(env, batch_episodes, gen)
+    idx = torch.randint(0, max(size_after, 1), (num_updates, batch_size),
+                        generator=gen, device=env.device)
+    return dict(traces=traces, noise=noise, idx=idx)
+
+
+def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
+                batch_episodes: int, num_updates: int, batch_size: int,
+                sigma_min: float, sigma_decay: float, arrivals=None):
+    """``round_fn(state, buf, draws, sigma, do_update)`` ->
+    ``(state, buf, sigma, metrics)``, deterministic given ``draws``.
+
+    ``buf`` is written in place (and returned); ``sigma`` is a float
+    holding a float32 value, decayed in float32 as the JAX round does;
+    ``metrics`` are host floats: the round's mean ``sla``, ``reward`` and
+    ``energy_uj``, the new ``sigma``, ``did_update`` and the last
+    update's :data:`INFO_KEYS` (zeros during warm-up)."""
+    pcfg = dcfg.policy
+
+    def round_fn(state: D.DDPGState, buf: dict, draws: dict, sigma: float,
+                 do_update: bool):
+        traces = env.to_trace(draws["traces"])
+        states = env.init_state(traces)
+        _, trans, einfos, mets = R.collect_episodes(
+            env, pcfg, state.actor, states, traces, None, sigma,
+            noise=draws["noise"].to(env.device))
+        # (episodes, periods, ...) -> (episodes * periods, ...) ring write
+        flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                for k, v in trans.items()}
+        replay_add(buf, flat)
+        if do_update:
+            state, infos = D.ddpg_update_rounds(
+                state, dcfg, buf, draws["idx"].to(env.device))
+            info = {k: float(infos[k][-1]) for k in INFO_KEYS}
+        else:
+            info = {k: 0.0 for k in INFO_KEYS}
+        sigma = float(max(np.float32(sigma_min), np.float32(sigma)
+                          * np.float32(sigma_decay ** batch_episodes)))
+        metrics = dict(sla=float(torch.mean(mets["sla_rate"])),
+                       reward=float(torch.mean(einfos["reward"])),
+                       energy_uj=float(torch.mean(mets["energy_uj"])),
+                       sigma=sigma, did_update=bool(do_update), **info)
+        return state, buf, sigma, metrics
+
+    return round_fn
+
+
+def make_train_round(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
+                     batch_episodes: int, num_updates: int, batch_size: int,
+                     sigma_min: float, sigma_decay: float, arrivals=None):
+    """One full training round: ``round_fn(state, buf, seed, sigma,
+    do_update)`` -> ``(state, buf, sigma, metrics)``, drawing the
+    round's :func:`round_draws` from ``seed`` and running the body.
+    ``batch_episodes * env.cfg.periods`` transitions ring-write per
+    round and must fit the replay capacity."""
+    body = _round_body(env, dcfg, batch_episodes=batch_episodes,
+                       num_updates=num_updates, batch_size=batch_size,
+                       sigma_min=sigma_min, sigma_decay=sigma_decay,
+                       arrivals=arrivals)
+
+    def round_fn(state, buf, seed: int, sigma: float, do_update: bool):
+        cap = buf["r"].shape[0]
+        size_after = min(buf["size"] + batch_episodes * env.cfg.periods, cap)
+        draws = round_draws(env, seed, batch_episodes=batch_episodes,
+                            num_updates=num_updates, batch_size=batch_size,
+                            size_after=size_after, arrivals=arrivals)
+        return body(state, buf, draws, sigma, do_update)
+
+    return round_fn
+
+
+def train_rounds_host(env: SchedulingEnv, dcfg: D.DDPGConfig, state, buf,
+                      keys, sigma, do_update, **kw):
+    """Run the rounds described by per-round seeds ``keys`` and warm-up
+    flags ``do_update`` one after another.  Returns ``(state, buf, sigma,
+    metrics)`` with metrics stacked over the round axis as NumPy
+    arrays."""
+    round_fn = make_train_round(env, dcfg, **kw)
+    out = []
+    for seed, du in zip(keys, do_update):
+        state, buf, sigma, m = round_fn(state, buf, int(seed), sigma,
+                                        bool(du))
+        out.append(m)
+    metrics = {k: np.asarray([m[k] for m in out]) for k in out[0]} \
+        if out else {}
+    return state, buf, sigma, metrics
+
+
+def make_train_rounds(env: SchedulingEnv, dcfg: D.DDPGConfig, **kw):
+    """A chunk of rounds: ``rounds_fn(state, buf, keys, sigma,
+    do_update)`` -> ``(state, buf, sigma, metrics)``, metrics stacked over
+    the round axis (:func:`train_rounds_host`)."""
+    def rounds_fn(state, buf, keys, sigma, do_update):
+        return train_rounds_host(env, dcfg, state, buf, keys, sigma,
+                                 do_update, **kw)
+    return rounds_fn

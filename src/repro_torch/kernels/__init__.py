@@ -4,7 +4,10 @@
 - ``flash_attention``: causal prefill attention of the dense LM;
 - ``decode_gqa``: one-token grouped-query decode attention;
 - ``ssd_chunk``: the Mamba-2 SSD intra-chunk term (prefill), with the
-  SSD forward built on it.
+  SSD forward built on it;
+- ``lstm_cell``: one fused LSTM step, the step of the policy's
+  recurrence in training (an ``autograd.Function`` with a plain
+  backward).
 
 Every kernel package holds ``ref.py`` (the plain version, used for CPU
 tensors and as the oracle on the card) and ``ops.py`` (the wrapper:

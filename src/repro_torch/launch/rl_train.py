@@ -1,0 +1,389 @@
+"""RELMAS DDPG training driver (paper Sec. 4.2 / Sec. 5), on one device.
+
+The counterpart of the JAX package's ``launch/rl_train.py``, with the
+same flags plus ``--device``.  Each round (``core.train``): device-side
+trace generation, a batched rollout whose actor runs the hand-written
+``lstm_cell`` kernel once per LSTM step, the replay ring write, the
+round's DDPG updates (whose five recurrences each run the kernel T times
+forward, three of them with a backward) and sigma decay.  Evaluation
+runs the policy and the baselines on NumPy-drawn eval traces.
+
+Fault-tolerant loop, as in the reference:
+- periodic atomic checkpoints of the full learner state (the replay is
+  re-warmed on restart, sound for an off-policy learner), in the JAX
+  package's format: either package resumes the other's checkpoints;
+- per-round generator seeds from the *global* round index
+  (``core.train.round_keys``), so a resumed run draws the stream the
+  uninterrupted run would have (on the same device);
+- ``--fail-at`` injects a crash; a rerun in the same ``--outdir``
+  auto-resumes from the latest checkpoint and prints
+  ``[resume] restored checkpoint``.  The best eval policy's actor goes
+  to ``<outdir>/best`` as the reference writes it.
+
+Ported: the specialist policy on one fleet, ``--devices 1``, ``--churn
+none``, baselines fcfs, prema and herald.  The rest raises
+``NotImplementedError`` naming its ROADMAP item.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.rl_train --workload light \\
+      --episodes 150 --hidden 64 --batch-episodes 8 --outdir runs/light_med
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.core import baselines as BL
+from repro_torch.core import ddpg as D
+from repro_torch.core import policy as P
+from repro_torch.core.replay import replay_init
+from repro_torch.core.rollout import evaluate_batch, evaluate_batch_baseline
+from repro_torch.core.train import INFO_KEYS, round_keys, train_rounds_host
+from repro_torch.sim.arrivals import ArrivalConfig
+from repro_torch.sim.env import EnvConfig, SchedulingEnv
+from repro_torch.workloads import build_registry
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    workload: str = "light"
+    # accelerator platform (costmodel.fleets); a comma list (generalist)
+    # is not ported yet
+    fleet: str = "paper6"
+    policy_kind: str = "auto"  # auto | specialist (generalist: ROADMAP A8)
+    m_max: int = 0             # generalist pad width (not ported)
+    best_metric: str = "mean"  # mean (min_fleet needs the generalist)
+    qos_level: str = "medium"
+    qos_factor: float = 3.0
+    load: float = 0.9
+    scenario: str = "default"
+    bandwidth_gbps: float = 0.0  # 0 = the fleet's dram_gbps
+    t_s_us: float = 500.0
+    periods: int = 60
+    max_rq: int = 96
+    max_jobs: int = 64
+    hidden: int = 64
+    episodes: int = 150
+    batch_episodes: int = 8
+    devices: int = 1           # 1 only (ROADMAP A11)
+    churn: str = "none"        # none only (ROADMAP A7)
+    updates_per_episode: int = 30
+    batch_size: int = 32
+    replay_capacity: int = 4000
+    warmup_episodes: int = 5
+    sigma0: float = 0.4
+    sigma_min: float = 0.05
+    sigma_decay: float = 0.97
+    eval_every: int = 10
+    eval_seeds: int = 5
+    # comma list of baselines scored on the eval seeds before training
+    # ("" = skip): fcfs, prema, herald (magma: ROADMAP A6)
+    eval_baselines: str = ""
+    magma_population: int = 24
+    magma_generations: int = 12
+    seed: int = 0
+    outdir: str = "runs/relmas"
+    ckpt_every: int = 10
+    fail_at: int = -1          # crash injection (episode index) for FT tests
+    log_jsonl: str = ""        # telemetry stream (ROADMAP A9)
+    profile_dir: str = ""      # profiler trace (ROADMAP A9)
+    device: str = "cuda"       # cuda | cpu (the plain versions)
+
+
+def _env_cfgs(cfg: TrainConfig) -> tuple[EnvConfig, ArrivalConfig]:
+    ecfg = EnvConfig(t_s_us=cfg.t_s_us, periods=cfg.periods,
+                     max_rq=cfg.max_rq, max_jobs=cfg.max_jobs,
+                     bandwidth_gbps=cfg.bandwidth_gbps)
+    arr = ArrivalConfig(max_jobs=cfg.max_jobs, load=cfg.load,
+                        qos_factor=cfg.qos_factor, qos_level=cfg.qos_level,
+                        horizon_us=ecfg.horizon_us,
+                        slack_us=2.0 * cfg.t_s_us,
+                        scenario=cfg.scenario)
+    return ecfg, arr
+
+
+def build_env(cfg: TrainConfig, fleet: str | None = None) -> SchedulingEnv:
+    reg = build_registry(cfg.workload, mas=fleet or cfg.fleet)
+    ecfg, arr = _env_cfgs(cfg)
+    return SchedulingEnv(reg, ecfg, arr, device=cfg.device)
+
+
+def _resolve_kind(cfg: TrainConfig) -> tuple[str, list[str]]:
+    """-> (policy_kind, fleet list) with ``auto`` resolved; only the
+    specialist is ported."""
+    fleets = [f.strip() for f in cfg.fleet.split(",") if f.strip()]
+    kind = cfg.policy_kind
+    if kind == "auto":
+        kind = "generalist" if len(fleets) > 1 else "specialist"
+    if kind not in ("generalist", "specialist"):
+        raise ValueError(f"--policy-kind must be auto|generalist|"
+                         f"specialist, got {cfg.policy_kind!r}")
+    if kind == "specialist" and len(fleets) > 1:
+        raise ValueError("a specialist policy is fleet-shaped: train "
+                         "one per --fleet, or use "
+                         "--policy-kind generalist for a multi-fleet run")
+    if kind == "generalist":
+        raise NotImplementedError(
+            "the fleet-conditioned generalist (several fleets or "
+            "--policy-kind generalist) is not ported yet: ROADMAP A8")
+    if cfg.best_metric not in ("mean", "min_fleet"):
+        raise ValueError(f"--best-metric must be mean|min_fleet, got "
+                         f"{cfg.best_metric!r}")
+    if cfg.best_metric == "min_fleet":
+        raise ValueError("--best-metric min_fleet needs per-fleet eval — "
+                         "a generalist run (--fleet a,b,... or "
+                         "--policy-kind generalist)")
+    return kind, fleets
+
+
+def _unported(cfg: TrainConfig) -> None:
+    if cfg.devices > 1:
+        raise NotImplementedError("--devices > 1 (sharded rounds) is not "
+                                  "ported yet: ROADMAP A11")
+    if cfg.churn != "none":
+        raise NotImplementedError(f"--churn {cfg.churn} is not ported yet: "
+                                  f"ROADMAP A7")
+    names = [n.strip() for n in cfg.eval_baselines.split(",") if n.strip()]
+    if "magma" in names:
+        raise NotImplementedError("--eval-baselines magma is not ported "
+                                  "yet: ROADMAP A6")
+    for n in names:
+        if n not in BL.BASELINES:
+            raise ValueError(f"unknown baseline {n!r}; pick from "
+                             f"{sorted(BL.BASELINES)}")
+    if cfg.log_jsonl or cfg.profile_dir:
+        raise NotImplementedError("--log-jsonl and --profile-dir "
+                                  "(telemetry) are not ported yet: "
+                                  "ROADMAP A9")
+
+
+def _plan_chunks(cfg: TrainConfig, start_ep: int) -> list[dict]:
+    """Group training rounds into chunks (the reference's planner, the
+    single source of truth for cadence).
+
+    A chunk is a run of consecutive rounds with the same episode batch
+    size and no interior boundary; eval/ckpt cadence, the final round,
+    a batch-size change (the tail round), and the crash-injection round
+    all end (or, for ``fail_at``, start) a chunk.  Each chunk dict
+    carries its rounds ``[(start_ep, n), ...]``, the first round's
+    global index (for the seed stream), whether to raise the injected
+    failure instead of running, and the boundary actions (``eval`` /
+    ``ckpt``) the driver takes after it.
+    """
+    def crossed(every: int, s: int, ep: int) -> bool:
+        return (ep + 1) // every > s // every
+
+    chunks: list[dict] = []
+    cur: list[tuple[int, int]] = []
+    s = start_ep
+    while s < cfg.episodes:
+        n = min(cfg.batch_episodes, cfg.episodes - s)
+        ep = s + n - 1
+        fail_here = s <= cfg.fail_at <= ep
+        if cur and (fail_here or n != cur[0][1]):
+            chunks.append(dict(rounds=cur, fail=False, eval=False,
+                               ckpt=False))
+            cur = []
+        cur.append((s, n))
+        do_eval = crossed(cfg.eval_every, s, ep) or ep == cfg.episodes - 1
+        do_ckpt = crossed(cfg.ckpt_every, s, ep)
+        if fail_here or do_eval or do_ckpt:
+            chunks.append(dict(rounds=cur, fail=fail_here,
+                               eval=do_eval and not fail_here,
+                               ckpt=do_ckpt and not fail_here))
+            cur = []
+        s += n
+    if cur:
+        chunks.append(dict(rounds=cur, fail=False, eval=False, ckpt=False))
+    for c in chunks:
+        c["round0"] = c["rounds"][0][0] // cfg.batch_episodes
+    return chunks
+
+
+def _resume(cfg: TrainConfig, mgr: CheckpointManager, state, dcfg,
+            kind: str):
+    """-> (state, start episode) from the latest checkpoint, or
+    (state, 0) without one."""
+    step = mgr.latest_step()
+    if step is None:
+        return state, 0
+    try:
+        tree, step, meta = mgr.restore(state, step)
+    except ValueError as e:
+        # policy shapes follow --hidden and the fleet's num_sas
+        raise ValueError(
+            f"checkpoint in {cfg.outdir} does not match this run's "
+            f"policy shapes — resume with the --hidden/--fleet it was "
+            f"trained with (this run: --hidden {cfg.hidden} --fleet "
+            f"{cfg.fleet} [{kind}]) or use a fresh --outdir [{e}]") from None
+    ck_kind = meta.get("policy_kind", "specialist")
+    ck_fleet = meta.get("fleet", "paper6")
+    if ck_kind != kind:
+        raise ValueError(f"checkpoint in {cfg.outdir} is {ck_kind!r} but "
+                         f"this run is {kind!r}; use a fresh --outdir")
+    if ck_fleet != cfg.fleet:
+        # per-fleet checkpoints stay platform-locked
+        raise ValueError(
+            f"checkpoint in {cfg.outdir} was trained on fleet "
+            f"{ck_fleet!r} but --fleet is {cfg.fleet!r}; use a fresh "
+            f"--outdir to train a {cfg.fleet!r} agent")
+    state = D.ddpg_state_from_numpy(tree, dcfg, device=cfg.device)
+    return state, meta.get("episode", 0) + 1
+
+
+def _train_loop(cfg: TrainConfig, env, pcfg, dcfg, state, start_ep: int,
+                mgr: CheckpointManager, kind: str, logf, log_fn):
+    """The chunks of rounds with their eval and checkpoint boundaries.
+    Returns (state, best eval, history)."""
+    eval_seeds = range(7000, 7000 + cfg.eval_seeds)
+    buf = replay_init(cfg.replay_capacity, env.seq_len, env.feat_dim,
+                      env.act_dim, env.device)
+    best = {"sla_rate": -1.0}
+    history = []
+    sigma = float(np.float32(max(cfg.sigma_min,
+                                 cfg.sigma0 * cfg.sigma_decay ** start_ep)))
+    ckpt_meta = dict(fleet=cfg.fleet, policy_kind=kind, hidden=cfg.hidden,
+                     feat_dim=pcfg.feat_dim, act_dim=pcfg.act_dim,
+                     churn=cfg.churn)
+
+    for chunk in _plan_chunks(cfg, start_ep):
+        if chunk["fail"]:
+            raise RuntimeError(f"injected failure at episode {cfg.fail_at}")
+        rounds = chunk["rounds"]
+        n = rounds[0][1]
+        flags = [s + m > cfg.warmup_episodes for s, m in rounds]
+        keys = round_keys(cfg.seed + 1, chunk["round0"], len(rounds))
+        t0 = time.perf_counter()
+        state, buf, sigma, mets = train_rounds_host(
+            env, dcfg, state, buf, keys, sigma, flags, batch_episodes=n,
+            num_updates=cfg.updates_per_episode * n,
+            batch_size=cfg.batch_size, sigma_min=cfg.sigma_min,
+            sigma_decay=cfg.sigma_decay)
+        # the metrics are host floats: the chunk's work has finished
+        elapsed = max(time.perf_counter() - t0, 1e-9)
+        pps = round(sum(m for _, m in rounds) * cfg.periods / elapsed, 1)
+        for i, (rs, rn) in enumerate(rounds):
+            ep = rs + rn - 1
+            rec = dict(episode=ep, batch_episodes=rn,
+                       sla=round(float(mets["sla"][i]), 4),
+                       sigma=round(float(mets["sigma"][i]), 4),
+                       periods_per_sec=pps,
+                       secs=round(elapsed / len(rounds), 3))
+            if mets["did_update"][i]:
+                rec.update({k: round(float(mets[k][i]), 5)
+                            for k in INFO_KEYS})
+            history.append(rec)
+            logf.write(json.dumps(rec) + "\n")
+            log_fn(f"[ep {ep:4d}] sla={rec['sla']:.3f} "
+                   f"sigma={rec['sigma']:.3f}")
+        logf.flush()
+
+        # chunk boundary: eval / best checkpoint / periodic checkpoint
+        rs, rn = rounds[-1]
+        ep = rs + rn - 1
+        if chunk["eval"]:
+            ev = evaluate_batch(env, pcfg, state.actor, eval_seeds)
+            history[-1]["eval_sla"] = round(ev["sla_rate"], 4)
+            evrec = {"episode": ep, "eval_sla": history[-1]["eval_sla"]}
+            logf.write(json.dumps(evrec) + "\n")
+            logf.flush()
+            log_fn(f"[ep {ep:4d}] eval={evrec['eval_sla']:.4f}")
+            if ev["sla_rate"] > best.get("score", -1.0):
+                best = {**ev, "episode": ep, "score": ev["sla_rate"]}
+                CheckpointManager(os.path.join(cfg.outdir, "best"),
+                                  keep=1).save(
+                    ep, state.actor,
+                    dict(episode=ep, sla=ev["sla_rate"], **ckpt_meta))
+        if chunk["ckpt"]:
+            mgr.save(ep, state, dict(episode=ep, **ckpt_meta))
+    return state, best, history
+
+
+def train(cfg: TrainConfig, log_fn=print) -> dict:
+    if cfg.batch_episodes < 1:
+        raise ValueError(f"--batch-episodes must be >= 1, "
+                         f"got {cfg.batch_episodes}")
+    if cfg.batch_episodes * cfg.periods > cfg.replay_capacity:
+        # one ring write cannot wrap the buffer more than once
+        raise ValueError(
+            f"a collection round writes batch_episodes * periods = "
+            f"{cfg.batch_episodes * cfg.periods} transitions, which must "
+            f"fit --replay-capacity ({cfg.replay_capacity})")
+    if cfg.devices < 1:
+        raise ValueError(f"--devices must be >= 1, got {cfg.devices}")
+    _unported(cfg)
+    kind, fleets = _resolve_kind(cfg)
+    env = build_env(cfg)
+    pcfg = P.PolicyConfig(feat_dim=env.feat_dim, act_dim=env.act_dim,
+                          hidden=cfg.hidden)
+    dcfg = D.DDPGConfig(policy=pcfg)
+    state = D.init_ddpg(torch.Generator().manual_seed(cfg.seed), dcfg,
+                        device=cfg.device)
+    mgr = CheckpointManager(os.path.join(cfg.outdir, "ckpt"))
+    state, start_ep = _resume(cfg, mgr, state, dcfg, kind)
+    if start_ep:
+        log_fn(f"[resume] restored checkpoint at episode {start_ep - 1}")
+
+    eval_seeds = range(7000, 7000 + cfg.eval_seeds)
+    baseline_scores: dict[str, dict] = {}
+    for name in filter(None, (n.strip()
+                              for n in cfg.eval_baselines.split(","))):
+        m = evaluate_batch_baseline(env, BL.BASELINES[name], eval_seeds)
+        baseline_scores[name] = {k: round(v, 4) for k, v in m.items()}
+        log_fn(f"[baseline] {name} sla={m['sla_rate']:.4f}")
+
+    os.makedirs(cfg.outdir, exist_ok=True)
+    with open(os.path.join(cfg.outdir, "log.jsonl"), "a") as logf:
+        if baseline_scores:
+            logf.write(json.dumps({"baselines": baseline_scores}) + "\n")
+            logf.flush()
+        state, best, history = _train_loop(cfg, env, pcfg, dcfg, state,
+                                           start_ep, mgr, kind, logf,
+                                           log_fn)
+    return dict(best=best, history=history, env=env, pcfg=pcfg, state=state,
+                baselines=baseline_scores, policy_kind=kind, fleets=fleets,
+                spec=None)
+
+
+_HELP = {
+    "workload": "tenant set: light | heavy | mixed (workloads.cnn_zoo)",
+    "fleet": "accelerator-fleet preset (repro_torch.costmodel.fleets): "
+             "paper6, 4simba_4eyeriss, 8simba, 8eyeriss, 2simba_6eyeriss, "
+             "big_little, ...; a comma list (generalist) is ROADMAP A8",
+    "policy_kind": "auto | specialist (generalist: ROADMAP A8)",
+    "scenario": "arrival preset: default | steady | burst | diurnal | "
+                "heavy_tail (sim.arrivals)",
+    "batch_episodes": "episodes collected per training round",
+    "devices": "1 (sharded rounds over N devices: ROADMAP A11)",
+    "churn": "none (fleet churn: ROADMAP A7)",
+    "eval_baselines": 'comma list scored on the eval seeds before '
+                      'training, e.g. "fcfs,prema,herald" ("" = skip)',
+    "fail_at": "inject a crash at this episode (fault-tolerance tests)",
+    "device": "cuda (kernels; raises without a GPU) or cpu (plain "
+              "versions)",
+}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(
+        description="RELMAS DDPG training driver (PyTorch, one device)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    for f in dataclasses.fields(TrainConfig):
+        ap.add_argument(f"--{f.name.replace('_', '-')}", type=type(f.default),
+                        default=f.default, help=_HELP.get(f.name, " "))
+    cfg = TrainConfig(**vars(ap.parse_args(argv)))
+    print(f"RELMAS DDPG training: {cfg}", flush=True)
+    out = train(cfg, log_fn=lambda msg: print(msg, flush=True))
+    print(f"best eval: {out['best']}", flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -26,14 +26,21 @@ so SLA numbers stay comparable across scenarios.
 it returns the same dict with a leading ``(batch,)`` axis on every
 array, ready to be moved to the device with a leading stream axis.
 
-The traceable twins of the JAX package (drawn on the device inside a
-training round) come with the training slice; serving draws on the host.
+:func:`generate_trace_torch` / :func:`generate_traces_torch` are the
+twins of the JAX package's ``jax.random`` generators: they draw on the
+device from a ``torch.Generator``, for all five scenarios, so a training
+round makes its episodes where it runs them.  Another RNG draws other
+numbers, so their parity with the NumPy generators is distributional
+(tests/test_torch_train.py); the NumPy generators remain the oracle for
+scenario semantics and for host-side consumers (serving, evaluation).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
 
 QOS_MULT = {"high": 0.8, "medium": 1.0, "low": 1.2}
 
@@ -146,3 +153,93 @@ def generate_traces(min_lat_us: np.ndarray, cfg: ArrivalConfig,
     """
     traces = [generate_trace(min_lat_us, cfg, rng) for _ in range(batch)]
     return {k: np.stack([t[k] for t in traces]) for k in traces[0]}
+
+
+# --------------------------------------------------------------------------
+# torch.Generator twins (drawn on the device inside a training round)
+# --------------------------------------------------------------------------
+# candidate overdraw for the diurnal thinning pass: acceptance is at
+# least rate_min/peak = 1/3, so 8x gives ~2.7x the needed points even
+# in the worst case; a shortfall surfaces as +inf arrivals (horizon
+# padding), as in the JAX twin.
+_DIURNAL_OVERDRAW = 8
+
+
+def _arrivals_torch(cfg: ArrivalConfig, mean_ia: float, J: int, batch: int,
+                    gen: torch.Generator, device) -> torch.Tensor:
+    """Absolute arrival times (batch, J) for the configured scenario.
+
+    Mirrors :func:`_interarrivals` process for process.  The diurnal
+    thinning loop becomes a fixed-size candidate pool (homogeneous
+    Poisson at the peak rate, thinned in one vectorised accept/reject).
+    """
+    kw = dict(generator=gen, device=device, dtype=torch.float32)
+    expo = lambda n: torch.empty((batch, n), device=device,
+                                 dtype=torch.float32).exponential_(
+                                     generator=gen)
+    sc = cfg.scenario
+    if sc in ("default", "heavy_tail"):
+        a = cfg.pareto_shape if sc == "default" else 1.2
+        clip = 50.0 if sc == "default" else 200.0
+        xm = mean_ia * (a - 1.0) / a
+        # xm * (1 + numpy's Lomax draw) == xm * X, X ~ Pareto(a, mode 1),
+        # and X = exp(E / a) for E ~ Exp(1)
+        inter = torch.clamp(xm * torch.exp(expo(J) / a), max=clip * mean_ia)
+    elif sc == "steady":
+        inter = mean_ia * (0.8 + 0.4 * torch.rand((batch, J), **kw))
+    elif sc == "burst":
+        bs = max(1, cfg.burst_size)
+        intra = 0.1 * mean_ia
+        gap = bs * mean_ia - (bs - 1) * intra
+        n_bursts = -(-J // bs)
+        inter = torch.full((batch, J), intra, device=device,
+                           dtype=torch.float32)
+        inter[:, ::bs] = gap * (0.5 + torch.rand((batch, n_bursts), **kw))
+    elif sc == "diurnal":
+        base = 1.0 / mean_ia
+        peak = 1.5 * base
+        H = max(cfg.horizon_us, mean_ia)
+        C = _DIURNAL_OVERDRAW * J
+        t = torch.cumsum(expo(C) / peak, dim=1)
+        rate = base * (1.0 + 0.5 * torch.sin(2.0 * math.pi * t / H))
+        accept = torch.rand((batch, C), **kw) <= rate / peak
+        sel = torch.sort(torch.where(accept, t, math.inf), dim=1).values
+        sel = sel[:, :J].contiguous()
+        sel[:, 0] = 0.0
+        return sel
+    else:
+        raise ValueError(f"unknown scenario {sc!r}; pick one of {SCENARIOS}")
+    arrival = torch.cumsum(inter, dim=1)
+    arrival[:, 0] = 0.0
+    return arrival
+
+
+def generate_traces_torch(min_lat_us: np.ndarray, cfg: ArrivalConfig,
+                          gen: torch.Generator, batch: int,
+                          device=None) -> dict[str, torch.Tensor]:
+    """:func:`generate_traces` drawn from ``gen`` on ``device`` (default:
+    the generator's device): the same dict of (batch, J) tensors, models
+    as int64."""
+    device = gen.device if device is None else device
+    n_models = len(min_lat_us)
+    lam = cfg.load * cfg.eff_parallelism / float(np.mean(min_lat_us))
+    J = cfg.max_jobs
+    arrival = _arrivals_torch(cfg, 1.0 / lam, J, batch, gen, device)
+    model = torch.randint(0, n_models, (batch, J), generator=gen,
+                          device=device)
+    qf = cfg.qos_factor * QOS_MULT[cfg.qos_level]
+    min_lat = torch.as_tensor(np.asarray(min_lat_us, np.float32),
+                              device=device)
+    q = qf * min_lat[model] + cfg.slack_us
+    deadline = arrival + q
+    pad = arrival > cfg.horizon_us
+    return dict(arrival=torch.where(pad, 1e30, arrival), model=model,
+                deadline=torch.where(pad, 1e30, deadline), q=q)
+
+
+def generate_trace_torch(min_lat_us: np.ndarray, cfg: ArrivalConfig,
+                         gen: torch.Generator,
+                         device=None) -> dict[str, torch.Tensor]:
+    """One trace of :func:`generate_traces_torch`: (J,) tensors."""
+    return {k: v[0] for k, v in generate_traces_torch(
+        min_lat_us, cfg, gen, 1, device).items()}

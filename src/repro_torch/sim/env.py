@@ -22,8 +22,14 @@ Tables: ``lat``/``bw``/``en``/``n_layers`` are float32/int64 tensors on
 the env's device.  ``min_lat`` stays a host NumPy float32 array, because
 host code (trace and load generation) reads it with ``np.asarray``.
 
-Fleet churn, whole-episode scans and traced table binding are not part
-of this package yet.
+:meth:`SchedulingEnv.episode` runs all periods of a batch of episodes
+(the JAX package's ``lax.scan`` over periods inside ``vmap`` over
+episodes becomes a Python loop over periods on the stream axis), with
+the final drop pass and the metrics; :meth:`new_episodes` draws the
+traces with NumPy on the host and :meth:`new_episodes_torch` with a
+``torch.Generator`` on the device.
+
+Fleet churn and traced table binding are not part of this package yet.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ import torch
 from repro_torch.costmodel.registry import Registry
 from repro_torch.device import resolve_device
 from repro_torch.sim import engine
-from repro_torch.sim.arrivals import ArrivalConfig
+from repro_torch.sim.arrivals import (ArrivalConfig, generate_traces,
+                                      generate_traces_torch)
 from repro_torch.sim.engine import INF
 
 State = dict[str, Any]
@@ -97,18 +104,41 @@ class SchedulingEnv:
             slack_us=2.0 * cfg.t_s_us)
         self.feat_dim = 4 + 2 * self.num_sas
         self.act_dim = 1 + self.num_sas
+        self.seq_len = cfg.max_rq + 1          # + primer
 
     # ---------------- episode setup ----------------
     def to_trace(self, tr: dict) -> Trace:
-        """Host trace dict (NumPy, leading stream axis) -> device trace
-        with the per-job layer count ``njl``."""
+        """Trace dict (NumPy arrays or tensors, leading stream axis) ->
+        device trace with the per-job layer count ``njl``."""
         dev = self.device
-        col = lambda k, dt: torch.tensor(np.asarray(tr[k], dt), device=dev)
-        trace = dict(arrival=col("arrival", np.float32),
-                     deadline=col("deadline", np.float32),
-                     q=col("q", np.float32), model=col("model", np.int64))
+
+        def col(k, dt):
+            if isinstance(tr[k], torch.Tensor):
+                return tr[k].to(device=dev, dtype=dt)
+            return torch.tensor(np.asarray(tr[k]), dtype=dt, device=dev)
+        trace = dict(arrival=col("arrival", F32), deadline=col("deadline", F32),
+                     q=col("q", F32), model=col("model", I64))
         trace["njl"] = self.n_layers[trace["model"]]
         return trace
+
+    def new_episodes(self, rng: np.random.Generator, batch: int,
+                     arrivals: ArrivalConfig | None = None
+                     ) -> tuple[Trace, State]:
+        """``batch`` fresh traces drawn with NumPy on the host (the
+        arrival-process oracle), and their initial states."""
+        trace = self.to_trace(generate_traces(
+            self.min_lat, arrivals or self.arrivals, rng, batch))
+        return trace, self.init_state(trace)
+
+    def new_episodes_torch(self, gen: torch.Generator, batch: int,
+                           arrivals: ArrivalConfig | None = None
+                           ) -> tuple[Trace, State]:
+        """:meth:`new_episodes` drawn from ``gen`` on the env's device
+        (``generate_traces_torch``): no host work per round."""
+        trace = self.to_trace(generate_traces_torch(
+            self.min_lat, arrivals or self.arrivals, gen, batch,
+            self.device))
+        return trace, self.init_state(trace)
 
     def init_state(self, trace: Trace) -> State:
         """Fresh per-stream state for a ``(S, J)`` trace."""
@@ -311,6 +341,37 @@ class SchedulingEnv:
         info["reward"] = r
         trans = dict(s=feats, mask=mask, a=a, r=r, s2=feats2, mask2=mask2)
         return new_state, trans, info
+
+    # ---------------- whole episodes ----------------
+    def episode(self, state: State, trace: Trace, act_fn, aux=None,
+                collect: bool = True):
+        """Run all ``cfg.periods`` periods of every stream.
+
+        ``act_fn(feats, mask, slots, state, aux_p) -> (a, prio, sa)``
+        where ``aux_p`` is period p's slice ``aux[:, p]`` of the
+        ``(S, periods, ...)`` block ``aux`` (the policy's pre-drawn
+        exploration noise), or None without one.  After the last period
+        a final drop pass counts the late jobs.
+
+        Returns ``(final_state, transitions, infos, metrics)``:
+        transitions (``{}`` when ``collect=False``) and infos stacked
+        over a periods axis after the stream axis, ``(S, periods, ...)``.
+        """
+        trans, infos = [], []
+        for p in range(self.cfg.periods):
+            a_p = None if aux is None else aux[:, p]
+            state, tr, info = self.period(
+                state, trace,
+                lambda feats, mask, slots, st: act_fn(feats, mask, slots,
+                                                      st, a_p))
+            if collect:
+                trans.append(tr)
+            infos.append(info)
+        state = self.mark_drops(state, trace, state["t"])
+        stack = lambda xs: {k: torch.stack([x[k] for x in xs], dim=1)
+                            for k in xs[0]}
+        return (state, stack(trans) if collect else {}, stack(infos),
+                self.metrics(state, trace))
 
     # ---------------- episode metrics ----------------
     def metrics(self, state: State, trace: Trace) -> dict[str, torch.Tensor]:

@@ -52,7 +52,8 @@ def test_default_device_entry_points_raise_without_gpu():
         pytest.skip("a GPU is present: the default device is usable")
     from repro_torch.configs import get_arch
     from repro_torch.core.policy import Actor, PolicyConfig
-    from repro_torch.launch import serve
+    from repro_torch.core import ddpg
+    from repro_torch.launch import rl_train, serve
     from repro_torch.models import LM
     from repro_torch.serving import ContinuousBatcher, MultiTenantService
     from repro_torch.sim.env import EnvConfig, SchedulingEnv
@@ -66,6 +67,9 @@ def test_default_device_entry_points_raise_without_gpu():
                lambda: serve.main(["--workload", "lm_light", "--batched"]),
                lambda: LM(cfg),
                lambda: LM(get_arch("mamba2-2.7b", smoke=True)),
-               lambda: ContinuousBatcher(LM(cfg))):
+               lambda: ContinuousBatcher(LM(cfg)),
+               lambda: rl_train.main(["--workload", "light"]),
+               lambda: ddpg.init_ddpg(torch.Generator(), ddpg.DDPGConfig(
+                   PolicyConfig(feat_dim=16, act_dim=7)))):
         with pytest.raises(RuntimeError, match="cuda"):
             fn()

@@ -7,7 +7,10 @@ file runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: ``lstm_seq`` atol = rtol = 1e-4 (float32 sums in another
-order over up to 97 recurrent steps); the attention kernels each element
+order over up to 97 recurrent steps); ``lstm_cell`` 1e-5 in float32 and
+3e-2 in bfloat16 (the JAX kernel tests' tolerances: one step, float32
+sums in another order; the plain version rounds the bf16 gates), its
+gradient 1e-5; the attention kernels each element
 within ``repro_torch.kernels.attn_tolerance`` (one bf16 ulp plus 1.5e-2
 of the row's RMS in bfloat16, 1e-4 of both in float32); ``ssd_chunk``
 each element within 1e-4 of its (batch*chunk, head) block's RMS
@@ -23,6 +26,8 @@ from repro_torch.kernels.decode_gqa import ops as dec_ops
 from repro_torch.kernels.decode_gqa import ref as dec_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.lstm_cell import lstm_cell_ref
+from repro_torch.kernels.lstm_cell import ops as cell_ops
 from repro_torch.kernels.lstm_seq import lstm_seq_ref, ops
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk import ref as ssd_ref
@@ -254,3 +259,72 @@ def test_ssd_chunk_kernel_rejects_what_it_does_not_take(card):
         ssd_ops.ssd_intra(cm.clone().requires_grad_(), bm, xdt, cum)
     torch.cuda.synchronize()
     assert ssd_ops.LAUNCHES == before
+
+
+def _cell_args(B, F, H, dtype=torch.float32, seed=9):
+    rng = np.random.default_rng(seed)
+    a = [rng.standard_normal((B, F)), rng.standard_normal((B, H)),
+         rng.standard_normal((B, H)),
+         rng.standard_normal((F, 4 * H)) * 0.1,
+         rng.standard_normal((H, 4 * H)) * 0.1,
+         rng.standard_normal((4 * H,)) * 0.1]
+    return [torch.as_tensor(x, dtype=torch.float32).to(dtype).cuda()
+            for x in a]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,H", [(8, 16, 256), (32, 16, 256),
+                                   (32, 23, 256), (4, 16, 64), (97, 16, 256),
+                                   (32, 20, 128), (1, 7, 32), (129, 16, 64),
+                                   (5, 23, 8), (8, 16, 16)])
+def test_lstm_cell_kernel_matches_plain(card, B, F, H, dtype):
+    args = _cell_args(B, F, H, dtype)
+    before = cell_ops.LAUNCHES
+    with torch.no_grad():
+        got = cell_ops.lstm_cell(*args)
+        want = lstm_cell_ref(*args)
+    torch.cuda.synchronize()
+    assert cell_ops.LAUNCHES == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_lstm_cell_gradient_on_the_card(card):
+    """The Function (kernel forward, plain backward) against autograd of
+    the plain version, on the card."""
+    arrs = _cell_args(32, 23, 256)
+    rng = np.random.default_rng(10)
+    wh2, wc2 = (torch.as_tensor(rng.standard_normal((32, 256)),
+                                dtype=torch.float32).cuda() for _ in range(2))
+    grads = []
+    for fn in (cell_ops.lstm_cell, lstm_cell_ref):
+        args = [a.clone().requires_grad_() for a in arrs]
+        h2, c2 = fn(*args)
+        ((h2 * wh2).sum() + (c2 * wc2).sum()).backward()
+        grads.append([a.grad for a in args])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_lstm_cell_kernel_rejects_what_it_does_not_take(card):
+    x, h, c, wx, wh, b = _cell_args(4, 8, 32)
+    before = cell_ops.LAUNCHES
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            cell_ops.lstm_cell(x.double(), h.double(), c.double(),
+                               wx.double(), wh.double(), b.double())
+        with pytest.raises(TypeError, match="one type"):
+            cell_ops.lstm_cell(x, h, c, wx.bfloat16(), wh, b)
+        with pytest.raises(ValueError, match="on cpu"):
+            cell_ops.lstm_cell(x, h, c, wx.cpu(), wh, b)
+        with pytest.raises(ValueError, match="contiguous"):
+            cell_ops.lstm_cell(x, h, c, wx, wh.t().contiguous().t(), b)
+        with pytest.raises(ValueError, match="wh has shape"):
+            cell_ops.lstm_cell(x, h, c, wx, wh[:, :64].contiguous(), b)
+    torch.cuda.synchronize()
+    assert cell_ops.LAUNCHES == before
