@@ -10,6 +10,10 @@ no result:
 1. ``build``            delete and rebuild every kernel library from
                         ``src/repro_torch/csrc`` with ``nvcc`` (sm_90a),
                         one ``nvcc`` per source, all started together;
+                        each kernel's registers, stack, local (spill)
+                        and static shared memory (``cuobjdump
+                        --dump-resource-usage``) and each library's
+                        count of HGMMA (wgmma) instructions in its SASS;
 2. ``kernel:lstm_seq``  the kernel against its plain PyTorch version on
                         the card at four shapes with ragged, all-false
                         and random masks (atol = rtol = 1e-4: the same
@@ -19,13 +23,15 @@ no result:
                         beside the kernel's bound;
 3. ``kernel:flash_attention``  the prefill attention kernel against
                         ``attention_chunked`` at the internlm2-1.8b
-                        prefill shape and three others (causal, window,
-                        MHA with D = 64, float32 with odd S), each
-                        element within ``kernels.attn_tolerance`` (one
-                        bf16 ulp plus 1.5e-2 of its row's RMS; 1e-4 in
-                        float32); kernel, plain and
-                        ``scaled_dot_product_attention`` times beside
-                        the bound;
+                        prefill shape and four others (causal, window,
+                        MHA with D = 64, GQA group 4 with a ragged S,
+                        float32 with odd S), each element within
+                        ``kernels.attn_tolerance`` (one bf16 ulp plus
+                        1.5e-2 of its row's RMS; 1e-4 in float32);
+                        kernel (back to back, and replayed from a CUDA
+                        graph), plain and ``scaled_dot_product_attention``
+                        times beside the bound, the kernel's TFLOP/s and
+                        its time over SDPA's;
 4. ``kernel:decode_gqa``  the decode attention kernel against
                         ``decode_attention_ref`` at the decode shape of
                         phase 8 and four others (ragged lengths, a
@@ -50,7 +56,9 @@ no result:
                         tokens (cache padded to 2176 slots), then 128
                         greedy ``make_decode_step`` steps; exactly 24
                         ``flash_attention`` launches per prefill and 24
-                        ``decode_gqa`` launches per step;
+                        ``decode_gqa`` launches per step; a profiled
+                        prefill gives ``flash_attention``'s share of its
+                        kernel time;
 9. ``lm:batcher``       ``ContinuousBatcher`` at full width, 16 slots,
                         smax 512, 48 requests of 32 prompt and 64 new
                         tokens; all served, 24 ``decode_gqa`` launches
@@ -127,6 +135,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -146,6 +155,7 @@ TOL = 1e-4
 FLASH_SHAPES = [(4, 16, 8, 2048, 128, 0, torch.bfloat16),
                 (1, 16, 8, 4096, 128, 1024, torch.bfloat16),
                 (2, 36, 36, 1024, 64, 0, torch.bfloat16),
+                (1, 8, 2, 777, 128, 0, torch.bfloat16),
                 (3, 4, 2, 300, 64, 0, torch.float32)]
 # (B, Hq, Hkv, S, D, lengths, dtype); the first is the internlm2-1.8b
 # decode of phase 8 halfway through its 128 steps
@@ -324,6 +334,34 @@ def build_all(names) -> None:
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         for lib, sec in pool.map(one, names):
             print(f"  nvcc {lib.name}: {sec:.1f}s", flush=True)
+            resource_usage(lib)
+
+
+def resource_usage(lib) -> None:
+    """Print each kernel's registers, stack, local (spill) and static
+    shared memory from ``cuobjdump --dump-resource-usage`` and the
+    library's count of HGMMA (wgmma) instructions from its SASS."""
+    import re
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("    cuobjdump not found: resource usage not measured",
+              flush=True)
+        return
+    run = lambda flag: subprocess.run([tool, flag, str(lib)],
+                                      capture_output=True, text=True,
+                                      timeout=120).stdout
+    name = None
+    for line in run("--dump-resource-usage").splitlines():
+        if "Function" in line:          # "Function <mangled name>:"
+            name = line.partition("Function")[2].strip().rstrip(":")
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", name)
+        if "REG:" in line and name is not None:
+            keep = " ".join(f for f in line.split() if f.split(":")[0] in
+                            ("REG", "STACK", "SHARED", "LOCAL"))
+            print(f"    {name[:60]}: {keep}", flush=True)
+    hgmma = sum("HGMMA" in ln for ln in run("--dump-sass").splitlines())
+    print(f"    HGMMA instructions: {hgmma}", flush=True)
 
 
 def attn_bound_ms(flops, nbytes, dtype) -> tuple[float, str]:
@@ -368,6 +406,11 @@ def check_flash(ops, ref, CARD):
             lib_err = (lib().float() - want.float()).abs().max().item()
             ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
                                                      window=window), reps=10)
+            # bf16: the same calls replayed from a CUDA graph, device time
+            # only, with no host dispatch between short calls
+            g_ms = graph_ms(lambda: ops.flash_attention(
+                q, k, v, causal=True, window=window), calls=10) \
+                if dt == torch.bfloat16 else float("nan")
             plain_ms = cuda_ms(lambda: ref.attention_chunked(
                 q, k, v, causal=True, window=window), reps=3, warmup=1)
             library_ms = cuda_ms(lib, reps=10)
@@ -378,10 +421,12 @@ def check_flash(ops, ref, CARD):
             print(f"  flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
                   f"window={window} {str(dt)[6:]} [{CARD}]: "
                   f"max_abs_err={err:.3e} err/bound={over:.3f} ok={ok} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"kernel_ms={ms:.4f} (CUDA graph {g_ms:.4f}) "
+                  f"plain_ms={plain_ms:.4f} "
                   f"sdpa_ms={library_ms:.4f} (max_abs_err vs plain "
                   f"{lib_err:.2e}) bound_ms={bound_ms:.4f} ({bound_by}) "
-                  f"TFLOP/s={flops / ms / 1e9:.1f}", flush=True)
+                  f"TFLOP/s={flops / ms / 1e9:.1f} "
+                  f"kernel_over_sdpa={ms / library_ms:.3f}", flush=True)
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with its "
                                      f"plain version at {(B, Hq, Hkv, S, D)}")
@@ -567,11 +612,13 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
-def profile_window(fn, label, CARD, top=6):
+def profile_window(fn, label, CARD, top=6, share=None):
     """Run ``fn()`` under ``torch.profiler`` and print the device's busy
     share of the window (kernel time over host wall time), the kernel
     count, the kernels with the most device time and the operations
-    with the most host time."""
+    with the most host time; with ``share``, also the device time of
+    the kernels whose name holds that string and its share of the
+    window's kernel time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -606,6 +653,12 @@ def profile_window(fn, label, CARD, top=6):
     print("    host: " + "; ".join(
         f"{e.key[:32]} x{e.count} {e.self_cpu_time_total / 1e3:.2f}ms"
         for e in by_host), flush=True)
+    if share is not None:
+        mine = [e for e in kernels if share in e.key]
+        mine_us = sum(dev(e) for e in mine)
+        print(f"    {share}: x{sum(e.count for e in mine)} "
+              f"{mine_us / 1e3:.2f}ms of {dev_us / 1e3:.2f}ms kernel time "
+              f"(share {mine_us / dev_us:.4f})", flush=True)
 
 
 def timed_prefill_decode(prefill, decode, tokens, steps):
@@ -661,7 +714,8 @@ def lm_prefill_decode_phase(model, CARD):
                                    cfg.head_dim):
         raise AssertionError(f"lm:prefill_decode: cache {cache['k'].shape}")
     with torch.no_grad():
-        profile_window(lambda: prefill({"tokens": tokens}), "prefill", CARD)
+        profile_window(lambda: prefill({"tokens": tokens}), "prefill", CARD,
+                       share="flash_attention")
         pos = torch.full((LM_B,), LM_S, dtype=torch.int32, device="cuda")
         tok = toks[:, :1]
         profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})

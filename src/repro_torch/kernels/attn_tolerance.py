@@ -10,11 +10,13 @@ thousands.  Each element is held instead to
 - ``rtol``: in bfloat16, one ulp (2**-7 of |want| at most): both
   outputs are rounded once from float32 values that differ by far less;
 - ``row``: what the float32 arithmetic may differ by, scaled to the
-  row.  In bfloat16 it is 1.5e-2: the plain decode rounds p to bf16
-  before P.V (relative error up to 2**-9 per weight, about 1.1e-3 of
-  the row's RMS per element, 5e-3 at the tail of a large call), where
-  the kernel keeps p in float32.  In float32 both terms are 1e-4 (sums
-  in another order over up to 32768 keys).
+  row.  In bfloat16 it is 1.5e-2: one side of each comparison rounds p
+  to bf16 before P.V (relative error up to 2**-9 per weight, about
+  1.1e-3 of the row's RMS per element, 5e-3 at the tail of a large
+  call) where the other keeps it in float32: the plain decode rounds
+  it and the decode kernel does not; the prefill kernel (tensor-core
+  P.V) rounds it and ``attention_chunked`` does not.  In float32 both
+  terms are 1e-4 (sums in another order over up to 32768 keys).
 
 A kernel that drops one key of a short row, or an 8-key chunk of a
 2112-key row, moves some element by several times this bound

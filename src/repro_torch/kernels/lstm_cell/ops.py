@@ -28,7 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 
 LAUNCHES = 0
-ROWS = 8                 # batch rows per block (grid.y = ceil(B / ROWS))
+ROWS = 16                # batch rows per block (grid.y = ceil(B / ROWS))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 

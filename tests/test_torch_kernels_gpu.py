@@ -93,7 +93,15 @@ def _randn(shape, dtype, rng):
     (1, 8, 8, 300, 64, True, 0, torch.float32),
     (1, 4, 2, 777, 128, True, 128, torch.bfloat16),
     (2, 4, 1, 130, 64, False, 0, torch.float32),
-    (1, 4, 2, 200, 64, False, 50, torch.bfloat16)])
+    (1, 4, 2, 200, 64, False, 50, torch.bfloat16),
+    # the tensor-core (bf16) kernel's paths: S under one 64-row half of
+    # a query tile, one row past a 128-row tile, GQA group 4 with a
+    # ragged S, a window that ends inside a key tile, D = 64 non-causal
+    (1, 4, 2, 37, 128, True, 0, torch.bfloat16),
+    (2, 4, 2, 129, 128, True, 0, torch.bfloat16),
+    (1, 8, 2, 777, 128, True, 0, torch.bfloat16),
+    (1, 4, 2, 700, 128, True, 200, torch.bfloat16),
+    (2, 4, 2, 333, 64, False, 0, torch.bfloat16)])
 def test_flash_attention_kernel_matches_plain(card, B, Hq, Hkv, S, D, causal,
                                               window, dtype):
     rng = np.random.default_rng(3)
@@ -105,6 +113,27 @@ def test_flash_attention_kernel_matches_plain(card, B, Hq, Hkv, S, D, causal,
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES == before + 1
     assert got.dtype == dtype
+    assert attn_err(got, want)[1] <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal", [
+    (2, 8, 4, 1000, 128, True), (1, 4, 2, 1000, 64, False),
+    (1, 4, 1, 300, 128, False)])
+def test_flash_attention_kernel_rescales_across_tiles(card, B, Hq, Hkv, S, D,
+                                                      causal):
+    """q and k at 4x scale: each row's maximum score moves often from
+    key tile to key tile, so a wrong rescale of (m, l, acc) shows."""
+    rng = np.random.default_rng(12)
+    q = _randn((B, Hq, S, D), torch.float32, rng) * 4.0
+    k = _randn((B, Hkv, S, D), torch.float32, rng) * 4.0
+    v = _randn((B, Hkv, S, D), torch.float32, rng)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = fa_ops.LAUNCHES
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.attention_chunked(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
     assert attn_err(got, want)[1] <= 1.0
 
 
@@ -277,7 +306,13 @@ def _cell_args(B, F, H, dtype=torch.float32, seed=9):
 @pytest.mark.parametrize("B,F,H", [(8, 16, 256), (32, 16, 256),
                                    (32, 23, 256), (4, 16, 64), (97, 16, 256),
                                    (32, 20, 128), (1, 7, 32), (129, 16, 64),
-                                   (5, 23, 8), (8, 16, 16)])
+                                   (5, 23, 8), (8, 16, 16),
+                                   # H not a multiple of 4 or 8, F = 1,
+                                   # B over several 16-row tiles, and a
+                                   # K = F + H staged in two chunks
+                                   (8, 16, 6), (5, 3, 30), (4, 1, 64),
+                                   (70, 16, 256), (70, 23, 30),
+                                   (3, 5, 1100)])
 def test_lstm_cell_kernel_matches_plain(card, B, F, H, dtype):
     args = _cell_args(B, F, H, dtype)
     before = cell_ops.LAUNCHES
