@@ -13,7 +13,8 @@ no result:
                         each kernel's registers, stack, local (spill)
                         and static shared memory (``cuobjdump
                         --dump-resource-usage``) and each library's
-                        count of HGMMA (wgmma) instructions in its SASS;
+                        counts of HGMMA (wgmma) and HMMA (mma.sync)
+                        instructions in its SASS;
 2. ``kernel:lstm_seq``  the kernel against its plain PyTorch version on
                         the card at four shapes with ragged, all-false
                         and random masks (atol = rtol = 1e-4: the same
@@ -32,12 +33,17 @@ no result:
                         graph), plain and ``scaled_dot_product_attention``
                         times beside the bound, the kernel's TFLOP/s and
                         its time over SDPA's;
-4. ``kernel:decode_gqa``  the decode attention kernel against
-                        ``decode_attention_ref`` at the decode shape of
-                        phase 8 and four others (ragged lengths, a
-                        32768-slot cache, float32, short bf16 rows where
-                        one dropped key fails the check), the same
-                        tolerance; the same times;
+4. ``kernel:decode_gqa``  the decode attention kernel (the cache split
+                        over the card by ``split_plan``, then merged)
+                        against ``decode_attention_ref`` at the decode
+                        shape of phase 8, the batcher's of phase 9 and
+                        four others (ragged lengths, a 32768-slot cache,
+                        float32, short bf16 rows where one dropped key
+                        fails the check), the same tolerance; kernel,
+                        plain and SDPA + mask times replayed from a CUDA
+                        graph (and the kernel's and SDPA's back to back)
+                        beside the bound, and the bound's share of the
+                        kernel's time;
 5. ``serve:relmas``     the driver ``repro_torch.launch.serve.main`` at
                         the paper's policy width (hidden 256, paper6
                         fleet, mixed workload, 96 RQ slots, 64 jobs,
@@ -80,7 +86,9 @@ no result:
                         (``ssd_chunk.ref.ssd_err``); ``ssd_forward``
                         with a ragged T = 100 (chunk 32) against the
                         sequential ``ssd_scan_ref``; kernel and plain
-                        times beside the bound;
+                        times beside the bound and its share of the
+                        kernel's time; the route (3xTF32 on the tensor
+                        cores) with each check's err/bound;
 12. ``lm:mamba2_prefill_decode``  mamba2-2.7b at full width and depth (64
                         layers, bf16 weights drawn on the card from seed
                         0): ``make_prefill_step`` on 4 prompts of 2048
@@ -158,13 +166,15 @@ FLASH_SHAPES = [(4, 16, 8, 2048, 128, 0, torch.bfloat16),
                 (1, 8, 2, 777, 128, 0, torch.bfloat16),
                 (3, 4, 2, 300, 64, 0, torch.float32)]
 # (B, Hq, Hkv, S, D, lengths, dtype); the first is the internlm2-1.8b
-# decode of phase 8 halfway through its 128 steps
+# decode of phase 8 halfway through its 128 steps, the last the
+# batcher's of phase 9 (16 slots of 512, lengths up to 96)
 LM_B, LM_S, LM_PAD, LM_STEPS = 4, 2048, 2048 + 128, 128
 DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, "mid", torch.bfloat16),
                  (32, 16, 8, 4096, 128, "ragged", torch.bfloat16),
                  (4, 16, 8, 32768, 128, "full", torch.bfloat16),
                  (3, 4, 4, 100, 64, "ragged", torch.float32),
-                 (16, 16, 8, 64, 128, "ragged", torch.bfloat16)]
+                 (16, 16, 8, 64, 128, "ragged", torch.bfloat16),
+                 (16, 16, 8, 512, 128, "batcher", torch.bfloat16)]
 LM_ARCH = "internlm2-1.8b"
 # card (kernels) against CPU (plain versions), bf16 weights and
 # activations: the tolerance of the port against JAX on the CPU
@@ -225,6 +235,10 @@ def phase(name: str):
               flush=True)
         raise
     print(f"[{name}] ok in {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def n_sm() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -340,7 +354,8 @@ def build_all(names) -> None:
 def resource_usage(lib) -> None:
     """Print each kernel's registers, stack, local (spill) and static
     shared memory from ``cuobjdump --dump-resource-usage`` and the
-    library's count of HGMMA (wgmma) instructions from its SASS."""
+    library's counts of HGMMA (wgmma) and HMMA (mma.sync) instructions
+    from its SASS."""
     import re
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -360,8 +375,11 @@ def resource_usage(lib) -> None:
             keep = " ".join(f for f in line.split() if f.split(":")[0] in
                             ("REG", "STACK", "SHARED", "LOCAL"))
             print(f"    {name[:60]}: {keep}", flush=True)
-    hgmma = sum("HGMMA" in ln for ln in run("--dump-sass").splitlines())
-    print(f"    HGMMA instructions: {hgmma}", flush=True)
+    sass = run("--dump-sass").splitlines()
+    hgmma = sum("HGMMA" in ln for ln in sass)
+    hmma = sum("HMMA" in ln and "HGMMA" not in ln for ln in sass)
+    print(f"    HGMMA instructions: {hgmma}; HMMA (mma.sync): {hmma}",
+          flush=True)
 
 
 def attn_bound_ms(flops, nbytes, dtype) -> tuple[float, str]:
@@ -454,6 +472,9 @@ def check_decode(ops, ref, CARD):
             elif lengths == "mid":
                 length = torch.full((B,), LM_S + LM_STEPS // 2,
                                     dtype=torch.int32, device="cuda")
+            elif lengths == "batcher":
+                length = torch.randint(1, 97, (B,), generator=gen,
+                                       device="cuda", dtype=torch.int32)
             else:
                 length = torch.randint(1, S + 1, (B,), generator=gen,
                                        device="cuda", dtype=torch.int32)
@@ -467,23 +488,34 @@ def check_decode(ops, ref, CARD):
             lib = lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True)
             lib_err = (lib().float() - want.float()).abs().max().item()
-            ms = cuda_ms(lambda: ops.decode_attention(q, k, v, length),
-                         reps=50)
-            plain_ms = cuda_ms(lambda: ref.decode_attention_ref(
-                q, k, v, length), reps=10)
-            library_ms = cuda_ms(lib, reps=50)
+            # back to back (host dispatch included), then device time
+            # from CUDA graph replays: a call of ~20 us is otherwise the
+            # host's ctypes call, not the kernel
+            eager_ms = cuda_ms(lambda: ops.decode_attention(
+                q, k, v, length), reps=50)
+            ms = graph_ms(lambda: ops.decode_attention(q, k, v, length))
+            plain_ms = graph_ms(lambda: ref.decode_attention_ref(
+                q, k, v, length), calls=10)
+            eager_lib_ms = cuda_ms(lib, reps=50)
+            library_ms = graph_ms(lib)
             esz = q.element_size()
             rows = int(length.sum().item())
             flops = 4.0 * rows * (Hq // Hkv) * Hkv * D
             nbytes = esz * (2 * rows * Hkv * D + 2 * B * Hq * D) + 4 * B
             bound_ms, bound_by = attn_bound_ms(flops, nbytes, dt)
+            n_split, split_rows = ops.split_plan(B, Hkv, S, n_sm())
             print(f"  decode_gqa B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
-                  f"length={lengths} (sum {rows}) {str(dt)[6:]} [{CARD}]: "
+                  f"length={lengths} (sum {rows}) {str(dt)[6:]} "
+                  f"split={n_split}x{split_rows} [{CARD}]: "
                   f"max_abs_err={err:.3e} err/bound={over:.3f} ok={ok} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"sdpa_ms={library_ms:.4f} (max_abs_err vs plain "
+                  f"kernel_ms={ms:.4f} (CUDA graph; back to back "
+                  f"{eager_ms:.4f}) plain_ms={plain_ms:.4f} (graph) "
+                  f"sdpa_ms={library_ms:.4f} (graph; back to back "
+                  f"{eager_lib_ms:.4f}; max_abs_err vs plain "
                   f"{lib_err:.2e}) bound_ms={bound_ms:.4f} ({bound_by}) "
-                  f"GB/s={nbytes / ms / 1e6:.0f}", flush=True)
+                  f"bound/kernel={bound_ms / ms:.3f} "
+                  f"GB/s={nbytes / ms / 1e6:.0f} "
+                  f"kernel_over_sdpa={ms / library_ms:.3f}", flush=True)
             if not ok:
                 raise AssertionError(f"decode_gqa disagrees with its plain "
                                      f"version at {(B, Hq, Hkv, S, D)}")
@@ -719,7 +751,8 @@ def lm_prefill_decode_phase(model, CARD):
         pos = torch.full((LM_B,), LM_S, dtype=torch.int32, device="cuda")
         tok = toks[:, :1]
         profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})
-                                for _ in range(4)], "4 decode steps", CARD)
+                                for _ in range(4)], "4 decode steps", CARD,
+                       share="decode_gqa")
     n_params = model.param_count()
     wbytes = n_params * 2
     kv_bytes = 2 * cfg.n_layers * LM_B * cfg.n_kv * cfg.head_dim * 2 * (
@@ -899,6 +932,11 @@ def ssd_inputs(BC, C, N, H, P, draw, gen):
     return cm, bm, xdt, torch.cumsum(la, dim=-1)
 
 
+def ssd_bytes(BC, C, N, H, P) -> int:
+    """cm, bm, xdt, cum read once and y written once."""
+    return 4 * (2 * BC * C * N + 2 * BC * H * C * P + BC * H * C)
+
+
 def ssd_bound_ms(BC, C, N, H, P) -> tuple[float, str]:
     """Least time for the call: its float32 operations with S computed
     once per chunk over the lower triangle (2N per entry), then per head
@@ -908,8 +946,8 @@ def ssd_bound_ms(BC, C, N, H, P) -> tuple[float, str]:
     out."""
     tri = C * (C + 1) // 2
     flops = BC * tri * 2.0 * N + BC * H * tri * (2.0 * P + 1.0)
-    nbytes = 4 * (2 * BC * C * N + 2 * BC * H * C * P + BC * H * C)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops = flops / PEAK_F32_FLOPS
+    t_bytes = ssd_bytes(BC, C, N, H, P) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                       else "bytes")
 
@@ -931,8 +969,9 @@ def check_ssd(ops, ref, CARD):
                 ok = over <= 1.0
                 print(f"  ssd_chunk BC={BC} C={C} N={N} H={H} P={P} "
                       f"draw={draw} min_cum={args[3].min().item():.1f} "
-                      f"[{CARD}]: max_abs_err={err:.3e} "
-                      f"err/bound={over:.4f} ok={ok}", flush=True)
+                      f"route=3xtf32 [{CARD}]: max_abs_err={err:.3e} "
+                      f"err/bound={over:.4f} (SSD_TOL {ref.SSD_TOL:g}) "
+                      f"ok={ok}", flush=True)
                 if not ok:
                     raise AssertionError(f"ssd_chunk disagrees with its "
                                          f"plain version at "
@@ -942,10 +981,15 @@ def check_ssd(ops, ref, CARD):
             plain_ms = cuda_ms(lambda: ref.ssd_intra_ref(*args), reps=5,
                                warmup=1)
             bound_ms, bound_by = ssd_bound_ms(BC, C, N, H, P)
-            print(f"  ssd_chunk BC={BC} C={C} N={N} H={H} P={P} [{CARD}]: "
+            hg = ops.head_group(BC, H, n_sm())
+            print(f"  ssd_chunk BC={BC} C={C} N={N} H={H} P={P} "
+                  f"heads/block={hg} [{CARD}]: "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms=none "
-                  f"(no single PyTorch call computes it)", flush=True)
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"bound/kernel={bound_ms / ms:.3f} "
+                  f"GB/s={ssd_bytes(BC, C, N, H, P) / ms / 1e6:.0f} "
+                  f"library_ms=none (no single PyTorch call computes it)",
+                  flush=True)
             if main is None:
                 main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None)
@@ -1016,7 +1060,7 @@ def mamba_prefill_decode_phase(model, CARD):
                              f"{tuple(cache['conv'].shape)}")
     with torch.no_grad():
         profile_window(lambda: prefill({"tokens": tokens}), "mamba2 prefill",
-                       CARD, top=12)
+                       CARD, top=12, share="ssd_chunk")
         pos = torch.full((MB_B,), MB_S, dtype=torch.int32, device="cuda")
         tok = toks[:, :1]
         profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})

@@ -7,6 +7,13 @@ For CUDA tensors it launches the kernel or raises; there is no
 fallback.  The kernel is built at first use by
 :mod:`repro_torch.kernels._build`.
 
+The kernel splits each sequence's cache into ``n_split`` runs of
+``rows`` positions (one block per run, KV head and batch row) and
+merges the runs' partial softmax states.  :func:`split_plan` chooses
+the split from the static shapes and the card's SM count alone, never
+from the values of ``length``, so a call makes no host sync and can be
+captured in a CUDA graph.
+
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
 """
@@ -23,7 +30,27 @@ LAUNCHES = 0
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8, 16)
 DTYPES = (torch.float32, torch.bfloat16)
+ROW_QUANTUM = 16        # a run's length is a multiple of this
+MAX_ROWS = 1024         # longer caches get more runs, not longer ones
+BLOCKS_PER_SM = 3       # split blocks per SM the plan aims at
 _LIB = None
+
+
+def split_plan(B: int, Hkv: int, S: int, n_sm: int) -> tuple[int, int]:
+    """(n_split, rows): the cache's S positions cut into ``n_split`` runs
+    of ``rows`` (a multiple of ``ROW_QUANTUM``, at most ``MAX_ROWS``),
+    as many as keep the ``n_split * Hkv * B`` blocks within
+    ``BLOCKS_PER_SM`` on each of the ``n_sm`` SMs (all resident at once:
+    the kernel fits four), and more only where a run would pass
+    ``MAX_ROWS``.  Run i covers
+    [i * rows, min((i + 1) * rows, S)); together they cover [0, S) once.
+    A function of the shapes only."""
+    if S <= 0:
+        return 1, ROW_QUANTUM
+    want = max(1, BLOCKS_PER_SM * n_sm // max(1, B * Hkv))
+    rows = -(-S // want)
+    rows = min(-(-rows // ROW_QUANTUM) * ROW_QUANTUM, MAX_ROWS)
+    return -(-S // rows), rows
 
 
 def _lib():
@@ -31,7 +58,7 @@ def _lib():
     if _LIB is None:
         lib = _build.load("decode_gqa")
         lib.decode_gqa_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.decode_gqa_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -101,11 +128,17 @@ def decode_attention(q, k, v, length):
     o = torch.empty_like(q)
     if B == 0 or Hq == 0:
         return o
+    n_split, rows = split_plan(B, Hkv, S, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    # partial (acc[D], m, l) of every (batch row, query head, run)
+    part = torch.empty((B * Hq * n_split * (D + 2),), dtype=torch.float32,
+                       device=q.device) if n_split > 1 else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_gqa_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-            o.data_ptr(), B, Hq, Hkv, S, D, int(q.dtype == torch.bfloat16),
+            o.data_ptr(), None if part is None else part.data_ptr(),
+            B, Hq, Hkv, S, D, int(q.dtype == torch.bfloat16), rows, n_split,
             stream)
     _build.raise_on_error(lib, "decode_gqa", err)
     LAUNCHES += 1

@@ -28,7 +28,19 @@ LAUNCHES = 0
 CHUNKS = (16, 32, 64, 128)
 HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 128
+MIN_GROUP = 8           # heads per block at least: S is shared by them
+BLOCKS_PER_SM = 2       # the grid aims at this many blocks per SM
 _LIB = None
+
+
+def head_group(BC: int, H: int, n_sm: int) -> int:
+    """Heads per block: the kernel computes S once per (chunk, group of
+    heads), so groups are large (``MIN_GROUP`` at least) and just
+    numerous enough that the ``BC * ceil(H / group)`` blocks give each
+    of the ``n_sm`` SMs about ``BLOCKS_PER_SM``.  A function of the
+    shapes only."""
+    groups = max(1, round(BLOCKS_PER_SM * n_sm / max(1, BC)))
+    return max(MIN_GROUP, -(-H // groups))
 
 
 def _lib():
@@ -36,7 +48,7 @@ def _lib():
     if _LIB is None:
         lib = _build.load("ssd_chunk")
         lib.ssd_chunk_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.ssd_chunk_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -61,9 +73,9 @@ def _check(cm, bm, xdt, cum):
     if not 0 < N <= MAX_STATE or N % 4:
         raise ValueError(f"ssd_intra kernel takes N a multiple of 4 up to "
                          f"{MAX_STATE}, got N={N}")
-    if BC > 2 ** 31 - 1 or H > 65535 * 4:
+    if BC > 2 ** 31 - 1 or H > 65535 * MIN_GROUP:
         raise ValueError(f"ssd_intra kernel takes BC < 2**31 and "
-                         f"H <= {65535 * 4}, got BC={BC}, H={H}")
+                         f"H <= {65535 * MIN_GROUP}, got BC={BC}, H={H}")
     for name, x in (("cm", cm), ("bm", bm), ("xdt", xdt), ("cum", cum)):
         if x.dtype != torch.float32:
             raise TypeError(f"ssd_intra kernel takes float32, {name} is "
@@ -101,11 +113,13 @@ def ssd_intra(cm, bm, xdt, cum):
     y = torch.empty_like(xdt)
     if BC == 0 or H == 0:
         return y
+    hg = head_group(BC, H, torch.cuda.get_device_properties(
+        cm.device).multi_processor_count)
     with torch.cuda.device(cm.device):
         stream = torch.cuda.current_stream(cm.device).cuda_stream
         err = lib.ssd_chunk_launch(
             cm.data_ptr(), bm.data_ptr(), xdt.data_ptr(), cum.data_ptr(),
-            y.data_ptr(), BC, C, N, H, P, stream)
+            y.data_ptr(), BC, C, N, H, P, hg, stream)
     _build.raise_on_error(lib, "ssd_chunk", err)
     LAUNCHES += 1
     return y

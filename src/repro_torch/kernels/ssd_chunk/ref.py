@@ -10,7 +10,11 @@ of the intra-chunk kernel.
 - ``ssd_intra_ref``: exactly what the intra-chunk kernel computes over
   its grid (``_ssd_kernel`` of the TPU kernel): the CPU path of
   ``ops.ssd_intra`` and the kernel's oracle on the card;
-- ``ssd_err``: how closely the kernel must match ``ssd_intra_ref``.
+- ``ssd_err``: how closely the kernel must match ``ssd_intra_ref``;
+- ``ssd_intra_tf32``: ``ssd_intra_ref`` with both products taken as the
+  tensor cores take them, in single-pass TF32 or in 3xTF32 (the
+  kernel's route), each operand rounded by ``tf32_round``.  A test
+  oracle of the precision, on no main path.
 
 Shapes: x (B,T,H,P), dt (B,T,H) [positive], A (H,) [negative],
 Bm/Cm (B,T,N) shared across heads (G=1).  The scans return
@@ -122,3 +126,40 @@ def ssd_err(got, want) -> tuple[float, float]:
     rms = w.pow(2).mean(dim=(-2, -1), keepdim=True).sqrt()
     bound = (SSD_TOL * rms).clamp_min(torch.finfo(torch.float32).tiny)
     return diff.max().item(), (diff / bound).max().item()
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 explicit mantissa bits): to
+    nearest, ties to even, on the low 13 bits, which come out zero.
+    (The kernel's ``cvt.rna`` sends ties away from zero instead; the
+    two differ only on exact ties.)"""
+    b = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = (b + 0xFFF + ((b >> 13) & 1)) & 0xFFFFE000
+    b = torch.where(b >= 2 ** 31, b - 2 ** 32, b)
+    return b.to(torch.int32).view(torch.float32)
+
+
+def _matmul_tf32(a, b, passes: int):
+    """``a @ b`` in float32 from TF32 operands: one product of the
+    rounded operands (``passes=1``), or with each split as hi + lo,
+    lo.hi + hi.lo + hi.hi (``passes=3``)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return torch.matmul(ah, bh)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+def ssd_intra_tf32(cm, bm, xdt, cum, passes: int = 3):
+    """``ssd_intra_ref`` with ``S = cm @ bm^T`` and ``(S*L) @ xdt`` both
+    from TF32 operands, in ``passes`` 1 or 3 (module docstring)."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    C = cm.shape[1]
+    s = _matmul_tf32(cm.float(), bm.float().transpose(1, 2), passes)
+    cum = cum.float()
+    ar = torch.arange(C, device=cm.device)
+    causal = ar[:, None] >= ar[None, :]
+    diff = torch.clamp(cum[:, :, :, None] - cum[:, :, None, :], -CLIP, 0.0)
+    L = torch.where(causal, torch.exp(diff), 0.0)
+    return _matmul_tf32(s[:, None] * L, xdt.float(), passes)

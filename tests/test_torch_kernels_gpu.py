@@ -159,6 +159,66 @@ def test_decode_gqa_kernel_matches_plain(card, B, Hq, Hkv, S, D, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,lengths,dtype", [
+    # whole runs of the split empty (short and zero-length rows beside a
+    # full one)
+    (4, 16, 8, 2176, 128, [2176, 5, 700, 0], torch.bfloat16),
+    (3, 8, 2, 3000, 64, [1, 2999, 64], torch.float32),
+    (2, 32, 2, 1500, 64, [129, 1500], torch.bfloat16),
+    # length 1 in a 32768-slot cache
+    (4, 16, 8, 32768, 128, [1, 1, 32768, 2], torch.bfloat16),
+    # the batcher's decode shape: 16 slots of 512, lengths up to 96
+    (16, 16, 8, 512, 128, None, torch.bfloat16)])
+def test_decode_gqa_split_matches_plain(card, B, Hq, Hkv, S, D, lengths,
+                                        dtype):
+    rng = np.random.default_rng(13)
+    q = _randn((B, Hq, 1, D), dtype, rng)
+    k, v = (_randn((B, Hkv, S, D), dtype, rng) for _ in range(2))
+    if lengths is None:
+        lengths = rng.integers(1, 97, size=B)
+    length = torch.as_tensor(np.asarray(lengths, np.int32)).cuda()
+    before = dec_ops.LAUNCHES
+    got = dec_ops.decode_attention(q, k, v, length)
+    want = dec_ref.decode_attention_ref(q, k, v, length)
+    torch.cuda.synchronize()
+    assert dec_ops.LAUNCHES == before + 1
+    assert dec_ops.split_plan(B, Hkv, S, torch.cuda.get_device_properties(
+        0).multi_processor_count)[0] > 1
+    live = length > 0           # length 0: zeros (the plain version: mean)
+    assert attn_err(got[live], want[live])[1] <= 1.0
+    assert not got[~live].float().abs().any()
+
+
+@pytest.mark.gpu
+def test_decode_gqa_replays_from_a_cuda_graph(card):
+    """The call makes no host sync: captured once, it replays with new
+    lengths written in place and matches eager calls and the plain
+    version."""
+    rng = np.random.default_rng(14)
+    B, Hq, Hkv, S, D = 4, 16, 8, 2176, 128
+    q = _randn((B, Hq, 1, D), torch.bfloat16, rng)
+    k, v = (_randn((B, Hkv, S, D), torch.bfloat16, rng) for _ in range(2))
+    length = torch.full((B,), 2112, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dec_ops.decode_attention(q, k, v, length)      # warm-up, build
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dec_ops.decode_attention(q, k, v, length)
+    for lengths in ([2112, 2112, 2112, 2112], [1, 300, 2176, 1025],
+                    [64, 65, 128, 129]):
+        length.copy_(torch.as_tensor(lengths, dtype=torch.int32))
+        graph.replay()
+        eager = dec_ops.decode_attention(q, k, v, length)
+        want = dec_ref.decode_attention_ref(q, k, v, length)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert attn_err(out, want)[1] <= 1.0
+
+
+@pytest.mark.gpu
 def test_attention_kernels_reject_what_they_do_not_take(card):
     rng = np.random.default_rng(5)
     q = _randn((1, 4, 16, 32), torch.bfloat16, rng)
@@ -227,6 +287,24 @@ def test_ssd_chunk_kernel_matches_plain(card, BC, C, N, H, P, decay):
     torch.cuda.synchronize()
     assert ssd_ops.LAUNCHES == before + 1
     assert got.shape == want.shape and got.dtype == torch.float32
+    assert ssd_ref.ssd_err(got, want)[1] <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", ["kernels", "model"])
+@pytest.mark.parametrize("BC,C,N,H,P", [(3, 128, 4, 9, 64),
+                                        (4, 64, 12, 7, 32),
+                                        (5, 16, 32, 1, 16),
+                                        (2, 16, 12, 1, 64)])
+def test_ssd_chunk_kernel_pads_n_and_small_chunks(card, BC, C, N, H, P,
+                                                  decay):
+    """N below or off the MMA depth of 8 (zero-padded in shared memory),
+    the 16-row chunk with one head."""
+    args = _ssd_inputs(BC, C, N, H, P, decay, seed=15)
+    with torch.no_grad():
+        got = ssd_ops.ssd_intra(*args)
+        want = ssd_ref.ssd_intra_ref(*args)
+    torch.cuda.synchronize()
     assert ssd_ref.ssd_err(got, want)[1] <= 1.0
 
 
