@@ -16,12 +16,17 @@ no result:
                         counts of HGMMA (wgmma) and HMMA (mma.sync)
                         instructions in its SASS;
 2. ``kernel:lstm_seq``  the kernel against its plain PyTorch version on
-                        the card at four shapes with ragged, all-false
-                        and random masks (atol = rtol = 1e-4: the same
-                        float32 sums in another order over up to 97
-                        recurrent steps); kernel, plain and cuDNN
-                        ``torch.nn.LSTM`` times at the serving shape
-                        beside the kernel's bound;
+                        the card at four shapes with ragged (an all-false
+                        and a random row among them) and full masks, and
+                        three tail masks: the rows of a tile ending at
+                        different steps, a fully masked tile, rows
+                        unmasked again after a masked gap (atol = rtol =
+                        1e-4: the same float32 sums in another order
+                        over up to 97 recurrent steps); its launch plan
+                        (``ops.seq_plan``); kernel, plain and cuDNN
+                        ``torch.nn.LSTM`` times at the serving shape,
+                        back to back and replayed from a CUDA graph, and
+                        the kernel's time per step, beside its bound;
 3. ``kernel:flash_attention``  the prefill attention kernel against
                         ``attention_chunked`` at the internlm2-1.8b
                         prefill shape and four others (causal, window,
@@ -48,7 +53,11 @@ no result:
                         the paper's policy width (hidden 256, paper6
                         fleet, mixed workload, 96 RQ slots, 64 jobs,
                         60 periods, 32 streams); the kernel must launch
-                        exactly once per tick;
+                        exactly once per tick; the actor's masks are
+                        recorded (each call's longest valid prefix:
+                        mean, p50, max) and the kernel is timed again on
+                        every recorded call, beside the bound for its
+                        mask;
 6. ``serve:fcfs``       the same streams under the FCFS heuristic;
 7. ``parity``           the same streams through the port on the CPU
                         (plain versions) and on the card, relmas and
@@ -256,21 +265,46 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def lstm_inputs(T, B, F, H, gen, full_mask=False):
+LSTM_MASKS = ("ragged", "full", "ends", "dead_tile", "gap")
+
+
+def lstm_inputs(T, B, F, H, gen, full_mask=False, kind=None, rows=1):
+    """Inputs of one call; ``kind`` one of ``LSTM_MASKS`` (default
+    "full" if ``full_mask`` else "ragged"); ``rows`` is the plan's tile,
+    which "dead_tile" masks out whole (the second tile, or the only
+    one)."""
+    kind = kind or ("full" if full_mask else "ragged")
     xs = torch.randn((T, B, F), generator=gen)
     wx = torch.randn((F, 4 * H), generator=gen) * 0.1
     wh = torch.randn((H, 4 * H), generator=gen) * 0.1
     b = torch.randn((4 * H,), generator=gen) * 0.1
-    if full_mask:
-        mask = torch.ones((T, B), dtype=torch.bool)
-    else:
+    t = torch.arange(T)[:, None]
+    mask = torch.ones((T, B), dtype=torch.bool)
+    if kind == "ragged":
         # ragged prefixes; with 3+ rows also an all-false and a random row
         lens = torch.randint(1, T + 1, (B,), generator=gen)
-        mask = torch.arange(T)[:, None] < lens[None, :]
+        mask = t < lens[None, :]
         if B >= 3:
             mask[:, 1] = False
             mask[:, 2] = torch.rand((T,), generator=gen) < 0.6
+    elif kind == "ends":
+        # consecutive rows (one tile) end at steps a fifth of T apart
+        mask = t < torch.clamp(T - (torch.arange(B) % 5) * (T // 5),
+                               min=1)[None, :]
+    elif kind == "dead_tile":
+        lo = rows if B > rows else 0
+        mask[:, lo:lo + rows] = False
+    elif kind == "gap":
+        # every other row masked over the middle third, then live again
+        gap = (t >= T // 3) & (t < 2 * T // 3)
+        mask[:, ::2] = ~gap.expand(T, B)[:, ::2]
     return [x.cuda().contiguous() for x in (xs, mask, wx, wh, b)]
+
+
+def lstm_plan(ops, T, B, F, H):
+    lib = ops._lib()
+    return ops.seq_plan(B, H, ops.resident_clusters(
+        lib, torch.device("cuda", 0), F, H))
 
 
 def lstm_bound_ms(T, B, F, H, mask) -> tuple[float, str]:
@@ -291,20 +325,26 @@ def check_kernel(ops, ref, CARD):
     max_err = 0.0
     with torch.no_grad():
         for (T, B, F, H) in KERNEL_SHAPES:
-            for full in (False, True):
-                args = lstm_inputs(T, B, F, H, gen, full_mask=full)
+            plan = lstm_plan(ops, T, B, F, H)
+            smem = ops._lib().lstm_seq_smem_bytes(plan.units, plan.rows, F, H)
+            print(f"  lstm_seq T={T} B={B} F={F} H={H}: {plan}, {smem} B of "
+                  f"dynamic shared memory per CTA", flush=True)
+            for kind in LSTM_MASKS:
+                args = lstm_inputs(T, B, F, H, gen, kind=kind,
+                                   rows=plan.rows)
                 got = ops.lstm_seq(*args)
                 want = ref.lstm_seq_ref(*args)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 ok = torch.allclose(got, want, atol=TOL, rtol=TOL)
-                print(f"  lstm_seq T={T} B={B} F={F} H={H} "
-                      f"mask={'full' if full else 'ragged'} "
+                print(f"  lstm_seq T={T} B={B} F={F} H={H} mask={kind} "
                       f"max_abs_err={err:.3e} ok={ok}", flush=True)
                 if not ok:
                     raise AssertionError(f"lstm_seq disagrees with its plain "
-                                         f"version at {(T, B, F, H)}")
+                                         f"version at {(T, B, F, H)}, "
+                                         f"{kind} mask")
                 max_err = max(max_err, err)
+            args = lstm_inputs(T, B, F, H, gen, kind="full")
             ms = cuda_ms(lambda: ops.lstm_seq(*args), reps=20)
             print(f"  lstm_seq T={T} B={B} F={F} H={H} full mask "
                   f"[{CARD}]: kernel_ms={ms:.4f}", flush=True)
@@ -319,17 +359,25 @@ def check_kernel(ops, ref, CARD):
         lstm.bias_ih_l0.copy_(b)
         lstm.bias_hh_l0.zero_()
         lib_err = (lstm(xs)[0] - ref.lstm_seq_ref(*args)).abs().max().item()
+        # eager: back-to-back calls from Python; graph: device time
         kernel_ms = cuda_ms(lambda: ops.lstm_seq(*args), reps=50)
         plain_ms = cuda_ms(lambda: ref.lstm_seq_ref(*args), reps=10)
         library_ms = cuda_ms(lambda: lstm(xs), reps=50)
+        g_kernel = graph_ms(lambda: ops.lstm_seq(*args))
+        g_plain = graph_ms(lambda: ref.lstm_seq_ref(*args), calls=10)
+        g_library = graph_ms(lambda: lstm(xs))
         bound_ms, bound_by = lstm_bound_ms(T, B, F, H, mask)
     print(f"  lstm_seq T={T} B={B} F={F} H={H} full mask [{CARD}]: "
+          f"device (CUDA graph) kernel_ms={g_kernel:.4f} (per step "
+          f"{g_kernel * 1e3 / T:.3f} us) plain_ms={g_plain:.4f} "
+          f"library_ms={g_library:.4f}; eager back-to-back "
           f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} (cuDNN nn.LSTM, max_abs_err vs "
-          f"plain {lib_err:.2e}) bound_ms={bound_ms:.4f} ({bound_by})",
+          f"plain {lib_err:.2e}); bound_ms={bound_ms:.4f} ({bound_by}, "
+          f"{bound_ms / g_kernel:.3f} of the kernel's device time)",
           flush=True)
-    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return dict(max_abs_err=max_err, ms=g_kernel, plain_ms=g_plain,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=g_library)
 
 
 def build_all(names) -> None:
@@ -559,8 +607,18 @@ class Spans:
 
 
 def serve_phase(serve_cli, ops, policy, CARD):
+    calls = []                  # the actor's (xs, mask, wx, wh, b) per tick
+    real = ops.lstm_seq
+
+    def recording(xs, mask, *w):
+        calls.append((xs.clone(), mask.clone(), *w))
+        return real(xs, mask, *w)
+    ops.lstm_seq = recording
     ops.LAUNCHES = 0
-    out = serve_cli.main(SERVE_ARGS + ["--policy", policy])
+    try:
+        out = serve_cli.main(SERVE_ARGS + ["--policy", policy])
+    finally:
+        ops.lstm_seq = real
     launches = ops.LAUNCHES
     if not out["counted"] > 0 or not 0.0 <= out["sla_rate"] <= 1.0:
         raise AssertionError(f"serve:{policy}: counted={out['counted']} "
@@ -575,7 +633,38 @@ def serve_phase(serve_cli, ops, policy, CARD):
           f"{out['tick_p50_us'] / 1e3:.3f} tick_p99_ms="
           f"{out['tick_p99_us'] / 1e3:.3f} sla_rate={out['sla_rate']:.4f} "
           f"counted={out['counted']}", flush=True)
+    if calls:
+        serve_masks(ops, calls, CARD)
     return launches
+
+
+def serve_masks(ops, calls, CARD):
+    """The actor's masks of a serving run: each call's longest valid
+    prefix, and the kernel timed again on every recorded call beside
+    the bound for its mask."""
+    longest, live, ms, bound = [], [], [], []
+    with torch.no_grad():
+        for xs, mask, wx, wh, b in calls:
+            T, B, F = xs.shape
+            steps = torch.arange(1, T + 1, device=mask.device)[:, None]
+            ends = (mask * steps).amax(0)          # last live step + 1
+            longest.append(int(ends.max()))
+            live.append(float(mask.float().mean()))
+            ms.append(cuda_ms(lambda: ops.lstm_seq(xs, mask, wx, wh, b),
+                              reps=20))
+            bound.append(lstm_bound_ms(T, B, F, wh.shape[0], mask)[0])
+    full = calls[0]
+    full_ms = cuda_ms(lambda: ops.lstm_seq(
+        full[0], torch.ones_like(full[1]), *full[2:]), reps=20)
+    print(f"  serve:relmas actor masks [{CARD}]: calls={len(calls)} "
+          f"T={calls[0][0].shape[0]} longest valid prefix mean="
+          f"{np.mean(longest):.1f} p50={pct(longest, 50):.0f} "
+          f"max={max(longest)}; live share of (step, row) mean="
+          f"{np.mean(live):.4f}; kernel on the recorded calls mean_ms="
+          f"{np.mean(ms):.4f} p50_ms={pct(ms, 50):.4f} max_ms="
+          f"{max(ms):.4f} (sum {np.sum(ms):.3f} ms per run), bound mean_ms="
+          f"{np.mean(bound):.4f}; the same inputs with a full mask "
+          f"{full_ms:.4f} ms", flush=True)
 
 
 def parity_phase(serve_cli, policy, CARD):

@@ -27,6 +27,13 @@ kernel):
   JAX package): the step-by-step recurrence, one launch of the
   hand-written ``lstm_cell`` kernel per timestep, differentiable.
 
+``compute_dtype="bfloat16"`` changes the step route only, as in the JAX
+package: each step's two gate products take bf16 inputs, their sum is
+cast to float32 before the bias, and the carry stays float32.  Those
+are PyTorch operations (the reference leaves them to XLA, outside any
+Pallas kernel); the ``lstm_cell`` kernel stores c in its input type, so
+it is not that function.  The sequence route ignores the field.
+
 On CPU tensors both routes take their kernels' plain versions.  The two
 FC products stay ``torch.matmul``.
 """
@@ -54,15 +61,12 @@ class PolicyConfig:
     hidden: int = 256      # paper default (Sec. 5: >=128 saturates)
     # True: whole-sequence lstm_seq kernel; False: lstm_cell per step
     use_pallas: bool = False
-    # compute dtype of the recurrence; only float32 is ported
+    # compute dtype of the step route's gate products (params, bias and
+    # carry stay float32): "float32" or "bfloat16"
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' (bf16 matmul inputs, float32 bias "
-                "and carry) is not ported yet: ROADMAP B1 (bf16)")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
 
     @property
@@ -104,22 +108,40 @@ def init_critic(gen: torch.Generator, cfg: PolicyConfig,
     return _net_init(gen, cfg.critic_in, cfg.hidden, 1, device)
 
 
-def _lstm_scan(p: Params, xs, mask, hidden: int, use_pallas: bool = False):
+def _bf16_cell(x, h, c, wx, wh, b):
+    """One step with bf16 gate products: ``(x.bf16 @ wx + h.bf16 @ wh)``
+    summed in bf16, then float32 before the bias; float32 carry."""
+    bf16 = torch.bfloat16
+    gates = (x.to(bf16) @ wx + h.to(bf16) @ wh).float() + b
+    i, f, g, o = torch.split(gates, h.shape[-1], dim=-1)
+    c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c2), c2
+
+
+def _lstm_scan(p: Params, xs, mask, hidden: int, use_pallas: bool = False,
+               compute_dtype: str = "float32"):
     """xs (T, B, in), mask (T, B) bool -> hidden states (T, B, hidden).
 
     Zero initial carry; a masked step leaves the carry untouched and
-    emits the held h.  ``use_pallas`` picks the whole-sequence kernel,
-    else the step recurrence through the ``lstm_cell`` kernel, with the
-    masked carry ``where(m, h2, h)`` outside the cell.
+    emits the held h.  ``use_pallas`` picks the whole-sequence kernel
+    (whatever ``compute_dtype`` says), else the step recurrence through
+    the ``lstm_cell`` kernel in float32 or :func:`_bf16_cell` in
+    bfloat16, with the masked carry ``where(m, h2, h)`` outside the cell.
     """
     if use_pallas:
         return lstm_ops.lstm_seq(xs, mask, p["wx"], p["wh"], p["b"])
+    if compute_dtype == "bfloat16":
+        wx, wh = p["wx"].to(torch.bfloat16), p["wh"].to(torch.bfloat16)
+        cell = lambda x, h, c: _bf16_cell(x, h, c, wx, wh, p["b"])
+    else:
+        cell = lambda x, h, c: cell_ops.lstm_cell(x, h, c, p["wx"], p["wh"],
+                                                  p["b"])
     T, B, _ = xs.shape
     h = xs.new_zeros((B, hidden))
     c = xs.new_zeros((B, hidden))
     out = []
     for t in range(T):
-        h2, c2 = cell_ops.lstm_cell(xs[t], h, c, p["wx"], p["wh"], p["b"])
+        h2, c2 = cell(xs[t], h, c)
         m = mask[t][:, None]
         h = torch.where(m, h2, h)
         c = torch.where(m, c2, c)
@@ -136,7 +158,7 @@ def _scan_batch(params: Params, cfg: PolicyConfig, xs, mask):
     """Batch-first (B, T, in) -> (B, T, hidden) through :func:`_lstm_scan`."""
     hs = _lstm_scan(params["lstm"], xs.transpose(0, 1).contiguous(),
                     mask.transpose(0, 1).contiguous(), cfg.hidden,
-                    cfg.use_pallas)
+                    cfg.use_pallas, cfg.compute_dtype)
     return hs.transpose(0, 1)
 
 

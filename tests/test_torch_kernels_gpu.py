@@ -53,7 +53,8 @@ def card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,B,F,H", [(97, 32, 16, 256), (97, 1, 16, 256),
-                                     (97, 32, 16, 64), (12, 33, 23, 64)])
+                                     (97, 33, 16, 256), (97, 32, 16, 64),
+                                     (12, 33, 23, 64), (3, 130, 23, 128)])
 def test_lstm_seq_kernel_matches_plain(card, T, B, F, H):
     args = _args(T, B, F, H)
     before = ops.LAUNCHES
@@ -63,6 +64,76 @@ def test_lstm_seq_kernel_matches_plain(card, T, B, F, H):
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _tail_mask(kind, T, B, rows):
+    """The rows of one tile ending at different steps; a fully masked
+    tile (the second, or the only one); every other row unmasked again
+    after a masked middle third."""
+    t = torch.arange(T)[:, None]
+    mask = torch.ones((T, B), dtype=torch.bool)
+    if kind == "ends":
+        mask = t < torch.clamp(T - (torch.arange(B) % 5) * (T // 5),
+                               min=1)[None, :]
+    elif kind == "dead_tile":
+        lo = rows if B > rows else 0
+        mask[:, lo:lo + rows] = False
+    elif kind == "gap":
+        gap = (t >= T // 3) & (t < 2 * T // 3)
+        mask[:, ::2] = ~gap.expand(T, B)[:, ::2]
+    return mask.cuda()
+
+
+def _rows(B, F, H):
+    lib = ops._lib()
+    return ops.seq_plan(B, H, ops.resident_clusters(
+        lib, torch.device("cuda", 0), F, H)).rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ends", "dead_tile", "gap"])
+@pytest.mark.parametrize("T,B,F,H", [(97, 32, 16, 256), (97, 33, 16, 256),
+                                     (97, 1, 16, 256), (12, 33, 23, 64),
+                                     (40, 70, 16, 128)])
+def test_lstm_seq_kernel_tail_masks(card, T, B, F, H, kind):
+    xs, _, wx, wh, b = _args(T, B, F, H, seed=15)
+    mask = _tail_mask(kind, T, B, _rows(B, F, H))
+    with torch.no_grad():
+        got = ops.lstm_seq(xs, mask, wx, wh, b)
+        want = lstm_seq_ref(xs, mask, wx, wh, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert not got[:, ~mask.any(0)].any()      # never-live rows stay 0
+
+
+@pytest.mark.gpu
+def test_lstm_seq_replays_from_a_cuda_graph(card):
+    """The call makes no host sync and plans from shapes only: captured
+    once, it replays with new masks written in place (full, tails, all
+    false) and matches eager calls and the plain version."""
+    T, B, F, H = 97, 32, 16, 256
+    xs, mask, wx, wh, b = _args(T, B, F, H, seed=16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        ops.lstm_seq(xs, mask, wx, wh, b)             # warm-up, build
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad():
+        with torch.cuda.graph(graph):
+            out = ops.lstm_seq(xs, mask, wx, wh, b)
+        rows = _rows(B, F, H)
+        for new in [torch.ones_like(mask)] + [
+                _tail_mask(k, T, B, rows) for k in ("ends", "dead_tile",
+                                                    "gap")] + [
+                torch.zeros_like(mask)]:
+            mask.copy_(new)
+            graph.replay()
+            eager = ops.lstm_seq(xs, mask, wx, wh, b)
+            want = lstm_seq_ref(xs, mask, wx, wh, b)
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+            torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

@@ -130,8 +130,38 @@ def test_step_route_matches_sequence_route():
 
 
 def test_bf16_compute_dtype_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        P.PolicyConfig(feat_dim=16, act_dim=7, compute_dtype="bfloat16")
+    """``compute_dtype="bfloat16"`` on the step route: the actor and the
+    critic against the JAX package's ``actor_apply`` / ``critic_apply``
+    in bf16 on the same weights and ragged masks, within 3e-2 (the bf16
+    tolerance of the cell tests above: bf16 rounding at other places).
+    An unknown dtype raises."""
+    F, G, H, T, B = 16, 7, 32, 9, 5
+    jcfg = JP.PolicyConfig(feat_dim=F, act_dim=G, hidden=H,
+                           compute_dtype="bfloat16")
+    cfg = P.PolicyConfig(feat_dim=F, act_dim=G, hidden=H,
+                         compute_dtype="bfloat16")
+    ja, jc = (init(jax.random.PRNGKey(k), jcfg) for k, init in
+              ((3, JP.init_actor), (4, JP.init_critic)))
+    rng = np.random.default_rng(6)
+    feats = rng.standard_normal((B, T, F)).astype(np.float32)
+    acts = rng.uniform(-1, 1, (B, T - 1, G)).astype(np.float32)
+    mask = np.arange(T)[None, :] < np.array([T, 1, 4, 0, 6])[:, None]
+    want_a = jax.vmap(JP.actor_apply, in_axes=(None, None, 0, 0))(
+        ja, jcfg, jnp.asarray(feats), jnp.asarray(mask))
+    want_q = jax.vmap(JP.critic_apply, in_axes=(None, None, 0, 0, 0))(
+        jc, jcfg, jnp.asarray(feats), jnp.asarray(acts), jnp.asarray(mask))
+    tree = lambda p: {k: {n: torch.tensor(np.array(a))
+                          for n, a in v.items()} for k, v in p.items()}
+    args = [torch.as_tensor(a) for a in (feats, acts, mask)]
+    before = ops.LAUNCHES
+    with torch.no_grad():
+        got_a = P.actor_apply(tree(ja), cfg, args[0], args[2])
+        got_q = P.critic_apply(tree(jc), cfg, *args)
+    assert ops.LAUNCHES == before
+    assert got_a.dtype == got_q.dtype == torch.float32
+    for got, want in ((got_a, want_a), (got_q, want_q)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   atol=3e-2, rtol=3e-2)
     with pytest.raises(ValueError, match="compute_dtype"):
         P.PolicyConfig(feat_dim=16, act_dim=7, compute_dtype="float16")
 

@@ -57,6 +57,44 @@ def test_plain_matches_jax_pallas_kernel(T, B, F, H):
     np.testing.assert_allclose(_port(args), want, **TOL)
 
 
+def tail_mask(kind, T, B, rows=4):
+    """The kernel's tail cases: the rows of a tile (``rows`` consecutive
+    rows) ending at different steps; a fully masked tile; rows unmasked
+    again after a masked gap."""
+    t = np.arange(T)[:, None]
+    mask = np.ones((T, B), bool)
+    if kind == "ends":
+        mask = t < np.maximum(T - (np.arange(B) % 5) * (T // 5), 1)[None, :]
+    elif kind == "dead_tile":
+        lo = rows if B > rows else 0
+        mask[:, lo:lo + rows] = False
+    elif kind == "gap":
+        gap = (t >= T // 3) & (t < 2 * T // 3)
+        mask[:, ::2] = ~np.broadcast_to(gap, (T, B))[:, ::2]
+    return mask
+
+
+TAIL_SHAPES = [(12, 9, 16, 32), (20, 33, 23, 64), (15, 1, 8, 32)]
+
+
+@pytest.mark.parametrize("kind", ["ends", "dead_tile", "gap"])
+@pytest.mark.parametrize("T,B,F,H", TAIL_SHAPES)
+def test_plain_matches_jax_on_tail_masks(T, B, F, H, kind):
+    xs, _, wx, wh, b = _args(T, B, F, H, seed=13)
+    args = (xs, tail_mask(kind, T, B), wx, wh, b)
+    got = _port(args)
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (jax_lstm_seq_ref(*jargs), jax_lstm_seq(*jargs)):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    dead = ~args[1].any(0)
+    np.testing.assert_array_equal(got[:, dead], 0.0)   # never-live rows
+    last = T - 1 - np.argmax(args[1][::-1], axis=0)     # held after the end
+    for r in np.flatnonzero(~dead):
+        np.testing.assert_array_equal(got[last[r]:, r],
+                                      np.broadcast_to(got[last[r], r],
+                                                      (T - last[r], H)))
+
+
 def test_masked_steps_hold_the_carry():
     """A fully masked step emits the held h; an all-false row stays 0."""
     xs, _, wx, wh, b = _args(6, 3, 8, 32)
