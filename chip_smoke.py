@@ -16,17 +16,20 @@ no result:
                         counts of HGMMA (wgmma) and HMMA (mma.sync)
                         instructions in its SASS;
 2. ``kernel:lstm_seq``  the kernel against its plain PyTorch version on
-                        the card at four shapes with ragged (an all-false
-                        and a random row among them) and full masks, and
+                        the card at five shapes (the fifth the
+                        generalist actor's F = 84 at M_max = 8) with
+                        ragged (an all-false and a random row among
+                        them) and full masks, and
                         three tail masks: the rows of a tile ending at
                         different steps, a fully masked tile, rows
                         unmasked again after a masked gap (atol = rtol =
                         1e-4: the same float32 sums in another order
                         over up to 97 recurrent steps); its launch plan
                         (``ops.seq_plan``); kernel, plain and cuDNN
-                        ``torch.nn.LSTM`` times at the serving shape,
-                        back to back and replayed from a CUDA graph, and
-                        the kernel's time per step, beside its bound;
+                        ``torch.nn.LSTM`` times at the serving shape and
+                        at (97, 32, 84, 256), back to back and replayed
+                        from a CUDA graph, and the kernel's time per
+                        step, beside its bound; the F = 84 plan;
 3. ``kernel:flash_attention``  the prefill attention kernel against
                         ``attention_chunked`` at the internlm2-1.8b
                         prefill shape and four others (causal, window,
@@ -113,7 +116,9 @@ no result:
 15. ``kernel:lstm_cell``  the fused LSTM step against ``lstm_cell_ref``
                         at the rollout shape (B, F, H) = (8, 16, 256),
                         the update shapes (32, 16, 256) and (32, 23, 256),
-                        the JAX kernel tests' shapes and H = 8 and 16, in
+                        the generalist's (8, 84, 256), (32, 84, 256) and
+                        (32, 93, 256), the JAX kernel tests' shapes and
+                        H = 8 and 16, in
                         float32 (within 1e-5) and bfloat16 (3e-2); the
                         autograd Function's gradient against autograd of
                         the plain version (1e-5); kernel, plain and
@@ -139,7 +144,42 @@ no result:
                         on the card (kernels): equal ``counted`` and
                         ``hits``, transitions within ``TRAIN_TOL``,
                         losses within rtol 1e-3, parameters within
-                        2 lr per update.
+                        2 lr per update;
+18. ``baseline:magma``  MAGMA at the paper's 100 x 100 through
+                        ``evaluate_batch_baseline`` on mixed / paper6,
+                        96 RQ slots, 64 jobs, 8 streams, the arrivals
+                        of a 60-period episode with its depth cut to
+                        3 periods: 101 engine calls a period (each
+                        over 800 rows), the elite non-decreasing and at
+                        or above the Herald individual in every period;
+                        seconds a period and the SLA beside Herald's; a
+                        profiled fitness call;
+19. ``train:churn``     ``rl_train`` under ``--churn mixed`` at
+                        hidden 256 (light, paper6, 96 RQ slots, 64 jobs,
+                        episodes cut to 30 periods, 8 episodes a
+                        round): two rounds, an eval on 2
+                        seeds, the fcfs, herald and magma (24 x 12)
+                        baselines (on the static fleet, as the
+                        reference); ``lstm_cell`` exactly T per period
+                        and 5 T per update; then fcfs, herald and magma
+                        (24 x 12) under ``mixed`` on 2 seeds, and an
+                        eval batch under the ``fail`` preset commits no
+                        sub-job to an SA in a period in which it is
+                        invalid (policy, Herald);
+20. ``train:generalist``  ``rl_train`` over paper6, 4simba_4eyeriss and
+                        2simba_2eyeriss as one generalist (m_max 8,
+                        F = 84) under ``--churn mixed``, ``--best-metric
+                        min_fleet``: two rounds, a per-fleet eval, the
+                        same exact launch counts;
+21. ``serve:generalist``  ``launch/serve.py`` with that checkpoint on
+                        big_little, a fleet it never trained on, 32
+                        streams x 60 periods: ``lstm_seq`` exactly once a
+                        tick at F = 84; tick p50/p99, then synchronised
+                        spans for the actor's and engine's shares;
+22. ``generalist:parity``  one churned generalist round (hidden 256, 8
+                        periods) on the CPU and on the card from the
+                        same state, buffer and draws, held to phase
+                        17's criteria (and an equal ``fleet`` column).
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -205,13 +245,19 @@ SERVE_ARGS = ["--workload", "mixed", "--fleet", "paper6", "--hidden", "256",
               "--scenario", "steady", "--rate-scale", "1.0",
               "--periods", "60", "--max-rq", "96", "--max-jobs", "64"]
 KERNEL_SHAPES = [(97, 32, 16, 256), (97, 1, 16, 256), (97, 32, 16, 64),
-                 (12, 33, 23, 64)]
+                 (12, 33, 23, 64), (97, 32, 84, 256)]
+# the generalist serving actor at M_max = 8: F = 4 + 2*8 + 8*8 = 84
+GEN_SEQ_SHAPE = (97, 32, 84, 256)
 # (B, F, H) of the lstm_cell check: the rollout step (8 episodes), the
 # update steps (batch 32; actor F = 16, critic F + G = 23), the JAX
 # kernel tests' shapes (tests/test_kernels.py), and H = 8 and 16
 CELL_SHAPES = [(8, 16, 256), (32, 16, 256), (32, 23, 256), (4, 16, 64),
                (97, 16, 256), (32, 20, 128), (1, 7, 32), (129, 16, 64),
-               (8, 16, 8), (32, 23, 16)]
+               (8, 16, 8), (32, 23, 16), (8, 84, 256), (32, 84, 256),
+               (32, 93, 256)]
+# the generalist's steps: rollout (8 episodes) and update (batch 32;
+# actor F = 84, critic F + G = 93)
+GEN_CELL_SHAPES = [(8, 84, 256), (32, 84, 256), (32, 93, 256)]
 CELL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 RL_T = 97                       # LSTM steps: 1 primer + 96 RQ slots
 RL_ARGS = ["--workload", "light", "--fleet", "paper6", "--hidden", "256",
@@ -348,9 +394,25 @@ def check_kernel(ops, ref, CARD):
             ms = cuda_ms(lambda: ops.lstm_seq(*args), reps=20)
             print(f"  lstm_seq T={T} B={B} F={F} H={H} full mask "
                   f"[{CARD}]: kernel_ms={ms:.4f}", flush=True)
-        # timing at the serving shape, full mask: the same function as
-        # cuDNN's LSTM there (weights in PyTorch's (4H, in) layout)
-        T, B, F, H = KERNEL_SHAPES[0]
+    info = seq_times(ops, ref, *KERNEL_SHAPES[0], gen, CARD)
+    gen_info = seq_times(ops, ref, *GEN_SEQ_SHAPE, gen, CARD)
+    plan = lstm_plan(ops, *GEN_SEQ_SHAPE)
+    smem = ops._lib().lstm_seq_smem_bytes(plan.units, plan.rows,
+                                          *GEN_SEQ_SHAPE[2:])
+    resident = ops.resident_clusters(ops._lib(), torch.device("cuda", 0),
+                                     *GEN_SEQ_SHAPE[2:])
+    print(f"  lstm_seq generalist shape {GEN_SEQ_SHAPE} [{CARD}]: plan "
+          f"{plan}, {smem} B of dynamic shared memory per CTA, resident "
+          f"clusters {resident}; device ms {gen_info['ms']:.4f} bound "
+          f"{gen_info['bound_ms']:.4f} ({gen_info['bound_by']})", flush=True)
+    return dict(max_abs_err=max_err, **info)
+
+
+def seq_times(ops, ref, T, B, F, H, gen, CARD) -> dict:
+    """Kernel, plain and cuDNN times at (T, B, F, H), full mask: the same
+    function as cuDNN's LSTM there (weights in PyTorch's (4H, in)
+    layout), back to back and replayed from a CUDA graph."""
+    with torch.no_grad():
         args = lstm_inputs(T, B, F, H, gen, full_mask=True)
         xs, mask, wx, wh, b = args
         lstm = torch.nn.LSTM(F, H).cuda()
@@ -376,8 +438,8 @@ def check_kernel(ops, ref, CARD):
           f"plain {lib_err:.2e}); bound_ms={bound_ms:.4f} ({bound_by}, "
           f"{bound_ms / g_kernel:.3f} of the kernel's device time)",
           flush=True)
-    return dict(max_abs_err=max_err, ms=g_kernel, plain_ms=g_plain,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=g_library)
+    return dict(ms=g_kernel, plain_ms=g_plain, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=g_library)
 
 
 def build_all(names) -> None:
@@ -1279,7 +1341,7 @@ def check_cell(ops, ref, CARD):
                              "of its plain version")
     main = None
     with torch.no_grad():
-        for (B, F, H) in CELL_SHAPES[:3]:
+        for (B, F, H) in CELL_SHAPES[:3] + GEN_CELL_SHAPES:
             args = cell_inputs(B, F, H, torch.float32, gen)
             x, h, c, wx, wh, b = args
             w_ih, w_hh = wx.t().contiguous(), wh.t().contiguous()
@@ -1384,6 +1446,57 @@ def rl_train_phase(CARD):
     return launches
 
 
+def check_round_parity(label, res, mets, dcfg, U, what, CARD,
+                       ring_fields=("mask", "mask2")) -> None:
+    """One round's CPU (plain versions) and card (kernels) results from
+    the same state, buffer and draws: equal ``counted`` and ``hits``,
+    ring fields ``ring_fields`` equal and transitions within
+    ``TRAIN_TOL``, losses within rtol 1e-3, parameters within 2 lr per
+    update."""
+    for k in ("counted", "hits"):
+        c, g = mets["cpu"][k].tolist(), mets["cuda"][k].cpu().tolist()
+        if c != g:
+            raise AssertionError(f"{label}: {k} {g} on the card, {c} "
+                                 f"on the CPU")
+    (sc, bc, _, mc), (sg, bg, _, mg) = res["cpu"], res["cuda"]
+    worst = {}
+    for k in ring_fields:
+        if not torch.equal(bc[k], bg[k].cpu()):
+            raise AssertionError(f"{label}: ring field {k} differs")
+    for k in ("s", "a", "r", "s2"):
+        worst[k] = (bc[k] - bg[k].cpu()).abs().max().item()
+        if not torch.allclose(bg[k].cpu(), bc[k], **TRAIN_TOL):
+            raise AssertionError(f"{label}: ring field {k} differs by "
+                                 f"{worst[k]:.3e}")
+    from repro_torch.core import ddpg as D
+    from repro_torch.core.train import INFO_KEYS
+    for k in INFO_KEYS + ("sla", "reward", "energy_uj"):
+        if not np.isclose(mg[k], mc[k], atol=1e-5, rtol=1e-3):
+            raise AssertionError(f"{label}: {k} {mg[k]} on the card, "
+                                 f"{mc[k]} on the CPU")
+    pworst = 0.0
+    for name, lr in (("actor", dcfg.actor_lr), ("critic", dcfg.critic_lr),
+                     ("target_actor", dcfg.tau * dcfg.actor_lr),
+                     ("target_critic", dcfg.tau * dcfg.critic_lr)):
+        for c, g in zip(D.tree_leaves(getattr(sc, name)),
+                        D.tree_leaves(getattr(sg, name))):
+            d = (c - g.cpu()).abs().max().item()
+            lim = 2 * lr * U + 1e-5 * c.abs().max().item()
+            pworst = max(pworst, d / lim)
+            if d > lim:
+                raise AssertionError(f"{label}: {name} moved {d:.3e} "
+                                     f"apart (limit {lim:.3e})")
+    print(f"  {label} {what}, {U} updates, CPU vs [{CARD}]: counted="
+          f"{int(mets['cpu']['counted'].sum())} hits="
+          f"{int(mets['cpu']['hits'].sum())} (equal) ring max_abs_err "
+          + " ".join(f"{k}={v:.3e}" for k, v in worst.items())
+          + f" (atol/rtol {TRAIN_TOL['atol']}) critic_loss cpu="
+          f"{mc['critic_loss']:.6f} card={mg['critic_loss']:.6f} "
+          f"actor_loss cpu={mc['actor_loss']:.6f} "
+          f"card={mg['actor_loss']:.6f} params worst/limit={pworst:.3f}",
+          flush=True)
+
+
 def train_parity_phase(CARD):
     """One round from the same state, buffer and draws on the CPU (plain
     versions) and on the card (kernels)."""
@@ -1441,48 +1554,10 @@ def train_parity_phase(CARD):
     if cell_ops.LAUNCHES != want:
         raise AssertionError(f"train:parity: {cell_ops.LAUNCHES} lstm_cell "
                              f"launches on the card, expected {want}")
-    for k in ("counted", "hits"):
-        c, g = mets["cpu"][k].tolist(), mets["cuda"][k].cpu().tolist()
-        if c != g:
-            raise AssertionError(f"train:parity: {k} {g} on the card, {c} "
-                                 f"on the CPU")
-    (sc, bc, _, mc), (sg, bg, _, mg) = res["cpu"], res["cuda"]
-    worst = {}
-    for k in ("mask", "mask2"):
-        if not torch.equal(bc[k], bg[k].cpu()):
-            raise AssertionError(f"train:parity: ring field {k} differs")
-    for k in ("s", "a", "r", "s2"):
-        worst[k] = (bc[k] - bg[k].cpu()).abs().max().item()
-        if not torch.allclose(bg[k].cpu(), bc[k], **TRAIN_TOL):
-            raise AssertionError(f"train:parity: ring field {k} differs by "
-                                 f"{worst[k]:.3e}")
-    for k in TR.INFO_KEYS + ("sla", "reward", "energy_uj"):
-        if not np.isclose(mg[k], mc[k], atol=1e-5, rtol=1e-3):
-            raise AssertionError(f"train:parity: {k} {mg[k]} on the card, "
-                                 f"{mc[k]} on the CPU")
-    U = kw["num_updates"]
-    pworst = 0.0
-    for name, lr in (("actor", dcfg.actor_lr), ("critic", dcfg.critic_lr),
-                     ("target_actor", dcfg.tau * dcfg.actor_lr),
-                     ("target_critic", dcfg.tau * dcfg.critic_lr)):
-        for c, g in zip(D.tree_leaves(getattr(sc, name)),
-                        D.tree_leaves(getattr(sg, name))):
-            d = (c - g.cpu()).abs().max().item()
-            lim = 2 * lr * U + 1e-5 * c.abs().max().item()
-            pworst = max(pworst, d / lim)
-            if d > lim:
-                raise AssertionError(f"train:parity: {name} moved {d:.3e} "
-                                     f"apart (limit {lim:.3e})")
-    print(f"  train:parity hidden=256 8 episodes x {cfg.periods} periods, "
-          f"{U} updates, CPU vs [{CARD}]: counted="
-          f"{int(mets['cpu']['counted'].sum())} hits="
-          f"{int(mets['cpu']['hits'].sum())} (equal) ring max_abs_err "
-          + " ".join(f"{k}={v:.3e}" for k, v in worst.items())
-          + f" (atol/rtol {TRAIN_TOL['atol']}) critic_loss cpu="
-          f"{mc['critic_loss']:.6f} card={mg['critic_loss']:.6f} "
-          f"actor_loss cpu={mc['actor_loss']:.6f} "
-          f"card={mg['actor_loss']:.6f} params worst/limit={pworst:.3f}",
-          flush=True)
+    check_round_parity("train:parity", res, mets, dcfg, kw["num_updates"],
+                       f"hidden=256 8 episodes x {cfg.periods} periods",
+                       CARD)
+    sg, bg = res["cuda"][:2]
     # where a round's time goes on the card: one update, one period
     from repro_torch.core.replay import replay_sample
     batch = replay_sample(bg, idx=draws["idx"][0].cuda())
@@ -1496,6 +1571,391 @@ def train_parity_phase(CARD):
         profile_window(lambda: env.period(
             st, tr, lambda f, m, sl, s_: act(f, m, sl, s_, None)),
             "one rollout period (8 episodes)", CARD)
+
+
+# ---------------------------------------------------------------------------
+# RELMAS on a changing fleet: MAGMA, churn, the generalist
+# ---------------------------------------------------------------------------
+# depth cuts that keep the new phases within ~3 minutes: every MAGMA
+# engine call is ~130 ms of host-bound event loop at any row count
+MAGMA_STREAMS, MAGMA_PERIODS = 8, 3
+CHURN_PERIODS = 30
+RLC_ARGS = ["--workload", "light", "--hidden", "256", "--max-rq", "96",
+            "--max-jobs", "64", "--periods", "60", "--batch-episodes", "8",
+            "--batch-size", "32", "--episodes", "16",
+            "--updates-per-episode", "1", "--warmup-episodes", "8",
+            "--eval-every", "16", "--ckpt-every", "8", "--eval-seeds", "2",
+            "--churn", "mixed"]
+GEN_FLEETS = "paper6,4simba_4eyeriss,2simba_2eyeriss"
+GEN_SERVE_ARGS = ["--workload", "light", "--fleet", "big_little",
+                  "--hidden", "256", "--batched", "--streams", "32",
+                  "--requests", "32", "--scenario", "steady",
+                  "--rate-scale", "1.0", "--periods", "60", "--max-rq", "96",
+                  "--max-jobs", "64"]
+
+
+def magma_phase(CARD):
+    """MAGMA at the paper's 100 x 100 through ``evaluate_batch_baseline``,
+    its depth cut to MAGMA_PERIODS periods: every period's search makes
+    1 + generations engine calls, its elite never decreases and ends at
+    or above the Herald individual it was seeded with."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import rollout
+    from repro_torch.launch import rl_train
+    from repro_torch.sim import engine
+    from repro_torch.sim.env import SchedulingEnv
+    from repro_torch.workloads import build_registry
+    # the first MAGMA_PERIODS periods of a full 60-period episode: its
+    # arrival process (horizon), its depth cut
+    ecfg, arr = rl_train._env_cfgs(rl_train.TrainConfig(
+        workload="mixed", fleet="paper6", max_rq=96, max_jobs=64))
+    env = SchedulingEnv(build_registry("mixed", mas="paper6"),
+                        dataclasses.replace(ecfg, periods=MAGMA_PERIODS), arr)
+    seeds = range(7000, 7000 + MAGMA_STREAMS)
+    mcfg = BL.MagmaConfig()
+    inner_search, inner_sim = BL.magma_search_scan, engine.simulate
+    count, periods, last = [0], [], {}
+
+    def counting(*a, **k):
+        count[0] += 1
+        return inner_sim(*a, **k)
+
+    def search(env_, mcfg_, rand, state, slots):
+        count[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_search(env_, mcfg_, rand, state, slots)
+        torch.cuda.synchronize()
+        secs, calls = time.perf_counter() - t0, count[0]
+        _, hp, hs = BL.herald(slots, state, env_)
+        hfit = BL._magma_fitness(env_, state, slots, hp[:, None],
+                                 hs[:, None])[:, 0]
+        elite = out[2]
+        last.update(state=state, slots=slots, prio=out[0], sa=out[1])
+        periods.append(dict(
+            secs=secs, calls=calls,
+            monotone=bool((elite[:, 1:] >= elite[:, :-1]).all()),
+            above_herald=bool((elite[:, -1] >= hfit).all()),
+            gain=float((elite[:, -1] - hfit).mean())))
+        return out
+    engine.simulate, BL.magma_search_scan = counting, search
+    try:
+        m = rollout.evaluate_batch_baseline(env, BL.make_magma_baseline(mcfg),
+                                            seeds)
+    finally:
+        engine.simulate, BL.magma_search_scan = inner_sim, inner_search
+    h = rollout.evaluate_batch_baseline(env, BL.herald, seeds)
+    want = mcfg.generations + 1
+    if len(periods) != MAGMA_PERIODS or any(
+            p["calls"] != want for p in periods):
+        raise AssertionError(f"baseline:magma: engine calls a period "
+                             f"{[p['calls'] for p in periods]}, expected "
+                             f"{want} in each of {MAGMA_PERIODS}")
+    if not all(p["monotone"] and p["above_herald"] for p in periods):
+        raise AssertionError(f"baseline:magma: elite decreased or ended "
+                             f"below Herald's individual: {periods}")
+    if m["arrived"] != h["arrived"] or not 0.0 <= m["sla_rate"] <= 1.0:
+        raise AssertionError(f"baseline:magma: {m}, herald {h}")
+    secs = [p["secs"] for p in periods]
+    print(f"  baseline:magma {mcfg.population} x {mcfg.generations} mixed/"
+          f"paper6, {MAGMA_STREAMS} streams x {MAGMA_PERIODS} periods, "
+          f"96 RQ slots [{CARD}]: s_per_period mean={np.mean(secs):.3f} "
+          f"min={min(secs):.3f} max={max(secs):.3f} engine_calls_per_"
+          f"period={want} ms_per_engine_call={1e3 * np.mean(secs) / want:.2f}"
+          f" ({MAGMA_STREAMS * mcfg.population} rows each); elite "
+          f"monotone and >= Herald's individual in every period (mean gain "
+          f"{np.mean([p['gain'] for p in periods]):.4f}); sla_rate magma="
+          f"{m['sla_rate']:.4f} herald={h['sla_rate']:.4f} counted a "
+          f"stream magma={m['counted']:.3f} herald={h['counted']:.3f} "
+          f"(of {m['arrived']:.3f} arrived over the whole trace)",
+          flush=True)
+    # where a MAGMA period's time goes: one generation's fitness call
+    pop = lambda x: x[:, None].expand(-1, mcfg.population, -1).contiguous()
+    profile_window(lambda: BL._magma_fitness(
+        env, last["state"], last["slots"], pop(last["prio"]),
+        pop(last["sa"])), f"one MAGMA fitness call "
+        f"({MAGMA_STREAMS * mcfg.population} rows)", CARD)
+
+
+def churn_fail_check(env, pcfg, params, CARD):
+    """An eval batch under the ``fail`` preset: no sub-job is committed
+    to an SA in a period in which that SA is invalid (the policy masks
+    it, Herald sees its poison cost)."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import rollout
+    from repro_torch.sim import churn as C
+    from repro_torch.sim.engine import INF
+    seeds = range(7100, 7108)
+    traces, states = rollout.stack_episodes(env, seeds)
+    sched = rollout._eval_churn_schedules(env, C.churn_preset("fail"), seeds)
+    policy = rollout._policy_act_fn(params, pcfg)
+    acts = {"relmas": lambda f, m, sl, s_: policy(f, m, sl, s_, None),
+            "herald": lambda f, m, sl, s_: BL.herald(sl, s_, env)}
+    inner, rec = env.simulate, {}
+
+    def simulate(state, slots, prio, sa_choice, commit_only=False):
+        out = inner(state, slots, prio, sa_choice, commit_only)
+        rec.update(start=out[0], fin=out[1], sa=out[5], valid=slots["valid"],
+                   sa_valid=state["sa_valid"])
+        return out
+    env.simulate = simulate
+    try:
+        for name, act in acts.items():
+            st, bad, committed, exposed = states, 0, 0, 0
+            with torch.no_grad():
+                for p in range(env.cfg.periods):
+                    row = {k: v[:, p] for k, v in sched.items()}
+                    st, _, _ = env.period(st, traces, act, commit_only=True,
+                                          churn=row)
+                    com = (rec["valid"]
+                           & (rec["start"] < env.cfg.t_s_us - 1e-6)
+                           & (rec["fin"] < INF / 2))
+                    ok = torch.gather(rec["sa_valid"], 1, rec["sa"])
+                    bad += int((com & ~ok).sum())
+                    committed += int(com.sum())
+                    exposed += int(((~rec["sa_valid"]).any(1)[:, None]
+                                    & com).sum())
+            if bad or not exposed:
+                raise AssertionError(f"train:churn: {name} under the fail "
+                                     f"preset committed {bad} sub-jobs to "
+                                     f"invalid SAs ({exposed} committed "
+                                     f"while an SA was down)")
+            print(f"  train:churn fail-preset eval ({len(seeds)} seeds) "
+                  f"{name} [{CARD}]: committed={committed} while an SA was "
+                  f"down={exposed} on an invalid SA=0", flush=True)
+    finally:
+        del env.simulate
+
+
+def churn_baselines_check(env, CARD):
+    """The fcfs, herald and magma (24 x 12, ``--eval-baselines``'s GA)
+    baselines through ``evaluate_batch_baseline`` under the ``mixed``
+    preset on the eval seeds (``rl_train`` scores them on the static
+    fleet, as the reference does): MAGMA carries its generator and the
+    churn schedules into every period's search on the card."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import rollout
+    from repro_torch.sim import churn as C
+    seeds = range(7000, 7002)
+    fns = {"fcfs": BL.BASELINES["fcfs"], "herald": BL.herald,
+           "magma": BL.make_magma_baseline(BL.MagmaConfig(population=24,
+                                                          generations=12))}
+    out, secs = {}, {}
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = rollout.evaluate_batch_baseline(
+            env, fn, seeds, churn=C.churn_preset("mixed"))
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    if len({m["arrived"] for m in out.values()}) != 1 or not all(
+            0.0 <= m["sla_rate"] <= 1.0 and m["counted"] > 0
+            and np.isfinite(m["energy_uj"]) for m in out.values()):
+        raise AssertionError(f"train:churn: baselines under churn {out}")
+    print(f"  train:churn baselines under --churn mixed ({len(seeds)} "
+          f"seeds x {env.cfg.periods} periods) [{CARD}]: "
+          + " ".join(f"{k}: sla_rate={m['sla_rate']:.4f} counted="
+                     f"{m['counted']:.1f} s={secs[k]:.1f}"
+                     for k, m in out.items()), flush=True)
+
+
+def train_churn_phase(CARD):
+    """``rl_train`` under ``--churn mixed``: two rounds, an eval
+    on 2 seeds and the fcfs, herald and magma baselines; exact
+    ``lstm_cell`` launch counts; then the baselines under churn and the
+    fail-preset check."""
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.launch import rl_train
+    out = os.path.join(ROOT, "runs", "chip_smoke_churn")
+    shutil.rmtree(out, ignore_errors=True)
+    spans = Spans([(rl_train, "train_rounds_host", "round"),
+                   (rl_train, "evaluate_batch_baseline", "baseline")])
+    cell_ops.LAUNCHES = 0
+    with spans:
+        res = rl_train.main(RLC_ARGS + [
+            "--fleet", "paper6", "--outdir", out,
+            "--periods", str(CHURN_PERIODS),
+            "--eval-baselines", "fcfs,herald,magma"])
+    launches = cell_ops.LAUNCHES
+    want = rl_expected_launches(rounds=2, eval_runs=1, updates=8,
+                                periods=CHURN_PERIODS)
+    if launches != want:
+        raise AssertionError(f"train:churn: lstm_cell launched {launches} "
+                             f"times, expected {want}")
+    hist, last = res["history"], res["history"][-1]
+    if [h["episode"] for h in hist] != [7, 15] or res["state"].step != 8 \
+            or not all(np.isfinite(last[k]) for k in
+                       ("critic_loss", "actor_loss")) \
+            or not 0.0 <= last["eval_sla"] <= 1.0 \
+            or set(res["baselines"]) != {"fcfs", "herald", "magma"}:
+        raise AssertionError(f"train:churn: history {hist}, step "
+                             f"{res['state'].step}, baselines "
+                             f"{res['baselines']}")
+    print(f"  train:churn light/paper6 --churn mixed hidden=256 8 episodes "
+          f"x {CHURN_PERIODS} periods a round [{CARD}]: round_ms="
+          f"{'/'.join(f'{us / 1e3:.1f}' for us in spans.each['round'])} "
+          f"(a warm-up round, then one of 8 updates) baseline_s fcfs/herald/"
+          f"magma(24x12)="
+          f"{'/'.join(f'{us / 1e6:.1f}' for us in spans.each['baseline'])} "
+          f"lstm_cell launches={launches} eval_sla={last['eval_sla']} "
+          f"baselines="
+          f"{ {k: v['sla_rate'] for k, v in res['baselines'].items()} }",
+          flush=True)
+    churn_baselines_check(res["env"], CARD)
+    churn_fail_check(res["env"], res["pcfg"], res["state"].actor, CARD)
+
+
+def train_generalist_phase(CARD) -> str:
+    """``rl_train`` over three fleets as one generalist (m_max 8, F = 84)
+    under churn, ``--best-metric min_fleet``: two rounds, a per-fleet
+    eval, exact ``lstm_cell`` launch counts.  Returns the best
+    checkpoint's directory."""
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.launch import rl_train
+    out = os.path.join(ROOT, "runs", "chip_smoke_generalist")
+    shutil.rmtree(out, ignore_errors=True)
+    spans = Spans([(rl_train, "generalist_rounds_host", "round")])
+    cell_ops.LAUNCHES = 0
+    with spans:
+        res = rl_train.main(RLC_ARGS + [
+            "--fleet", GEN_FLEETS, "--policy-kind", "generalist",
+            "--best-metric", "min_fleet", "--outdir", out])
+    launches = cell_ops.LAUNCHES
+    fleets = GEN_FLEETS.split(",")
+    want = rl_expected_launches(rounds=2, eval_runs=len(fleets), updates=8)
+    if launches != want:
+        raise AssertionError(f"train:generalist: lstm_cell launched "
+                             f"{launches} times, expected {want}")
+    hist, last = res["history"], res["history"][-1]
+    per = last.get("eval_sla_per_fleet", {})
+    if [h["episode"] for h in hist] != [7, 15] or set(per) != set(fleets) \
+            or res["pcfg"].feat_dim != 84 \
+            or res["best"]["score"] != min(per.values()) \
+            or not all(h["fleet"] in fleets for h in hist):
+        raise AssertionError(f"train:generalist: history {hist}, best "
+                             f"{res['best']}")
+    print(f"  train:generalist {GEN_FLEETS} m_max=8 F=84 --churn mixed "
+          f"hidden=256 [{CARD}]: round_ms="
+          f"{'/'.join(f'{us / 1e3:.1f}' for us in spans.each['round'])} "
+          f"fleets={[h['fleet'] for h in hist]} lstm_cell launches="
+          f"{launches} eval_sla_per_fleet={per} best(min_fleet)="
+          f"{res['best']['score']}", flush=True)
+    return os.path.join(out, "best")
+
+
+def serve_generalist_phase(serve_cli, ops, ckpt, CARD):
+    """``launch/serve.py`` with the generalist checkpoint on big_little, a
+    fleet it never trained on: exactly one ``lstm_seq`` launch a tick,
+    each at F = 84; then the same streams with synchronised spans for
+    the actor's and the engine's shares of the tick."""
+    from repro_torch.core import policy
+    from repro_torch.sim import engine
+    args = GEN_SERVE_ARGS + ["--ckpt", ckpt]
+    shapes, real = [], ops.lstm_seq
+
+    def recording(xs, mask, *w):
+        shapes.append(tuple(xs.shape))
+        return real(xs, mask, *w)
+    ops.lstm_seq = recording
+    ops.LAUNCHES = 0
+    try:
+        out = serve_cli.main(args)
+    finally:
+        ops.lstm_seq = real
+    launches = ops.LAUNCHES
+    if out["policy_kind"] != "generalist" or launches != out["ticks"] \
+            or set(shapes) != {(RL_T,) + GEN_SEQ_SHAPE[1:3]} \
+            or not out["counted"] > 0:
+        raise AssertionError(f"serve:generalist: {out}, lstm_seq launches "
+                             f"{launches}, shapes {set(shapes)}")
+    svc = serve_cli.build_service(serve_cli.parse_args(args))
+    spans = Spans([(policy, "actor_apply", "actor"),
+                   (ops, "lstm_seq", "lstm_seq"),
+                   (engine, "simulate", "engine")])
+    with spans:
+        _, res = serve_cli.serve_batched(svc, serve_cli.parse_args(args))
+    tick_us = float(np.sum(res["stats"]["tick_wall_us"]))
+    print(f"  serve:generalist big_little (unseen) light, 32 streams x 60 "
+          f"periods, F={GEN_SEQ_SHAPE[2]} [{CARD}]: ticks={out['ticks']} "
+          f"lstm_seq launches={launches} tick_p50_ms="
+          f"{out['tick_p50_us'] / 1e3:.3f} tick_p99_ms="
+          f"{out['tick_p99_us'] / 1e3:.3f} sla_rate={out['sla_rate']:.4f} "
+          f"counted={out['counted']}; synchronised spans: tick_total_ms="
+          f"{tick_us / 1e3:.1f} "
+          + " ".join(f"{k}_share={v / tick_us:.4f}"
+                     for k, v in spans.us.items())
+          + f" actor_ms_per_tick={spans.us['actor'] / 1e3 / out['ticks']:.3f}",
+          flush=True)
+
+
+def generalist_parity_phase(CARD):
+    """One churned generalist round (hidden 256, 8 periods) from the same
+    state, buffer and draws on the CPU (plain versions) and on the card
+    (kernels), held to the train:parity criteria."""
+    from repro_torch.core import ddpg as D
+    from repro_torch.core import generalist as G
+    from repro_torch.core.generalist import rollout as grollout
+    from repro_torch.core.generalist import train as GT
+    from repro_torch.core.train import round_keys
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.launch import rl_train
+    from repro_torch.sim import churn as C
+    kw = dict(batch_episodes=8, num_updates=4, batch_size=32,
+              sigma_min=0.05, sigma_decay=0.97)
+    cfg = rl_train.TrainConfig(workload="light", hidden=256, periods=8,
+                               max_rq=96, max_jobs=64)
+    ecfg, arr = rl_train._env_cfgs(cfg)
+    fleets = GEN_FLEETS.split(",")
+    envs = {d: G.build_padded_envs("light", fleets, ecfg, arr, device=d)
+            for d in ("cpu", "cuda")}
+    spec = G.GeneralistSpec(m_max=envs["cpu"][0].num_sas)
+    dcfg = D.DDPGConfig(policy=spec.pcfg(hidden=cfg.hidden))
+    churn = C.churn_preset("mixed")
+    state0 = D.init_ddpg(torch.Generator().manual_seed(0), dcfg, "cpu")
+    draws = GT.generalist_round_draws(
+        envs["cpu"], round_keys(1, 0, 1)[0], size_after=8 * cfg.periods,
+        churn=churn, **{k: kw[k] for k in ("batch_episodes", "num_updates",
+                                           "batch_size")})
+    res, mets = {}, {}
+    inner = grollout.collect_episodes
+
+    def capture(*a, **k):
+        out = inner(*a, **k)
+        mets[dev] = out[3]
+        return out
+    grollout.collect_episodes = capture
+    try:
+        for dev in ("cpu", "cuda"):
+            state = D.DDPGState(**{
+                f.name: D.tree_map(lambda t: t.to(dev),
+                                   getattr(state0, f.name))
+                for f in dataclasses.fields(state0) if f.name != "step"},
+                step=0)
+            buf = G.generalist_replay_init(4000, envs[dev][0].seq_len, spec,
+                                           dev)
+            cell_ops.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[dev] = GT._generalist_round_body(envs[dev], dcfg, churn=churn,
+                                                 **kw)(state, buf, draws,
+                                                       0.4, True)
+            torch.cuda.synchronize()
+            print(f"  generalist:parity round on {dev} (fleet "
+                  f"{fleets[draws['fleet']]}) [{CARD}]: "
+                  f"{time.perf_counter() - t0:.2f}s lstm_cell launches="
+                  f"{cell_ops.LAUNCHES}", flush=True)
+    finally:
+        grollout.collect_episodes = inner
+    want = RL_T * (cfg.periods + 5 * kw["num_updates"])
+    if cell_ops.LAUNCHES != want:
+        raise AssertionError(f"generalist:parity: {cell_ops.LAUNCHES} "
+                             f"lstm_cell launches on the card, expected "
+                             f"{want}")
+    check_round_parity("generalist:parity", res, mets, dcfg,
+                       kw["num_updates"],
+                       f"hidden=256 F=84 --churn mixed 8 episodes x "
+                       f"{cfg.periods} periods", CARD,
+                       ring_fields=("mask", "mask2", "fleet"))
 
 
 def main() -> int:
@@ -1562,6 +2022,16 @@ def main() -> int:
         cell_launches = rl_train_phase(CARD)
     with phase("train:parity"):
         train_parity_phase(CARD)
+    with phase("baseline:magma"):
+        magma_phase(CARD)
+    with phase("train:churn"):
+        train_churn_phase(CARD)
+    with phase("train:generalist"):
+        gen_ckpt = train_generalist_phase(CARD)
+    with phase("serve:generalist"):
+        serve_generalist_phase(serve_cli, ops, gen_ckpt, CARD)
+    with phase("generalist:parity"):
+        generalist_parity_phase(CARD)
 
     kernels = [
         dict(name="lstm_seq", route="cuda",

@@ -1,2 +1,7 @@
-"""Scheduler core: the RELMAS actor and critic, the heuristic baselines,
-the serving tick, and DDPG training (replay, learner, rollouts, rounds)."""
+"""Scheduler core: the RELMAS actor and critic, the heuristic and MAGMA
+baselines, the deployment scheduler, the serving tick, DDPG training
+(replay, learner, rollouts, rounds) and the fleet-conditioned
+generalist (``repro_torch.core.generalist``)."""
+from repro_torch.core.scheduler import RelmasScheduler
+
+__all__ = ["RelmasScheduler"]

@@ -232,14 +232,17 @@ def ddpg_update(state: DDPGState, cfg: DDPGConfig,
 
 
 def ddpg_update_rounds(state: DDPGState, cfg: DDPGConfig, buf: dict,
-                       idx) -> tuple[DDPGState, dict]:
+                       idx, transform=None) -> tuple[DDPGState, dict]:
     """``len(idx)`` updates, update ``u`` on the replay rows ``idx[u]``
     (idx: (num_updates, batch_size), drawn with
-    :func:`repro_torch.core.replay.sample_indices` or passed in).
-    Returns (new_state, infos stacked over the (num_updates,) axis)."""
+    :func:`repro_torch.core.replay.sample_indices` or passed in), each
+    sampled batch mapped by ``transform`` when given.  Returns
+    (new_state, infos stacked over the (num_updates,) axis)."""
     infos = []
     for u in range(len(idx)):
-        state, info = ddpg_update(state, cfg, replay_sample(buf, idx=idx[u]))
+        batch = replay_sample(buf, idx=idx[u])
+        state, info = ddpg_update(state, cfg, transform(batch) if transform
+                                  else batch)
         infos.append(info)
     if not infos:
         return state, {}

@@ -13,10 +13,12 @@ All of it runs on the env's device over the leading stream axis; the
 host stages ``(S, K)`` admission rows in and reads a fixed-shape
 completion record out.  The queue dict is updated in place.
 
-The specialist actor runs at sigma 0 and the heuristics draw nothing,
-so a tick takes no random key.
+The specialist and generalist actors run at sigma 0 and the
+heuristics draw nothing, so a tick takes no random key.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -31,6 +33,21 @@ def specialist_act(actor):
     def act(feats, mask, slots, st):
         a = actor(feats, mask)
         return a, a[..., 0], torch.argmax(a[..., 1:], dim=-1)
+    return act
+
+
+def generalist_act(env, actor):
+    """Descriptor-conditioned actor on a padded env at sigma 0: the
+    function of ``generalist.make_generalist_period`` at sigma 0 (the
+    same clip and channel mask; a zero block adds nothing), with the
+    serving actor's ``lstm_seq`` route: one launch per tick."""
+    from repro_torch.core.generalist.features import generalist_act_fn
+    seq_cfg = dataclasses.replace(actor.cfg, use_pallas=True)
+    fn = generalist_act_fn(actor.params(), seq_cfg, env.descriptors,
+                           env.sa_mask)
+
+    def act(feats, mask, slots, st):
+        return fn(feats, mask, slots, st, None)
     return act
 
 
@@ -51,10 +68,9 @@ def build_act(env, kind: str, actor=None, baseline_fn=None):
             raise ValueError("kind='heuristic' needs baseline_fn")
         return baseline_act(env, baseline_fn)
     if kind == "generalist":
-        raise NotImplementedError(
-            "the fleet-conditioned generalist policy is ported with the "
-            "generalist slice (after training and churn); serve a "
-            "specialist or a heuristic")
+        if actor is None:
+            raise ValueError("kind='generalist' needs an actor")
+        return generalist_act(env, actor)
     raise ValueError(f"unknown serving policy kind {kind!r}")
 
 

@@ -10,8 +10,9 @@ The counterpart of the JAX package's ``core/train.py``.  A round is
 
 Each round is split into its **draws** and its **body**.  The draws
 (:func:`round_draws`) are everything random: the episodes' traces, the
-standard-normal exploration block and the replay indices of every
-update, all from one ``torch.Generator`` seeded per round.  The body
+standard-normal exploration block, the replay indices of every update
+and, under churn, the episodes' compiled churn schedules, all from one
+``torch.Generator`` seeded per round.  The body
 (:func:`_round_body`) is deterministic given the draws, so the tests
 feed it the draws the JAX round takes from its key, and a CPU run and a
 card run of one round can take the same draws.
@@ -24,7 +25,13 @@ and learner state are updated in place or rebound, as the JAX callers
 rebind donated arguments.  ``make_train_rounds`` and
 ``train_rounds_host`` are the same per-round loop.
 
-Multi-device rounds, churn and the generalist are later slices.
+Every round maker takes an optional ``churn`` (a
+``repro_torch.sim.churn.ChurnConfig``): the round then draws a fresh
+schedule per episode (``churn_schedules_torch``), so the policy trains
+under fleet faults, throttles and joins as it is evaluated.  The
+multi-fleet generalist rounds (``repro_torch.core.generalist``) are
+these rounds with their own draws and episodes passed in; multi-device
+rounds are not part of this package.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.core import ddpg as D
 from repro_torch.core import rollout as R
 from repro_torch.core.replay import replay_add
 from repro_torch.sim.arrivals import generate_traces_torch
+from repro_torch.sim.churn import churn_schedules_torch
 from repro_torch.sim.env import SchedulingEnv
 
 # update-info keys mirrored by the warm-up (no-update) branch of the
@@ -53,48 +61,81 @@ def round_keys(seed: int, start_round: int, num_rounds: int) -> list[int]:
 
 def round_draws(env: SchedulingEnv, seed: int, *, batch_episodes: int,
                 num_updates: int, batch_size: int, size_after: int,
-                arrivals=None) -> dict:
+                arrivals=None, churn=None) -> dict:
     """Everything random in one round, from one generator on the env's
     device seeded ``seed``: ``traces`` (batch_episodes, J), ``noise``
-    (batch_episodes, periods, max_rq, G) standard normal, and ``idx``
+    (batch_episodes, periods, max_rq, G) standard normal, ``idx``
     (num_updates, batch_size) replay indices in ``[0, size_after)``,
-    ``size_after`` being the ring's size after this round's write."""
+    ``size_after`` being the ring's size after this round's write, and
+    with a ``churn`` config ``churn``, the episodes' compiled schedules
+    ((batch_episodes, periods, M) leaves; the JAX round's ``kchurn``
+    draw), whose events target only the SAs of the env's ``sa_mask``
+    where it has one (a padded env)."""
     gen = torch.Generator(device=env.device).manual_seed(seed)
     traces = generate_traces_torch(env.min_lat, arrivals or env.arrivals,
                                    gen, batch_episodes, env.device)
     noise = R.noise_block(env, batch_episodes, gen)
     idx = torch.randint(0, max(size_after, 1), (num_updates, batch_size),
                         generator=gen, device=env.device)
-    return dict(traces=traces, noise=noise, idx=idx)
+    draws = dict(traces=traces, noise=noise, idx=idx)
+    if churn is not None:
+        draws["churn"] = churn_schedules_torch(
+            churn, env.cfg.periods, env.num_sas, gen, batch_episodes,
+            sa_mask=getattr(env, "sa_mask", None))
+    return draws
+
+
+def round_inputs(env: SchedulingEnv, draws: dict, churn=None):
+    """A round's episode inputs on ``env``'s device from its draws:
+    ``(traces, states, noise, scheds)``, ``scheds`` None without a
+    ``churn`` config."""
+    traces = env.to_trace(draws["traces"])
+    scheds = (None if churn is None else
+              {k: v.to(env.device) for k, v in draws["churn"].items()})
+    return traces, env.init_state(traces), draws["noise"].to(env.device), \
+        scheds
 
 
 def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
                 batch_episodes: int, num_updates: int, batch_size: int,
-                sigma_min: float, sigma_decay: float, arrivals=None):
+                sigma_min: float, sigma_decay: float, arrivals=None,
+                churn=None, episodes=None, transform=None):
     """``round_fn(state, buf, draws, sigma, do_update)`` ->
-    ``(state, buf, sigma, metrics)``, deterministic given ``draws``.
+    ``(state, buf, sigma, metrics)``, deterministic given ``draws``
+    (with a ``churn`` config the episodes run under ``draws["churn"]``).
 
     ``buf`` is written in place (and returned); ``sigma`` is a float
     holding a float32 value, decayed in float32 as the JAX round does;
     ``metrics`` are host floats: the round's mean ``sla``, ``reward`` and
     ``energy_uj``, the new ``sigma``, ``did_update`` and the last
-    update's :data:`INFO_KEYS` (zeros during warm-up)."""
+    update's :data:`INFO_KEYS` (zeros during warm-up), and the draws'
+    ``fleet`` where they have one.
+
+    ``episodes(params, draws, sigma)`` -> ``(transitions, infos,
+    metrics)`` replaces the policy's episodes on ``env`` (the
+    generalist's collect on the round's fleet and add a ``fleet`` ring
+    column); ``transform`` maps each sampled replay batch before its
+    update."""
     pcfg = dcfg.policy
+    if episodes is None:
+        def episodes(params, draws, sigma):
+            traces, states, noise, scheds = round_inputs(env, draws, churn)
+            _, trans, einfos, mets = R.collect_episodes(
+                env, pcfg, params, states, traces, None, sigma, noise=noise,
+                churn=scheds)
+            return trans, einfos, mets
 
     def round_fn(state: D.DDPGState, buf: dict, draws: dict, sigma: float,
                  do_update: bool):
-        traces = env.to_trace(draws["traces"])
-        states = env.init_state(traces)
-        _, trans, einfos, mets = R.collect_episodes(
-            env, pcfg, state.actor, states, traces, None, sigma,
-            noise=draws["noise"].to(env.device))
+        trans, einfos, mets = episodes(state.actor, draws, sigma)
         # (episodes, periods, ...) -> (episodes * periods, ...) ring write
         flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
                 for k, v in trans.items()}
         replay_add(buf, flat)
         if do_update:
             state, infos = D.ddpg_update_rounds(
-                state, dcfg, buf, draws["idx"].to(env.device))
+                state, dcfg, buf, draws["idx"].to(buf["r"].device),
+                transform)
             info = {k: float(infos[k][-1]) for k in INFO_KEYS}
         else:
             info = {k: 0.0 for k in INFO_KEYS}
@@ -104,6 +145,8 @@ def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
                        reward=float(torch.mean(einfos["reward"])),
                        energy_uj=float(torch.mean(mets["energy_uj"])),
                        sigma=sigma, did_update=bool(do_update), **info)
+        if "fleet" in draws:
+            metrics["fleet"] = int(draws["fleet"])
         return state, buf, sigma, metrics
 
     return round_fn
@@ -111,35 +154,41 @@ def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
 
 def make_train_round(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
                      batch_episodes: int, num_updates: int, batch_size: int,
-                     sigma_min: float, sigma_decay: float, arrivals=None):
+                     sigma_min: float, sigma_decay: float, arrivals=None,
+                     churn=None, draws_fn=round_draws, body_fn=_round_body):
     """One full training round: ``round_fn(state, buf, seed, sigma,
     do_update)`` -> ``(state, buf, sigma, metrics)``, drawing the
-    round's :func:`round_draws` from ``seed`` and running the body.
-    ``batch_episodes * env.cfg.periods`` transitions ring-write per
-    round and must fit the replay capacity."""
-    body = _round_body(env, dcfg, batch_episodes=batch_episodes,
-                       num_updates=num_updates, batch_size=batch_size,
-                       sigma_min=sigma_min, sigma_decay=sigma_decay,
-                       arrivals=arrivals)
+    round's draws from ``seed`` (``draws_fn``, :func:`round_draws`) and
+    running the body (``body_fn``, :func:`_round_body`); the generalist
+    passes its own two, with its fleets' envs as ``env``.
+    ``batch_episodes * periods`` transitions ring-write per round and
+    must fit the replay capacity."""
+    body = body_fn(env, dcfg, batch_episodes=batch_episodes,
+                   num_updates=num_updates, batch_size=batch_size,
+                   sigma_min=sigma_min, sigma_decay=sigma_decay,
+                   arrivals=arrivals, churn=churn)
+    periods = (env[0] if isinstance(env, list) else env).cfg.periods
 
     def round_fn(state, buf, seed: int, sigma: float, do_update: bool):
         cap = buf["r"].shape[0]
-        size_after = min(buf["size"] + batch_episodes * env.cfg.periods, cap)
-        draws = round_draws(env, seed, batch_episodes=batch_episodes,
-                            num_updates=num_updates, batch_size=batch_size,
-                            size_after=size_after, arrivals=arrivals)
+        size_after = min(buf["size"] + batch_episodes * periods, cap)
+        draws = draws_fn(env, seed, batch_episodes=batch_episodes,
+                         num_updates=num_updates, batch_size=batch_size,
+                         size_after=size_after, arrivals=arrivals,
+                         churn=churn)
         return body(state, buf, draws, sigma, do_update)
 
     return round_fn
 
 
 def train_rounds_host(env: SchedulingEnv, dcfg: D.DDPGConfig, state, buf,
-                      keys, sigma, do_update, **kw):
+                      keys, sigma, do_update, make_round=make_train_round,
+                      **kw):
     """Run the rounds described by per-round seeds ``keys`` and warm-up
-    flags ``do_update`` one after another.  Returns ``(state, buf, sigma,
-    metrics)`` with metrics stacked over the round axis as NumPy
-    arrays."""
-    round_fn = make_train_round(env, dcfg, **kw)
+    flags ``do_update`` one after another (each made by ``make_round``).
+    Returns ``(state, buf, sigma, metrics)`` with metrics stacked over
+    the round axis as NumPy arrays."""
+    round_fn = make_round(env, dcfg, **kw)
     out = []
     for seed, du in zip(keys, do_update):
         state, buf, sigma, m = round_fn(state, buf, int(seed), sigma,

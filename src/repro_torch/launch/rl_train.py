@@ -8,6 +8,16 @@ round's DDPG updates (whose five recurrences each run the kernel T times
 forward, three of them with a backward) and sigma decay.  Evaluation
 runs the policy and the baselines on NumPy-drawn eval traces.
 
+- ``--fleet a,b,...`` (or ``--policy-kind generalist``) trains the
+  fleet-conditioned generalist (``core.generalist``): features padded
+  to ``--m-max`` with per-SA descriptors, each round samples a fleet;
+  evaluation runs on every fleet (``--best-metric min_fleet`` keeps the
+  checkpoint whose weakest fleet is best);
+- ``--churn NAME`` draws a fresh churn schedule (``sim.churn``) for
+  every episode of every round;
+- ``--eval-baselines`` scores fcfs, prema, herald and magma (the GA at
+  ``--magma-population`` x ``--magma-generations``) before training.
+
 Fault-tolerant loop, as in the reference:
 - periodic atomic checkpoints of the full learner state (the replay is
   re-warmed on restart, sound for an off-policy learner), in the JAX
@@ -20,9 +30,9 @@ Fault-tolerant loop, as in the reference:
   ``[resume] restored checkpoint``.  The best eval policy's actor goes
   to ``<outdir>/best`` as the reference writes it.
 
-Ported: the specialist policy on one fleet, ``--devices 1``, ``--churn
-none``, baselines fcfs, prema and herald.  The rest raises
-``NotImplementedError`` naming its ROADMAP item.
+Not ported: ``--devices > 1`` (ROADMAP A11) and ``--log-jsonl`` /
+``--profile-dir`` (A9) raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.rl_train --workload light \\
@@ -35,6 +45,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -43,10 +54,15 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.core import baselines as BL
 from repro_torch.core import ddpg as D
 from repro_torch.core import policy as P
+from repro_torch.core.generalist import (GeneralistSpec, build_padded_envs,
+                                         evaluate_generalist_batch,
+                                         generalist_replay_init,
+                                         generalist_rounds_host)
 from repro_torch.core.replay import replay_init
 from repro_torch.core.rollout import evaluate_batch, evaluate_batch_baseline
 from repro_torch.core.train import INFO_KEYS, round_keys, train_rounds_host
 from repro_torch.sim.arrivals import ArrivalConfig
+from repro_torch.sim.churn import CHURN_SCENARIOS, churn_preset
 from repro_torch.sim.env import EnvConfig, SchedulingEnv
 from repro_torch.workloads import build_registry
 
@@ -54,12 +70,15 @@ from repro_torch.workloads import build_registry
 @dataclasses.dataclass
 class TrainConfig:
     workload: str = "light"
-    # accelerator platform (costmodel.fleets); a comma list (generalist)
-    # is not ported yet
+    # accelerator platform(s) (costmodel.fleets); a comma list trains a
+    # fleet-conditioned generalist (core.generalist)
     fleet: str = "paper6"
-    policy_kind: str = "auto"  # auto | specialist (generalist: ROADMAP A8)
-    m_max: int = 0             # generalist pad width (not ported)
-    best_metric: str = "mean"  # mean (min_fleet needs the generalist)
+    # auto | generalist | specialist (auto: generalist iff several fleets)
+    policy_kind: str = "auto"
+    m_max: int = 0             # generalist pad width (0 = widest fleet)
+    # best-checkpoint selection: mean | min_fleet (generalist only:
+    # maximin over the per-fleet eval SLA)
+    best_metric: str = "mean"
     qos_level: str = "medium"
     qos_factor: float = 3.0
     load: float = 0.9
@@ -73,7 +92,9 @@ class TrainConfig:
     episodes: int = 150
     batch_episodes: int = 8
     devices: int = 1           # 1 only (ROADMAP A11)
-    churn: str = "none"        # none only (ROADMAP A7)
+    # in-episode fleet-churn preset drawn fresh per round (sim.churn);
+    # "none" keeps the static fleet
+    churn: str = "none"
     updates_per_episode: int = 30
     batch_size: int = 32
     replay_capacity: int = 4000
@@ -84,7 +105,8 @@ class TrainConfig:
     eval_every: int = 10
     eval_seeds: int = 5
     # comma list of baselines scored on the eval seeds before training
-    # ("" = skip): fcfs, prema, herald (magma: ROADMAP A6)
+    # ("" = skip): fcfs, prema, herald, magma (the GA at
+    # magma_population x magma_generations; paper settings 100 x 100)
     eval_baselines: str = ""
     magma_population: int = 24
     magma_generations: int = 12
@@ -116,8 +138,7 @@ def build_env(cfg: TrainConfig, fleet: str | None = None) -> SchedulingEnv:
 
 
 def _resolve_kind(cfg: TrainConfig) -> tuple[str, list[str]]:
-    """-> (policy_kind, fleet list) with ``auto`` resolved; only the
-    specialist is ported."""
+    """-> (policy_kind, fleet list) with ``auto`` resolved."""
     fleets = [f.strip() for f in cfg.fleet.split(",") if f.strip()]
     kind = cfg.policy_kind
     if kind == "auto":
@@ -129,35 +150,36 @@ def _resolve_kind(cfg: TrainConfig) -> tuple[str, list[str]]:
         raise ValueError("a specialist policy is fleet-shaped: train "
                          "one per --fleet, or use "
                          "--policy-kind generalist for a multi-fleet run")
-    if kind == "generalist":
-        raise NotImplementedError(
-            "the fleet-conditioned generalist (several fleets or "
-            "--policy-kind generalist) is not ported yet: ROADMAP A8")
     if cfg.best_metric not in ("mean", "min_fleet"):
         raise ValueError(f"--best-metric must be mean|min_fleet, got "
                          f"{cfg.best_metric!r}")
-    if cfg.best_metric == "min_fleet":
+    if cfg.best_metric == "min_fleet" and kind != "generalist":
         raise ValueError("--best-metric min_fleet needs per-fleet eval — "
                          "a generalist run (--fleet a,b,... or "
                          "--policy-kind generalist)")
     return kind, fleets
 
 
+def _baseline_fns(cfg: TrainConfig) -> dict:
+    """{name: baseline function} of ``--eval-baselines``."""
+    out = {}
+    for n in filter(None, (n.strip() for n in cfg.eval_baselines.split(","))):
+        if n == "magma":
+            out[n] = BL.make_magma_baseline(BL.MagmaConfig(
+                population=cfg.magma_population,
+                generations=cfg.magma_generations))
+        elif n in BL.BASELINES:
+            out[n] = BL.BASELINES[n]
+        else:
+            raise ValueError(f"unknown baseline {n!r}; pick from "
+                             f"{sorted(BL.BASELINES) + ['magma']}")
+    return out
+
+
 def _unported(cfg: TrainConfig) -> None:
     if cfg.devices > 1:
         raise NotImplementedError("--devices > 1 (sharded rounds) is not "
                                   "ported yet: ROADMAP A11")
-    if cfg.churn != "none":
-        raise NotImplementedError(f"--churn {cfg.churn} is not ported yet: "
-                                  f"ROADMAP A7")
-    names = [n.strip() for n in cfg.eval_baselines.split(",") if n.strip()]
-    if "magma" in names:
-        raise NotImplementedError("--eval-baselines magma is not ported "
-                                  "yet: ROADMAP A6")
-    for n in names:
-        if n not in BL.BASELINES:
-            raise ValueError(f"unknown baseline {n!r}; pick from "
-                             f"{sorted(BL.BASELINES)}")
     if cfg.log_jsonl or cfg.profile_dir:
         raise NotImplementedError("--log-jsonl and --profile-dir "
                                   "(telemetry) are not ported yet: "
@@ -208,7 +230,7 @@ def _plan_chunks(cfg: TrainConfig, start_ep: int) -> list[dict]:
 
 
 def _resume(cfg: TrainConfig, mgr: CheckpointManager, state, dcfg,
-            kind: str):
+            kind: str, log_fn):
     """-> (state, start episode) from the latest checkpoint, or
     (state, 0) without one."""
     step = mgr.latest_step()
@@ -217,18 +239,25 @@ def _resume(cfg: TrainConfig, mgr: CheckpointManager, state, dcfg,
     try:
         tree, step, meta = mgr.restore(state, step)
     except ValueError as e:
-        # policy shapes follow --hidden and the fleet's num_sas
+        # policy shapes follow --hidden, --policy-kind and the fleet's
+        # num_sas (or --m-max)
         raise ValueError(
             f"checkpoint in {cfg.outdir} does not match this run's "
-            f"policy shapes — resume with the --hidden/--fleet it was "
-            f"trained with (this run: --hidden {cfg.hidden} --fleet "
-            f"{cfg.fleet} [{kind}]) or use a fresh --outdir [{e}]") from None
+            f"policy shapes — resume with the --hidden/--fleet/"
+            f"--policy-kind it was trained with (this run: --hidden "
+            f"{cfg.hidden} --fleet {cfg.fleet} [{kind}]) or use a fresh "
+            f"--outdir [{e}]") from None
     ck_kind = meta.get("policy_kind", "specialist")
     ck_fleet = meta.get("fleet", "paper6")
     if ck_kind != kind:
         raise ValueError(f"checkpoint in {cfg.outdir} is {ck_kind!r} but "
                          f"this run is {kind!r}; use a fresh --outdir")
-    if ck_fleet != cfg.fleet:
+    if kind == "generalist":
+        # fleet-independent by construction: any fleet list continues
+        if ck_fleet != cfg.fleet:
+            log_fn(f"[resume] generalist checkpoint trained on "
+                   f"{ck_fleet!r}, continuing on {cfg.fleet!r}")
+    elif ck_fleet != cfg.fleet:
         # per-fleet checkpoints stay platform-locked
         raise ValueError(
             f"checkpoint in {cfg.outdir} was trained on fleet "
@@ -238,20 +267,36 @@ def _resume(cfg: TrainConfig, mgr: CheckpointManager, state, dcfg,
     return state, meta.get("episode", 0) + 1
 
 
-def _train_loop(cfg: TrainConfig, env, pcfg, dcfg, state, start_ep: int,
-                mgr: CheckpointManager, kind: str, logf, log_fn):
+@dataclasses.dataclass(frozen=True)
+class Run:
+    """What a specialist or a generalist run trains with
+    (:func:`_build_run`)."""
+    env: SchedulingEnv            # the (first) training env
+    spec: GeneralistSpec | None   # None for a specialist
+    dcfg: D.DDPGConfig
+    fleets: list[str]
+    churn: object                 # a ChurnConfig or None
+    meta: dict                    # checkpoint meta
+    baseline_envs: list           # unpadded envs the baselines score on
+    evaluate: Callable            # (params, seeds) -> mean metrics
+    rounds: Callable              # train_rounds_host minus (env, dcfg)
+    replay_init: Callable         # capacity -> replay ring
+
+    @property
+    def pcfg(self) -> P.PolicyConfig:
+        return self.dcfg.policy
+
+
+def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
+                mgr: CheckpointManager, logf, log_fn):
     """The chunks of rounds with their eval and checkpoint boundaries.
     Returns (state, best eval, history)."""
     eval_seeds = range(7000, 7000 + cfg.eval_seeds)
-    buf = replay_init(cfg.replay_capacity, env.seq_len, env.feat_dim,
-                      env.act_dim, env.device)
+    buf = run.replay_init(cfg.replay_capacity)
     best = {"sla_rate": -1.0}
     history = []
     sigma = float(np.float32(max(cfg.sigma_min,
                                  cfg.sigma0 * cfg.sigma_decay ** start_ep)))
-    ckpt_meta = dict(fleet=cfg.fleet, policy_kind=kind, hidden=cfg.hidden,
-                     feat_dim=pcfg.feat_dim, act_dim=pcfg.act_dim,
-                     churn=cfg.churn)
 
     for chunk in _plan_chunks(cfg, start_ep):
         if chunk["fail"]:
@@ -260,12 +305,14 @@ def _train_loop(cfg: TrainConfig, env, pcfg, dcfg, state, start_ep: int,
         n = rounds[0][1]
         flags = [s + m > cfg.warmup_episodes for s, m in rounds]
         keys = round_keys(cfg.seed + 1, chunk["round0"], len(rounds))
+        kw = dict(batch_episodes=n, num_updates=cfg.updates_per_episode * n,
+                  batch_size=cfg.batch_size, sigma_min=cfg.sigma_min,
+                  sigma_decay=cfg.sigma_decay)
+        if run.churn is not None:
+            kw["churn"] = run.churn
         t0 = time.perf_counter()
-        state, buf, sigma, mets = train_rounds_host(
-            env, dcfg, state, buf, keys, sigma, flags, batch_episodes=n,
-            num_updates=cfg.updates_per_episode * n,
-            batch_size=cfg.batch_size, sigma_min=cfg.sigma_min,
-            sigma_decay=cfg.sigma_decay)
+        state, buf, sigma, mets = run.rounds(state, buf, keys, sigma, flags,
+                                             **kw)
         # the metrics are host floats: the chunk's work has finished
         elapsed = max(time.perf_counter() - t0, 1e-9)
         pps = round(sum(m for _, m in rounds) * cfg.periods / elapsed, 1)
@@ -276,34 +323,94 @@ def _train_loop(cfg: TrainConfig, env, pcfg, dcfg, state, start_ep: int,
                        sigma=round(float(mets["sigma"][i]), 4),
                        periods_per_sec=pps,
                        secs=round(elapsed / len(rounds), 3))
+            if "fleet" in mets:     # generalist: the round's fleet
+                rec["fleet"] = run.fleets[int(mets["fleet"][i])]
             if mets["did_update"][i]:
                 rec.update({k: round(float(mets[k][i]), 5)
                             for k in INFO_KEYS})
             history.append(rec)
             logf.write(json.dumps(rec) + "\n")
             log_fn(f"[ep {ep:4d}] sla={rec['sla']:.3f} "
-                   f"sigma={rec['sigma']:.3f}")
+                   f"sigma={rec['sigma']:.3f}"
+                   + (f" fleet={rec['fleet']}" if "fleet" in rec else ""))
         logf.flush()
 
         # chunk boundary: eval / best checkpoint / periodic checkpoint
         rs, rn = rounds[-1]
         ep = rs + rn - 1
         if chunk["eval"]:
-            ev = evaluate_batch(env, pcfg, state.actor, eval_seeds)
+            ev = run.evaluate(state.actor, eval_seeds)
             history[-1]["eval_sla"] = round(ev["sla_rate"], 4)
             evrec = {"episode": ep, "eval_sla": history[-1]["eval_sla"]}
+            if "per_fleet" in ev:
+                history[-1]["eval_sla_per_fleet"] = ev["per_fleet"]
+                evrec["eval_sla_per_fleet"] = ev["per_fleet"]
             logf.write(json.dumps(evrec) + "\n")
             logf.flush()
-            log_fn(f"[ep {ep:4d}] eval={evrec['eval_sla']:.4f}")
-            if ev["sla_rate"] > best.get("score", -1.0):
-                best = {**ev, "episode": ep, "score": ev["sla_rate"]}
+            log_fn(f"[ep {ep:4d}] eval={evrec['eval_sla']:.4f}"
+                   + (f" per_fleet={ev['per_fleet']}" if "per_fleet" in ev
+                      else ""))
+            score = (min(ev["per_fleet"].values())
+                     if cfg.best_metric == "min_fleet" else ev["sla_rate"])
+            if score > best.get("score", -1.0):
+                best = {**ev, "episode": ep, "score": score}
                 CheckpointManager(os.path.join(cfg.outdir, "best"),
                                   keep=1).save(
                     ep, state.actor,
-                    dict(episode=ep, sla=ev["sla_rate"], **ckpt_meta))
+                    dict(episode=ep, sla=ev["sla_rate"], **run.meta))
         if chunk["ckpt"]:
-            mgr.save(ep, state, dict(episode=ep, **ckpt_meta))
+            mgr.save(ep, state, dict(episode=ep, **run.meta))
     return state, best, history
+
+
+def _build_run(cfg: TrainConfig, kind: str, fleets: list[str],
+               churn_cfg) -> Run:
+    """The run's env(s), policy config, replay, round and eval functions
+    and checkpoint meta, for a specialist or a generalist run."""
+    ecfg, arr = _env_cfgs(cfg)
+    if kind == "generalist":
+        envs = build_padded_envs(cfg.workload, fleets, ecfg, arr,
+                                 m_max=cfg.m_max or None, device=cfg.device)
+        spec = GeneralistSpec(m_max=envs[0].num_sas)
+        pcfg = spec.pcfg(hidden=cfg.hidden)
+    else:
+        envs, spec = [build_env(cfg)], None
+        pcfg = P.PolicyConfig(feat_dim=envs[0].feat_dim,
+                              act_dim=envs[0].act_dim, hidden=cfg.hidden)
+    env, dcfg = envs[0], D.DDPGConfig(policy=pcfg)
+    meta = dict(fleet=cfg.fleet, policy_kind=kind, hidden=cfg.hidden,
+                feat_dim=pcfg.feat_dim, act_dim=pcfg.act_dim,
+                churn=cfg.churn)
+    common = dict(env=env, spec=spec, dcfg=dcfg, fleets=fleets,
+                  churn=churn_cfg)
+    if spec is None:
+        return Run(
+            **common, meta=meta, baseline_envs=envs,
+            evaluate=lambda params, seeds: evaluate_batch(env, pcfg, params,
+                                                          seeds),
+            rounds=lambda *a, **kw: train_rounds_host(env, dcfg, *a, **kw),
+            replay_init=lambda cap: replay_init(
+                cap, env.seq_len, env.feat_dim, env.act_dim, env.device))
+
+    def evaluate(params, seeds):
+        """Mean metrics across every training fleet (+ per fleet)."""
+        per = {f: evaluate_generalist_batch(e, pcfg, params, seeds)
+               for f, e in zip(fleets, envs)}
+        mean = {k: float(np.mean([m[k] for m in per.values()]))
+                for k in next(iter(per.values()))}
+        mean["per_fleet"] = {f: round(m["sla_rate"], 4)
+                             for f, m in per.items()}
+        return mean
+    # the heuristics and MAGMA act on raw slot tables: each fleet's
+    # unpadded env (padding columns would skew cost-greedy choices)
+    return Run(
+        **common, meta=dict(meta, m_max=spec.m_max, desc_dim=spec.desc_dim,
+                            fleets=fleets),
+        baseline_envs=[build_env(cfg, f) for f in fleets],
+        evaluate=evaluate,
+        rounds=lambda *a, **kw: generalist_rounds_host(envs, dcfg, *a, **kw),
+        replay_init=lambda cap: generalist_replay_init(cap, env.seq_len,
+                                                       spec, env.device))
 
 
 def train(cfg: TrainConfig, log_fn=print) -> dict:
@@ -319,23 +426,30 @@ def train(cfg: TrainConfig, log_fn=print) -> dict:
     if cfg.devices < 1:
         raise ValueError(f"--devices must be >= 1, got {cfg.devices}")
     _unported(cfg)
+    if cfg.churn not in CHURN_SCENARIOS:
+        raise ValueError(f"--churn must be one of "
+                         f"{'|'.join(CHURN_SCENARIOS)}, got {cfg.churn!r}")
+    churn_cfg = None if cfg.churn == "none" else churn_preset(cfg.churn)
+    baselines = _baseline_fns(cfg)
     kind, fleets = _resolve_kind(cfg)
-    env = build_env(cfg)
-    pcfg = P.PolicyConfig(feat_dim=env.feat_dim, act_dim=env.act_dim,
-                          hidden=cfg.hidden)
-    dcfg = D.DDPGConfig(policy=pcfg)
-    state = D.init_ddpg(torch.Generator().manual_seed(cfg.seed), dcfg,
+    run = _build_run(cfg, kind, fleets, churn_cfg)
+    if run.spec is not None:
+        log_fn(f"[generalist] fleets={','.join(fleets)} "
+               f"m_max={run.spec.m_max} desc_dim={run.spec.desc_dim} "
+               f"feat_dim={run.pcfg.feat_dim}")
+    state = D.init_ddpg(torch.Generator().manual_seed(cfg.seed), run.dcfg,
                         device=cfg.device)
     mgr = CheckpointManager(os.path.join(cfg.outdir, "ckpt"))
-    state, start_ep = _resume(cfg, mgr, state, dcfg, kind)
+    state, start_ep = _resume(cfg, mgr, state, run.dcfg, kind, log_fn)
     if start_ep:
         log_fn(f"[resume] restored checkpoint at episode {start_ep - 1}")
 
     eval_seeds = range(7000, 7000 + cfg.eval_seeds)
     baseline_scores: dict[str, dict] = {}
-    for name in filter(None, (n.strip()
-                              for n in cfg.eval_baselines.split(","))):
-        m = evaluate_batch_baseline(env, BL.BASELINES[name], eval_seeds)
+    for name, fn in baselines.items():
+        ms = [evaluate_batch_baseline(e, fn, eval_seeds)
+              for e in run.baseline_envs]
+        m = {k: float(np.mean([x[k] for x in ms])) for k in ms[0]}
         baseline_scores[name] = {k: round(v, 4) for k, v in m.items()}
         log_fn(f"[baseline] {name} sla={m['sla_rate']:.4f}")
 
@@ -344,27 +458,34 @@ def train(cfg: TrainConfig, log_fn=print) -> dict:
         if baseline_scores:
             logf.write(json.dumps({"baselines": baseline_scores}) + "\n")
             logf.flush()
-        state, best, history = _train_loop(cfg, env, pcfg, dcfg, state,
-                                           start_ep, mgr, kind, logf,
-                                           log_fn)
-    return dict(best=best, history=history, env=env, pcfg=pcfg, state=state,
-                baselines=baseline_scores, policy_kind=kind, fleets=fleets,
-                spec=None)
+        state, best, history = _train_loop(cfg, run, state, start_ep, mgr,
+                                           logf, log_fn)
+    return dict(best=best, history=history, env=run.env, pcfg=run.pcfg,
+                state=state, baselines=baseline_scores, policy_kind=kind,
+                fleets=fleets, spec=run.spec)
 
 
 _HELP = {
     "workload": "tenant set: light | heavy | mixed (workloads.cnn_zoo)",
-    "fleet": "accelerator-fleet preset (repro_torch.costmodel.fleets): "
+    "fleet": "accelerator-fleet preset(s) (repro_torch.costmodel.fleets): "
              "paper6, 4simba_4eyeriss, 8simba, 8eyeriss, 2simba_6eyeriss, "
-             "big_little, ...; a comma list (generalist) is ROADMAP A8",
-    "policy_kind": "auto | specialist (generalist: ROADMAP A8)",
+             "big_little, ...; one name = per-fleet specialist, a comma "
+             "list = fleet-conditioned generalist (one fleet sampled per "
+             "round)",
+    "policy_kind": "auto | generalist | specialist (auto: generalist iff "
+                   "several fleets; generalist checkpoints restore on any "
+                   "fleet with num_sas <= m_max)",
+    "m_max": "generalist SA-channel pad width (0 = widest requested fleet)",
+    "best_metric": "best-checkpoint selection: mean | min_fleet (maximin "
+                   "over per-fleet eval SLA; generalist runs only)",
     "scenario": "arrival preset: default | steady | burst | diurnal | "
                 "heavy_tail (sim.arrivals)",
     "batch_episodes": "episodes collected per training round",
     "devices": "1 (sharded rounds over N devices: ROADMAP A11)",
-    "churn": "none (fleet churn: ROADMAP A7)",
+    "churn": "in-episode fleet-churn preset drawn fresh per round: none | "
+             "fail | throttle | slowdown | join | mixed (sim.churn)",
     "eval_baselines": 'comma list scored on the eval seeds before '
-                      'training, e.g. "fcfs,prema,herald" ("" = skip)',
+                      'training, e.g. "fcfs,herald,magma" ("" = skip)',
     "fail_at": "inject a crash at this episode (fault-tolerance tests)",
     "device": "cuda (kernels; raises without a GPU) or cpu (plain "
               "versions)",

@@ -50,7 +50,9 @@ def parse_args(argv=None):
     ap.add_argument("--policy", default="relmas",
                     choices=["relmas", "fcfs", "prema", "herald"])
     ap.add_argument("--ckpt", default=None,
-                    help="JAX-written specialist checkpoint directory")
+                    help="checkpoint directory (either package's): a "
+                         "specialist serves its own fleet only, a "
+                         "generalist any fleet with num_sas <= its m_max")
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--episodes", type=int, default=3)
     ap.add_argument("--periods", type=int, default=60)
@@ -136,9 +138,10 @@ def serve_batched(svc: MultiTenantService, args) -> tuple[dict, dict]:
             else "n/a"
         print(f"    {name:>18s}: jobs={row['jobs']:3d} sla={sla}",
               flush=True)
-    out = {"policy": args.policy, "workload": args.workload,
-           "scenario": args.scenario, "rate_scale": args.rate_scale,
-           "streams": args.streams, "device": str(svc.device),
+    out = {"policy": args.policy, "policy_kind": svc.policy_kind,
+           "workload": args.workload, "scenario": args.scenario,
+           "rate_scale": args.rate_scale, "streams": args.streams,
+           "device": str(svc.device),
            "sla_rate": agg["sla_rate"], "counted": agg["counted"],
            "deferred": st["deferred"], "ticks": st["ticks"],
            "tick_p50_us": tick_p50, "tick_p99_us": tick_p99}

@@ -13,10 +13,14 @@ serving paths on one device:
   reference with the whole trace known up front (full engine run every
   period): the parity oracle of the batched path on a replayed trace.
 
-Checkpoints: a JAX-written *specialist* checkpoint restores into the
-actor and stays fleet-locked: a checkpoint recorded on another named
-fleet is refused (untrained policy, with a message), as in the JAX
-package.  Generalist checkpoints wait for the generalist slice.
+Checkpoints (the JAX package's format, written by either package):
+a *generalist* checkpoint (``policy_kind: "generalist"`` in its meta,
+the fleet-conditioned policy of ``repro_torch.core.generalist``)
+restores on any fleet whose ``num_sas`` fits its ``m_max``: the env is
+padded and the descriptors condition the weights.  A *specialist*
+checkpoint restores into the actor and stays fleet-locked: one recorded
+on another named fleet is refused (untrained policy, with a message),
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,8 +30,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.ckpt import read_checkpoint_meta, restore_checkpoint
+from repro_torch.ckpt import restore_checkpoint
 from repro_torch.core import baselines as BL
+from repro_torch.core.generalist import (PaddedEnv,
+                                         load_generalist_checkpoint)
 from repro_torch.core.policy import Actor, PolicyConfig
 # module import: core.serve imports serving.queue, whose package
 # imports this module; attributes are read at call time
@@ -80,19 +86,34 @@ class MultiTenantService:
                  device: str | torch.device = "cuda"):
         env_cfg = env_cfg or EnvConfig()
         self.policy_name = policy
-        self.env = SchedulingEnv(registry, env_cfg, arrivals, device=device)
-        self.device = self.env.device
         self.actor = None
         self._baseline_fn = None
+        gen = (load_generalist_checkpoint(
+                   ckpt_dir, min_num_sas=registry.mas.num_sas,
+                   default_hidden=hidden, device=device)
+               if policy == "relmas" else None)
+        if gen is not None:
+            # fleet-conditioned generalist: this fleet's env padded to
+            # the checkpoint's m_max, served on any platform (a failed
+            # weight restore leaves the architecture untrained; the
+            # loader said so)
+            params, pcfg, spec, _ = gen
+            self.env = PaddedEnv(registry, env_cfg, spec.m_max, arrivals,
+                                 device=device)
+            self.device = self.env.device
+            self.policy_kind = "generalist"
+            self.actor = Actor(pcfg, device=self.device)
+            for name, mod in self.actor.params().items():
+                for k, prm in mod.items():
+                    prm.data.copy_(params[name][k])
+            return
+        self.env = SchedulingEnv(registry, env_cfg, arrivals, device=device)
+        self.device = self.env.device
         if policy != "relmas":
             self.policy_kind = "heuristic"
             self._baseline_fn = BL.BASELINES[policy]
             return
         self.policy_kind = "specialist"
-        meta = (read_checkpoint_meta(ckpt_dir)
-                if ckpt_dir and os.path.isdir(ckpt_dir) else None)
-        if meta and meta.get("policy_kind") == "generalist":
-            core_serve.build_act(self.env, "generalist")   # raises
         pcfg = PolicyConfig(feat_dim=self.env.feat_dim,
                             act_dim=self.env.act_dim, hidden=hidden)
         self.actor = Actor(pcfg, device=self.device)

@@ -29,7 +29,11 @@ the final drop pass and the metrics; :meth:`new_episodes` draws the
 traces with NumPy on the host and :meth:`new_episodes_torch` with a
 ``torch.Generator`` on the device.
 
-Fleet churn and traced table binding are not part of this package yet.
+Fleet churn (``repro_torch.sim.churn``) enters as data: ``episode``
+takes a compiled schedule with ``(S, periods, M)`` leaves and
+``period`` one ``(S, M)`` row of it, injected into the state that
+:meth:`SchedulingEnv.build_slots` and the policy see, and stripped from
+the state it returns.
 """
 from __future__ import annotations
 
@@ -52,6 +56,17 @@ Slots = dict[str, Any]
 
 F32 = torch.float32
 I64 = torch.int64
+
+# advertised cost of an SA that is invalid this period (failed, or not
+# yet joined — see repro_torch.sim.churn): large enough that selecting
+# it is an unmissable SLA miss, finite so the `* zero` slot masking in
+# build_slots stays NaN-free (INF * 0 = NaN).  The padding poison
+# PAD_LAT_US of repro_torch.core.generalist.env has the same value.
+CHURN_POISON_US = 1.0e7
+
+# state keys injected by `period` when a churn row is threaded; they are
+# visible to build_slots / act_fns and stripped from the returned state
+_CHURN_KEYS = ("sa_valid", "lat_mult", "bw_mult")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +215,20 @@ class SchedulingEnv:
         cost_all = self.lat[model, layer]              # (S, R, M)
         bw_all = self.bw[model, layer]
         en_all = self.en[model, layer]
+        # in-episode churn (rows injected by `period`): a slowed SA
+        # advertises scaled busy times, a throttled SA scaled bus
+        # demand, an invalid SA the poison cost.  At the no-op row all
+        # three are bit-exact identities (x * 1.0, where(True, x, _)).
+        lat_mult = state.get("lat_mult")
+        if lat_mult is not None:
+            cost_all = cost_all * lat_mult[:, None, :]
+        bw_mult = state.get("bw_mult")
+        if bw_mult is not None:
+            bw_all = bw_all * bw_mult[:, None, :]
+        sa_valid = state.get("sa_valid")
+        if sa_valid is not None:
+            cost_all = torch.where(sa_valid[:, None, :], cost_all,
+                                   CHURN_POISON_US)
         zero = torch.where(valid[..., None], 1.0, 0.0)
         return dict(job=job, layer=layer, valid=valid, dep=dep,
                     ready_rel=ready_rel * valid,
@@ -310,7 +339,7 @@ class SchedulingEnv:
 
     # ---------------- one full period ----------------
     def period(self, state: State, trace: Trace, act_fn,
-               commit_only: bool = False):
+               commit_only: bool = False, churn=None):
         """act_fn(feats, mask, slots, state) -> (a (S,R,G), prio (S,R),
         sa (S,R)).
 
@@ -320,7 +349,17 @@ class SchedulingEnv:
         is not computed: it needs every finish time.  ``transition`` is
         then ``None``; ``new_state`` and ``info["committed"]`` are the
         same either way.
+
+        ``churn``: an optional churn row ``dict(valid (S, M), lat_mult
+        (S, M), bw_mult (S, M))`` (one period of a compiled
+        ``repro_torch.sim.churn`` schedule), injected into the state
+        seen by :meth:`build_slots` and ``act_fn`` as ``sa_valid`` /
+        ``lat_mult`` / ``bw_mult`` and stripped from the returned state.
         """
+        if churn is not None:
+            state = {**state, "sa_valid": churn["valid"],
+                     "lat_mult": churn["lat_mult"],
+                     "bw_mult": churn["bw_mult"]}
         t = state["t"]
         state = self.mark_drops(state, trace, t)
         slots = self.build_slots(state, trace, cutoff=t)
@@ -332,7 +371,7 @@ class SchedulingEnv:
         info = dict(committed=(slots["valid"]
                                & (start < self.cfg.t_s_us)).sum(1))
         if commit_only:
-            return new_state, None, info
+            return _strip(new_state), None, info
         r = self.reward(state, slots, fin)
         # residual-RQ-only next state (paper Sec. 4.2): cutoff at *old* t
         ns = self.mark_drops(new_state, trace, new_state["t"])
@@ -340,18 +379,21 @@ class SchedulingEnv:
         feats2, mask2 = self.encode(rslots, ns)
         info["reward"] = r
         trans = dict(s=feats, mask=mask, a=a, r=r, s2=feats2, mask2=mask2)
-        return new_state, trans, info
+        return _strip(new_state), trans, info
 
     # ---------------- whole episodes ----------------
     def episode(self, state: State, trace: Trace, act_fn, aux=None,
-                collect: bool = True):
+                collect: bool = True, churn=None):
         """Run all ``cfg.periods`` periods of every stream.
 
         ``act_fn(feats, mask, slots, state, aux_p) -> (a, prio, sa)``
         where ``aux_p`` is period p's slice ``aux[:, p]`` of the
         ``(S, periods, ...)`` block ``aux`` (the policy's pre-drawn
         exploration noise), or None without one.  After the last period
-        a final drop pass counts the late jobs.
+        a final drop pass counts the late jobs.  ``churn`` is an
+        optional compiled churn schedule with ``(S, periods, M)`` leaves
+        (``repro_torch.sim.churn``); period p reads its slice
+        ``[:, p]``.
 
         Returns ``(final_state, transitions, infos, metrics)``:
         transitions (``{}`` when ``collect=False``) and infos stacked
@@ -360,10 +402,13 @@ class SchedulingEnv:
         trans, infos = [], []
         for p in range(self.cfg.periods):
             a_p = None if aux is None else aux[:, p]
+            c_p = (None if churn is None
+                   else {k: v[:, p] for k, v in churn.items()})
             state, tr, info = self.period(
                 state, trace,
                 lambda feats, mask, slots, st: act_fn(feats, mask, slots,
-                                                      st, a_p))
+                                                      st, a_p),
+                churn=c_p)
             if collect:
                 trans.append(tr)
             infos.append(info)
@@ -383,3 +428,8 @@ class SchedulingEnv:
             sla_rate=hits.to(F32) / torch.clamp(counted, min=1).to(F32),
             energy_uj=state["energy"],
         )
+
+
+def _strip(state: State) -> State:
+    """``state`` without the churn row ``period`` injected."""
+    return {k: v for k, v in state.items() if k not in _CHURN_KEYS}

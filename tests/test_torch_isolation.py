@@ -38,6 +38,14 @@ def test_every_module_imports_with_jax_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "new = {'repro_torch.sim.churn',\n"
+        "       'repro_torch.costmodel.descriptors',\n"
+        "       'repro_torch.core.scheduler', 'repro_torch.core.generalist',\n"
+        "       'repro_torch.core.generalist.env',\n"
+        "       'repro_torch.core.generalist.features',\n"
+        "       'repro_torch.core.generalist.rollout',\n"
+        "       'repro_torch.core.generalist.train'}\n"
+        "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,

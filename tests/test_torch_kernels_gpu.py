@@ -54,7 +54,10 @@ def card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,B,F,H", [(97, 32, 16, 256), (97, 1, 16, 256),
                                      (97, 33, 16, 256), (97, 32, 16, 64),
-                                     (12, 33, 23, 64), (3, 130, 23, 128)])
+                                     (12, 33, 23, 64), (3, 130, 23, 128),
+                                     # the generalist's input width at
+                                     # M_max = 8: F = 4 + 2*8 + 8*8
+                                     (97, 32, 84, 256), (97, 5, 84, 256)])
 def test_lstm_seq_kernel_matches_plain(card, T, B, F, H):
     args = _args(T, B, F, H)
     before = ops.LAUNCHES
@@ -94,7 +97,7 @@ def _rows(B, F, H):
 @pytest.mark.parametrize("kind", ["ends", "dead_tile", "gap"])
 @pytest.mark.parametrize("T,B,F,H", [(97, 32, 16, 256), (97, 33, 16, 256),
                                      (97, 1, 16, 256), (12, 33, 23, 64),
-                                     (40, 70, 16, 128)])
+                                     (40, 70, 16, 128), (97, 32, 84, 256)])
 def test_lstm_seq_kernel_tail_masks(card, T, B, F, H, kind):
     xs, _, wx, wh, b = _args(T, B, F, H, seed=15)
     mask = _tail_mask(kind, T, B, _rows(B, F, H))
@@ -461,7 +464,11 @@ def _cell_args(B, F, H, dtype=torch.float32, seed=9):
                                    # K = F + H staged in two chunks
                                    (8, 16, 6), (5, 3, 30), (4, 1, 64),
                                    (70, 16, 256), (70, 23, 30),
-                                   (3, 5, 1100)])
+                                   (3, 5, 1100),
+                                   # the generalist's rollout and update
+                                   # steps: actor F = 84, critic F + G = 93
+                                   (8, 84, 256), (32, 84, 256),
+                                   (32, 93, 256)])
 def test_lstm_cell_kernel_matches_plain(card, B, F, H, dtype):
     args = _cell_args(B, F, H, dtype)
     before = cell_ops.LAUNCHES

@@ -127,12 +127,20 @@ def test_checkpoint_of_another_fleet_is_refused(tmp_path, capsys):
     assert "trained on fleet 'big_little'" in capsys.readouterr().out
     assert not np.array_equal(svc.actor.lstm["wx"].numpy(),
                               np.asarray(params["lstm"]["wx"]))
-    save_checkpoint(str(tmp_path), 2, params,
-                    meta={"policy_kind": "generalist"})
-    with pytest.raises(NotImplementedError, match="generalist"):
-        MultiTenantService(build_registry("light"), hidden=HIDDEN,
-                           env_cfg=EnvConfig(**KW), ckpt_dir=str(tmp_path),
-                           device="cpu")
+    # a generalist checkpoint is not fleet-locked: it serves any fleet
+    # whose num_sas fits its m_max, on a padded env
+    gcfg = P.PolicyConfig(feat_dim=4 + 2 * 8 + 8 * 8, act_dim=9,
+                          hidden=HIDDEN)
+    gparams = P.init_actor(jax.random.PRNGKey(43), gcfg)
+    save_checkpoint(str(tmp_path), 2, gparams,
+                    meta={"policy_kind": "generalist", "m_max": 8,
+                          "hidden": HIDDEN, "fleet": "big_little"})
+    svc = MultiTenantService(build_registry("light"), hidden=HIDDEN,
+                             env_cfg=EnvConfig(**KW), ckpt_dir=str(tmp_path),
+                             device="cpu")
+    assert svc.policy_kind == "generalist" and svc.env.num_sas == 8
+    np.testing.assert_array_equal(svc.actor.lstm["wx"].numpy(),
+                                  np.asarray(gparams["lstm"]["wx"]))
 
 
 @pytest.mark.parametrize("batched", [True, False])

@@ -343,15 +343,24 @@ def test_driver_crash_resume_continues_the_stream(tmp_path, capsys):
 
 
 def test_driver_rejects_what_is_not_ported(tmp_path):
+    """Only multi-device rounds (A11) and telemetry (A9) still raise;
+    churn, MAGMA and the generalist run (tests/test_torch_churn.py,
+    test_torch_magma.py, test_torch_generalist.py)."""
     base = SMOKE + ["--outdir", str(tmp_path / "x")]
-    for extra, item in ((["--fleet", "paper6,8simba"], "A8"),
-                        (["--policy-kind", "generalist"], "A8"),
-                        (["--devices", "2"], "A11"),
-                        (["--churn", "fail"], "A7"),
-                        (["--eval-baselines", "fcfs,magma"], "A6"),
-                        (["--log-jsonl", str(tmp_path / "m.jsonl")], "A9")):
+    for extra, item in ((["--devices", "2"], "A11"),
+                        (["--log-jsonl", str(tmp_path / "m.jsonl")], "A9"),
+                        (["--profile-dir", str(tmp_path / "p")], "A9")):
         with pytest.raises(NotImplementedError, match=item):
             rl_train.main(base + extra)
+    for extra, msg in ((["--churn", "sometimes"], "--churn"),
+                       (["--eval-baselines", "fcfs,random"], "random")):
+        with pytest.raises(ValueError, match=msg):
+            rl_train.main(base + extra)
+    res = rl_train.main(base + ["--churn", "fail", "--eval-baselines",
+                                "herald,magma", "--magma-population", "4",
+                                "--magma-generations", "2"])
+    assert set(res["baselines"]) == {"herald", "magma"}
+    assert res["policy_kind"] == "specialist"
 
 
 def _assert_same_state(state, jstate):
