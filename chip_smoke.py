@@ -179,7 +179,35 @@ no result:
 22. ``generalist:parity``  one churned generalist round (hidden 256, 8
                         periods) on the CPU and on the card from the
                         same state, buffer and draws, held to phase
-                        17's criteria (and an equal ``fleet`` column).
+                        17's criteria (and an equal ``fleet`` column);
+23. ``telemetry:serve`` (run after phase 7) phase 5's driver again with
+                        ``--log-jsonl --window 16``: every record valid,
+                        each kind there (4 ``serve_window``), the header
+                        naming the card and its power limit, SLA,
+                        counted, completions and per-stream metrics
+                        equal to phase 5's (telemetry off), one
+                        ``lstm_seq`` launch a tick, the device block's
+                        60 ticks and 60 x 32 depths; tick p50/p99 on
+                        and off in turns; then four runs cut to 12
+                        periods with ``--profile-dir`` (off, on, on,
+                        off), each trace read for the tick loop's
+                        device busy share, each ``serving.*`` range's
+                        host time and the device-to-host copies a tick
+                        (equal in all four), printed by size and
+                        deleted;
+24. ``telemetry:train`` (run after phase 17) ``rl_train`` at hidden 256
+                        with episodes cut to 10 periods: a warm-up
+                        round of 8 episodes and a tail round of 2 with
+                        2 updates, an eval on 1 seed, off / on / on /
+                        off with ``--log-jsonl``: a valid stream whose
+                        rounds carry the device block (one SLA an
+                        episode, one reward a period), round metrics
+                        and final actor and critic weights equal to
+                        the runs without the flag, exact ``lstm_cell``
+                        launches; then profiled with and without the
+                        flag: the five ``relmas.*`` ranges (four
+                        without), device-to-host copies a round no
+                        more than without.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -676,12 +704,13 @@ def serve_phase(serve_cli, ops, policy, CARD):
         calls.append((xs.clone(), mask.clone(), *w))
         return real(xs, mask, *w)
     ops.lstm_seq = recording
-    ops.LAUNCHES = 0
-    try:
-        out = serve_cli.main(SERVE_ARGS + ["--policy", policy])
-    finally:
-        ops.lstm_seq = real
-    launches = ops.LAUNCHES
+    with captured_serving(serve_cli) as results:
+        ops.LAUNCHES = 0
+        try:
+            out = serve_cli.main(SERVE_ARGS + ["--policy", policy])
+        finally:
+            ops.lstm_seq = real
+        launches = ops.LAUNCHES
     if not out["counted"] > 0 or not 0.0 <= out["sla_rate"] <= 1.0:
         raise AssertionError(f"serve:{policy}: counted={out['counted']} "
                              f"sla_rate={out['sla_rate']}")
@@ -697,7 +726,24 @@ def serve_phase(serve_cli, ops, policy, CARD):
           f"counted={out['counted']}", flush=True)
     if calls:
         serve_masks(ops, calls, CARD)
-    return launches
+    return launches, out, results[0]
+
+
+@contextlib.contextmanager
+def captured_serving(serve_cli):
+    """Collect the full ``serve_stream`` result of every batched driver
+    run (``main`` returns only the summary) while the block is open."""
+    results, real = [], serve_cli.serve_batched
+
+    def capturing(*a, **k):
+        out, res = real(*a, **k)
+        results.append(res)
+        return out, res
+    serve_cli.serve_batched = capturing
+    try:
+        yield results
+    finally:
+        serve_cli.serve_batched = real
 
 
 def serve_masks(ops, calls, CARD):
@@ -1958,6 +2004,340 @@ def generalist_parity_phase(CARD):
                        ring_fields=("mask", "mask2", "fleet"))
 
 
+# ---------------------------------------------------------------------------
+# telemetry: the JSONL stream, the device blocks, the profiler trace
+# ---------------------------------------------------------------------------
+SERVE_PROF_PERIODS = 12         # the profiled serving runs' depth (of 60)
+TELE_TRAIN_ARGS = ["--workload", "light", "--fleet", "paper6",
+                   "--hidden", "256", "--max-rq", "96", "--max-jobs", "64",
+                   "--periods", "10", "--batch-episodes", "8",
+                   "--batch-size", "32", "--episodes", "10",
+                   "--updates-per-episode", "1", "--warmup-episodes", "8",
+                   "--eval-every", "16", "--ckpt-every", "100",
+                   "--eval-seeds", "1"]
+
+
+def read_stream(path: str, kinds) -> list[dict]:
+    """Every line of a telemetry stream, each validated; fails unless
+    every kind of ``kinds`` appears."""
+    from repro_torch.telemetry import validate_record
+    with open(path) as f:
+        recs = [validate_record(json.loads(line)) for line in f]
+    missing = set(kinds) - {r["kind"] for r in recs}
+    if missing:
+        raise AssertionError(f"{path}: no {sorted(missing)} record")
+    return recs
+
+
+def check_header(rec: dict, CARD: str, label: str) -> None:
+    """The run header names this card and its power limit."""
+    name, limit = (x.strip() for x in CARD.rsplit(",", 1))
+    if rec["device_name"] != name or rec["backend"] != "cuda" \
+            or rec["power_limit_w"] != float(limit.split()[0]) \
+            or rec["jax_version"] != "none":
+        raise AssertionError(f"{label}: run_header {rec} against {CARD}")
+
+
+def read_trace(trace_dir: str, label: str, CARD: str) -> list[dict]:
+    """The events of the one ``torch.profiler`` trace in ``trace_dir``;
+    prints its size, then deletes it."""
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"{label}: traces {files}")
+    size = os.path.getsize(files[0])
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(trace_dir)
+    print(f"  {label} trace [{CARD}]: {size / 1e6:.1f} MB, "
+          f"{len(events)} events (deleted after reading)", flush=True)
+    return events
+
+
+def ranges(events, prefix: str) -> list[dict]:
+    return sorted((e for e in events if e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith(prefix)),
+                  key=lambda e: e["ts"])
+
+
+def d2h_calls(events) -> list[float]:
+    """Host times (trace microseconds) of the runtime calls that issued
+    the trace's device-to-host copies, matched by correlation id: the
+    host clock, so a copy is counted where the program asked for it."""
+    ids = {e["args"]["correlation"] for e in events
+           if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")}
+    return sorted(e["ts"] for e in events if e.get("cat") == "cuda_runtime"
+                  and e.get("args", {}).get("correlation") in ids)
+
+
+def d2h_between(calls: list[float], t0: float, t1: float) -> int:
+    """Device-to-host copies asked for in [t0, t1)."""
+    return sum(1 for t in calls if t0 <= t < t1)
+
+
+def device_busy_us(events, t0: float, t1: float) -> float:
+    """Device time (kernels, copies, sets) inside [t0, t1)."""
+    busy = 0.0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy += max(0.0, min(e["ts"] + e["dur"], t1) - max(e["ts"], t0))
+    return busy
+
+
+@contextlib.contextmanager
+def marked(module, attr: str, name: str):
+    """``module.attr`` runs inside a ``record_function(name)`` range while
+    the block is open (a bound for the trace readers, not a program
+    range)."""
+    real = getattr(module, attr)
+
+    def inside(*a, **k):
+        with torch.profiler.record_function(name):
+            return real(*a, **k)
+    setattr(module, attr, inside)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def serve_trace_numbers(serve_cli, args, label, CARD) -> dict:
+    """One profiled serving run (``args`` hold ``--profile-dir``): the
+    device busy share of its tick loop, the host time of each
+    ``serving.*`` range a tick and the device-to-host copies a tick (the
+    flush's excluded: they come after the loop)."""
+    from repro_torch.core import serve as core_serve
+    trace = args[args.index("--profile-dir") + 1]
+    real = core_serve.make_serving_flush
+
+    def make(*a, **k):                  # mark each call of the flush
+        flush = real(*a, **k)
+
+        def marked_flush(*x):
+            with torch.profiler.record_function("chip_smoke.flush"):
+                return flush(*x)
+        return marked_flush
+    core_serve.make_serving_flush = make
+    try:
+        out = serve_cli.main(args)
+    finally:
+        core_serve.make_serving_flush = real
+    events = read_trace(trace, label, CARD)
+    admits = ranges(events, "serving.admit")
+    flush = ranges(events, "chip_smoke.flush")
+    ticks = len(admits)
+    if ticks != out["ticks"] or len(flush) != 1:
+        raise AssertionError(f"{label}: {ticks} serving.admit ranges, "
+                             f"{len(flush)} flushes, {out['ticks']} ticks")
+    t0, t1 = admits[0]["ts"], flush[0]["ts"]
+    host = {}
+    for e in ranges(events, "serving."):
+        host[e["name"]] = host.get(e["name"], 0.0) + e["dur"]
+    return dict(out=out, ticks=ticks,
+                busy=device_busy_us(events, t0, t1) / (t1 - t0),
+                loop_ms=(t1 - t0) / 1e3,
+                d2h_per_tick=d2h_between(d2h_calls(events), t0, t1) / ticks,
+                range_ms={k: v / ticks / 1e3 for k, v in sorted(
+                    host.items())})
+
+
+def telemetry_serve_phase(serve_cli, ops, ref_out, ref_res, CARD):
+    """``serve:relmas`` again with ``--log-jsonl`` and ``--window 16``:
+    a valid stream with every serving kind, the run's numbers equal to
+    the telemetry-off run's, one ``lstm_seq`` launch a tick, the device
+    block's counts; tick times on and off in turns; then four profiled
+    runs cut to SERVE_PROF_PERIODS periods, off / on / on / off: the
+    tick loop's device busy share, each ``serving.*`` range's host time,
+    equal device-to-host copies a tick."""
+    tmp = os.path.join(ROOT, "runs", "chip_smoke_telemetry")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    stream = os.path.join(tmp, "serve.jsonl")
+    args = SERVE_ARGS + ["--policy", "relmas", "--log-jsonl", stream,
+                         "--window", "16"]
+    with captured_serving(serve_cli) as results:
+        ops.LAUNCHES = 0
+        out = serve_cli.main(args)
+        launches = ops.LAUNCHES
+    res = results[0]
+    recs = read_stream(stream, ("run_header", "serve_window", "tenant",
+                                "serve_summary", "span", "run_end"))
+    check_header(recs[0], CARD, "telemetry:serve")
+    windows = [r for r in recs if r["kind"] == "serve_window"]
+    tele = res["stats"]["device_tele"]
+    S, T = int(SERVE_ARGS[SERVE_ARGS.index("--streams") + 1]), out["ticks"]
+    if len(windows) != 4 or launches != T or tele["ticks"] != T \
+            or sum(tele["depth_hist"]) != T * S:
+        raise AssertionError(f"telemetry:serve: {len(windows)} windows, "
+                             f"{launches} lstm_seq launches in {T} ticks, "
+                             f"device block {tele}")
+    for k in ("sla_rate", "counted"):
+        if out[k] != ref_out[k]:
+            raise AssertionError(f"telemetry:serve: {k} {out[k]} with "
+                                 f"telemetry, {ref_out[k]} without")
+    if res["completions"] != ref_res["completions"] \
+            or res["metrics"] != ref_res["metrics"]:
+        raise AssertionError("telemetry:serve: completions or per-stream "
+                             "metrics differ from the telemetry-off run")
+    # tick times in turns, 60 ticks each: the checked run (on), then
+    # off, off, on
+    ticks = {True: [out], False: []}
+    for on in (False, False, True):
+        ticks[on].append(serve_cli.main(
+            SERVE_ARGS + ["--policy", "relmas"] + (
+                ["--log-jsonl", os.path.join(tmp, "t.jsonl")] if on else [])))
+    summ = next(r for r in recs if r["kind"] == "serve_summary")
+    pq = lambda o: f"{o['tick_p50_us'] / 1e3:.3f}/{o['tick_p99_us'] / 1e3:.3f}"
+    print(f"  telemetry:serve relmas, 32 streams x 60 periods [{CARD}]: "
+          f"{len(recs)} valid records ({len(windows)} serve_window), "
+          f"sla_rate={summ['sla_rate']:.4f} counted={summ['counted']} and "
+          f"{sum(len(c) for c in res['completions'])} completions equal "
+          f"to serve:relmas (telemetry off); lstm_seq launches={launches}; "
+          f"device block ticks={tele['ticks']} depth_hist="
+          f"{tele['depth_hist']} committed={tele['committed']}; tick "
+          f"p50/p99_ms in turns on {pq(ticks[True][0])}, off "
+          f"{pq(ticks[False][0])}, off {pq(ticks[False][1])}, on "
+          f"{pq(ticks[True][1])} (serve:relmas, off, first run of the "
+          f"process: {pq(ref_out)})", flush=True)
+    cut = list(SERVE_ARGS)
+    cut[cut.index("--periods") + 1] = str(SERVE_PROF_PERIODS)
+    nums = {True: [], False: []}
+    for on in (False, True, True, False):          # in turns
+        label = f"telemetry:serve {'on' if on else 'off'}"
+        args = cut + ["--policy", "relmas", "--profile-dir",
+                      os.path.join(tmp, "trace")] + (
+            ["--log-jsonl", os.path.join(tmp, "prof.jsonl")] if on else [])
+        n = serve_trace_numbers(serve_cli, args, label, CARD)
+        nums[on].append(n)
+        print(f"  telemetry:serve profiled, {n['ticks']} ticks, telemetry "
+              f"{'on' if on else 'off'} [{CARD}]: tick loop "
+              f"{n['loop_ms']:.1f} ms, device busy share {n['busy']:.4f}; "
+              f"host ms a tick "
+              + " ".join(f"{k}={v:.3f}" for k, v in n["range_ms"].items())
+              + f"; device-to-host copies a tick {n['d2h_per_tick']:.3f}",
+              flush=True)
+    want = {"serving.admit", "serving.period", "serving.retire"}
+    runs = nums[True] + nums[False]
+    if any(set(n["range_ms"]) != want | {"serving.telemetry"}
+           for n in nums[True]) \
+            or any(set(n["range_ms"]) != want for n in nums[False]):
+        raise AssertionError("telemetry:serve: a profiled run lacks a "
+                             "range or has one too many")
+    if len({n["d2h_per_tick"] for n in runs}) != 1:
+        raise AssertionError("telemetry:serve: telemetry changed the "
+                             "device-to-host copies a tick")
+    if len({n["out"]["counted"] for n in runs}) != 1:
+        raise AssertionError("telemetry:serve: the profiled runs differ")
+
+
+def train_trace_numbers(args, label, CARD) -> dict:
+    """One profiled training run: the device-to-host copies of each
+    round (from its ``relmas.trace_gen`` range to the next round's, the
+    last to the end of the rounds) and the ``relmas.*`` ranges."""
+    from repro_torch.launch import rl_train
+    trace = args[args.index("--profile-dir") + 1]
+    with marked(rl_train, "train_rounds_host", "chip_smoke.rounds"):
+        res = rl_train.main(args)
+    events = read_trace(trace, label, CARD)
+    starts = [e["ts"] for e in ranges(events, "relmas.trace_gen")]
+    last = ranges(events, "chip_smoke.rounds")[-1]
+    ends = starts[1:] + [last["ts"] + last["dur"]]
+    names = {e["name"] for e in ranges(events, "relmas.")}
+    calls = d2h_calls(events)
+    return dict(res=res, names=names,
+                d2h=[d2h_between(calls, a, b) for a, b in zip(starts, ends)])
+
+
+def telemetry_train_phase(CARD):
+    """``rl_train`` at hidden 256, 10 periods an episode (depth cut from
+    60 to keep the traces small), two rounds (8 episodes of warm-up,
+    then the tail round: 2 episodes, 2 updates), an eval on 1 seed:
+    with ``--log-jsonl`` a valid stream whose rounds carry the device
+    block, round metrics and final actor and critic weights equal to
+    the runs without the flag, exact ``lstm_cell`` launches; then
+    profiled with and without the flag: the five ``relmas.*`` ranges,
+    device-to-host copies a round no more than without."""
+    from repro_torch.core import ddpg as D
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.launch import rl_train
+    tmp = os.path.join(ROOT, "runs", "chip_smoke_telemetry_train")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    run = lambda name, *extra: rl_train.main(
+        TELE_TRAIN_ARGS + ["--outdir", os.path.join(tmp, name), *extra])
+    stream = os.path.join(tmp, "train.jsonl")
+    spans = Spans([(rl_train, "train_rounds_host", "rounds")])
+    with spans:                 # in turns: off, on, on, off
+        off = run("off")
+        cell_ops.LAUNCHES = 0
+        on = run("on", "--log-jsonl", stream)
+        launches = cell_ops.LAUNCHES
+        runs = [off, on, run("on2", "--log-jsonl", stream + "2"),
+                run("off2")]
+    want = rl_expected_launches(rounds=2, eval_runs=1, updates=2,
+                                periods=10)
+    if launches != want:
+        raise AssertionError(f"telemetry:train: lstm_cell launched "
+                             f"{launches} times, expected {want}")
+    recs = read_stream(stream, ("run_header", "train_round", "train_eval",
+                                "span", "run_end"))
+    check_header(recs[0], CARD, "telemetry:train")
+    rounds = [r for r in recs if r["kind"] == "train_round"]
+    for r in rounds:        # one SLA a episode, one reward a period
+        n = r["batch_episodes"]
+        if sum(r["sla_hist"]) != n or sum(r["reward_hist"]) != n * 10 \
+                or not 0 < r["replay_fill"] <= 1 or r["committed"] <= 0:
+            raise AssertionError(f"telemetry:train: round record {r}")
+    if [r["batch_episodes"] for r in rounds] != [8, 2]:
+        raise AssertionError(f"telemetry:train: rounds {rounds}")
+    # the round metrics leave out each round's wall time (secs, pps)
+    clock = ("secs", "periods_per_sec")
+    metrics = lambda r: [{k: v for k, v in h.items() if k not in clock}
+                         for h in r["history"]]
+    for r in runs[1:]:
+        if metrics(r) != metrics(off):
+            raise AssertionError(f"telemetry:train: history {metrics(r)} "
+                                 f"against {metrics(off)}")
+        for name in ("actor", "critic"):
+            for a, b in zip(D.tree_leaves(getattr(r["state"], name)),
+                            D.tree_leaves(getattr(off["state"], name))):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"telemetry:train: final {name} "
+                                         f"weights differ")
+    each = spans.each["rounds"]           # two chunks of one round a run
+    ms = [(a + b) / 1e3 for a, b in zip(each[::2], each[1::2])]
+    print(f"  telemetry:train light/paper6 hidden=256 10 periods, rounds "
+          f"of 8 and 2 episodes (2 updates) [{CARD}]: {len(recs)} valid "
+          f"records; round metrics and actor/critic weights equal to the "
+          f"run without --log-jsonl; lstm_cell launches={launches}; "
+          f"sla_hist={[r['sla_hist'] for r in rounds]} replay_fill="
+          f"{[r['replay_fill'] for r in rounds]} committed="
+          f"{[r['committed'] for r in rounds]}; the two rounds' ms "
+          f"off/on/on/off={'/'.join(f'{x:.1f}' for x in ms)}", flush=True)
+    nums = {}
+    for flag in (True, False):
+        label = f"telemetry:train {'on' if flag else 'off'}"
+        nums[flag] = train_trace_numbers(
+            TELE_TRAIN_ARGS + ["--outdir", os.path.join(tmp, f"p{flag}"),
+                               "--profile-dir", os.path.join(tmp, "trace")]
+            + (["--log-jsonl", os.path.join(tmp, "prof.jsonl")]
+               if flag else []), label, CARD)
+        print(f"  {label} profiled [{CARD}]: ranges "
+              f"{sorted(nums[flag]['names'])}; device-to-host copies a "
+              f"round {nums[flag]['d2h']}", flush=True)
+    scopes = {"relmas.trace_gen", "relmas.rollout", "relmas.ring_write",
+              "relmas.ddpg_update"}
+    if nums[True]["names"] != scopes | {"relmas.telemetry"} \
+            or nums[False]["names"] != scopes:
+        raise AssertionError(f"telemetry:train: ranges {nums}")
+    if any(a > b for a, b in zip(nums[True]["d2h"], nums[False]["d2h"])) \
+            or len(nums[True]["d2h"]) != 2:
+        raise AssertionError("telemetry:train: telemetry added "
+                             "device-to-host copies to a round")
+    if metrics(nums[True]["res"]) != metrics(off):
+        raise AssertionError("telemetry:train: the profiled run differs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1990,12 +2370,15 @@ def main() -> int:
     with phase("kernel:decode_gqa"):
         dec_info = check_decode(dec_ops, dec_ref, CARD)
     with phase("serve:relmas"):
-        launches = serve_phase(serve_cli, ops, "relmas", CARD)
+        launches, relmas_out, relmas_res = serve_phase(serve_cli, ops,
+                                                       "relmas", CARD)
     with phase("serve:fcfs"):
         serve_phase(serve_cli, ops, "fcfs", CARD)
     with phase("parity"):
         for policy in ("relmas", "fcfs"):
             parity_phase(serve_cli, policy, CARD)
+    with phase("telemetry:serve"):
+        telemetry_serve_phase(serve_cli, ops, relmas_out, relmas_res, CARD)
     with phase("lm:prefill_decode"):
         model = lm_model()
         lm_launches = lm_prefill_decode_phase(model, CARD)
@@ -2022,6 +2405,8 @@ def main() -> int:
         cell_launches = rl_train_phase(CARD)
     with phase("train:parity"):
         train_parity_phase(CARD)
+    with phase("telemetry:train"):
+        telemetry_train_phase(CARD)
     with phase("baseline:magma"):
         magma_phase(CARD)
     with phase("train:churn"):

@@ -22,6 +22,7 @@ from repro_torch.core.rollout import (_eval_churn_schedules, _means,
                                       collect_episodes, stack_episodes)
 from repro_torch.costmodel.descriptors import DESC_DIM
 from repro_torch.device import resolve_device
+from repro_torch.telemetry.console import console_line
 
 Metrics = dict[str, torch.Tensor]
 
@@ -124,8 +125,8 @@ def load_generalist_checkpoint(ckpt_dir: str | None, *,
                                                     pcfg.act_dim))
         params = P.tree_to_device(arrays, dev)
     except (ValueError, KeyError, FileNotFoundError) as e:
-        print(f"[generalist] checkpoint in {ckpt_dir} matched but failed "
-              f"to restore ({e}); params are untrained", flush=True)
+        console_line(f"[generalist] checkpoint in {ckpt_dir} matched but "
+                     f"failed to restore ({e}); params are untrained")
         params = P.init_actor(torch.Generator().manual_seed(0), pcfg, dev)
         restored = False
     return params, pcfg, spec, restored

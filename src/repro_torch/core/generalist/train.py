@@ -19,7 +19,10 @@ As in ``core.train``, a round splits into its draws
 draws on that fleet's env: traces with its SLA budgets, the noise
 block, the replay indices and, under churn, schedules whose events
 target the fleet's real SAs only) and a body deterministic given them,
-so the tests feed in what the JAX round draws from its key.
+so the tests feed in what the JAX round draws from its key.  A
+``telemetry=True`` keyword reaches ``core.train._round_body`` through
+``**kw``: the generalist round then carries the round's telemetry block
+beside its ``fleet``, as the JAX generalist round does.
 """
 from __future__ import annotations
 

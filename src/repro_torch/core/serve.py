@@ -15,16 +15,27 @@ completion record out.  The queue dict is updated in place.
 
 The specialist and generalist actors run at sigma 0 and the
 heuristics draw nothing, so a tick takes no random key.
+
+A queue dict with a ``tele`` block (``queue_init(..., telemetry=True)``)
+also folds the tick's depth, committed sub-jobs and tick count into it
+(``serving.telemetry``); the flush surfaces the block as flat
+``tele_*`` leaves.  The block only reads what the tick computes, so a
+queue without it runs the same ops otherwise.  The tick's phases are
+``torch.profiler`` ranges under the JAX package's scope names:
+``serving.admit``, ``serving.period``, ``serving.retire``,
+``serving.telemetry``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.serving.queue import (queue_admit, queue_metrics,
                                        queue_retire)
 from repro_torch.sim.env import SchedulingEnv
+from repro_torch.telemetry.metrics import counter_add, hist_add
 
 
 def specialist_act(actor):
@@ -88,13 +99,26 @@ def make_serving_tick(env: SchedulingEnv, *, kind: str = "specialist",
 
     @torch.no_grad()
     def tick(queues, adm):
-        n_adm = queue_admit(env, queues, adm)
-        state, _, info = env.period(queues["state"], queues["trace"], act,
-                                    commit_only=True)
+        with record_function("serving.admit"):
+            n_adm = queue_admit(env, queues, adm)
+        # commit_only: the transition is discarded, so the engine may
+        # stop at the period-boundary start horizon
+        with record_function("serving.period"):
+            state, _, info = env.period(queues["state"], queues["trace"],
+                                        act, commit_only=True)
         queues["state"] = state
-        out = queue_retire(env, queues)
+        with record_function("serving.retire"):
+            out = queue_retire(env, queues)
         out.update(n_admitted=n_adm, committed=info["committed"],
                    t_us=state["t"])
+        if "tele" in queues:
+            # new tensors, never written into what the tick returns
+            with record_function("serving.telemetry"):
+                t = queues["tele"]
+                queues["tele"] = dict(
+                    depth_hist=hist_add(t["depth_hist"], out["depth"]),
+                    committed=counter_add(t["committed"], info["committed"]),
+                    ticks=counter_add(t["ticks"], 1))
         return out
 
     return tick
@@ -103,7 +127,10 @@ def make_serving_tick(env: SchedulingEnv, *, kind: str = "specialist",
 def make_serving_flush(env: SchedulingEnv):
     """End-of-stream drain: a final drop pass at the current clock, one
     last retire, and the cumulative metrics.  Returns
-    ``flush(queues) -> out`` (retire record + :func:`queue_metrics`)."""
+    ``flush(queues) -> out`` (retire record + :func:`queue_metrics`, and
+    with a ``tele`` block its flat leaves ``tele_depth_hist`` (S, 8),
+    ``tele_depth_edges`` (S, 7), ``tele_committed`` and ``tele_ticks``
+    (S,): flat, so the host moves ``out`` leaf by leaf)."""
 
     @torch.no_grad()
     def flush(queues):
@@ -111,6 +138,13 @@ def make_serving_flush(env: SchedulingEnv):
                                          queues["state"]["t"])
         out = queue_retire(env, queues)
         out.update(queue_metrics(queues))
+        if "tele" in queues:
+            t = queues["tele"]
+            S = t["ticks"].shape[0]
+            out.update(tele_depth_hist=t["depth_hist"]["counts"],
+                       tele_depth_edges=t["depth_hist"]["edges"].expand(
+                           S, -1),
+                       tele_committed=t["committed"], tele_ticks=t["ticks"])
         return out
 
     return flush

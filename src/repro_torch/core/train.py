@@ -32,11 +32,22 @@ under fleet faults, throttles and joins as it is evaluated.  The
 multi-fleet generalist rounds (``repro_torch.core.generalist``) are
 these rounds with their own draws and episodes passed in; multi-device
 rounds are not part of this package.
+
+``telemetry=True`` folds the round's telemetry block
+(``repro_torch.telemetry.metrics.round_telemetry``: SLA and reward
+histograms, committed counter, replay-fill gauge) into its metrics.  It
+only reads what the round computes, and the round moves all of its
+metrics to the host in one transfer (stacked on the device, one
+``.cpu()``), so the block rides that transfer as it does in JAX.  The
+phases are ``torch.profiler`` ranges under the JAX package's scope
+names: ``relmas.trace_gen`` (the draws), ``relmas.rollout``,
+``relmas.ring_write``, ``relmas.ddpg_update``, ``relmas.telemetry``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import ddpg as D
 from repro_torch.core import rollout as R
@@ -44,6 +55,7 @@ from repro_torch.core.replay import replay_add
 from repro_torch.sim.arrivals import generate_traces_torch
 from repro_torch.sim.churn import churn_schedules_torch
 from repro_torch.sim.env import SchedulingEnv
+from repro_torch.telemetry.metrics import ROUND_TELE_KEYS, round_telemetry
 
 # update-info keys mirrored by the warm-up (no-update) branch of the
 # round body: ddpg_update's info dict exactly
@@ -96,10 +108,32 @@ def round_inputs(env: SchedulingEnv, draws: dict, churn=None):
         scheds
 
 
+def _to_host(dev_vals: dict, tele: dict) -> dict:
+    """The round's float32 device scalars and its telemetry leaves in
+    one device-to-host transfer: int32 leaves ride bit-cast to float32,
+    so every value arrives as the same float32 (or int32) number.
+    Returns host floats for ``dev_vals`` and NumPy values for ``tele``."""
+    parts = [torch.stack(list(dev_vals.values()))]
+    for k in ROUND_TELE_KEYS if tele else ():
+        v = tele[k].reshape(-1)
+        parts.append(v.view(torch.float32) if v.dtype == torch.int32 else v)
+    host = torch.cat(parts).cpu().numpy()
+    out = {k: float(v) for k, v in zip(dev_vals, host)}
+    at = len(dev_vals)
+    for k in ROUND_TELE_KEYS if tele else ():
+        n = tele[k].numel()
+        v = host[at:at + n]
+        v = v.view(np.int32) if tele[k].dtype == torch.int32 else v
+        out[k] = v.reshape(tele[k].shape)
+        at += n
+    return out
+
+
 def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
                 batch_episodes: int, num_updates: int, batch_size: int,
                 sigma_min: float, sigma_decay: float, arrivals=None,
-                churn=None, episodes=None, transform=None):
+                churn=None, episodes=None, transform=None,
+                telemetry: bool = False):
     """``round_fn(state, buf, draws, sigma, do_update)`` ->
     ``(state, buf, sigma, metrics)``, deterministic given ``draws``
     (with a ``churn`` config the episodes run under ``draws["churn"]``).
@@ -115,7 +149,8 @@ def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
     metrics)`` replaces the policy's episodes on ``env`` (the
     generalist's collect on the round's fleet and add a ``fleet`` ring
     column); ``transform`` maps each sampled replay batch before its
-    update."""
+    update.  ``telemetry`` adds the :data:`ROUND_TELE_KEYS` leaves
+    (NumPy) to the metrics."""
     pcfg = dcfg.policy
     if episodes is None:
         def episodes(params, draws, sigma):
@@ -127,24 +162,36 @@ def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
 
     def round_fn(state: D.DDPGState, buf: dict, draws: dict, sigma: float,
                  do_update: bool):
-        trans, einfos, mets = episodes(state.actor, draws, sigma)
+        with record_function("relmas.rollout"):
+            trans, einfos, mets = episodes(state.actor, draws, sigma)
         # (episodes, periods, ...) -> (episodes * periods, ...) ring write
         flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
                 for k, v in trans.items()}
-        replay_add(buf, flat)
+        with record_function("relmas.ring_write"):
+            replay_add(buf, flat)
+        vals = dict(sla=torch.mean(mets["sla_rate"]),
+                    reward=torch.mean(einfos["reward"]),
+                    energy_uj=torch.mean(mets["energy_uj"]))
         if do_update:
-            state, infos = D.ddpg_update_rounds(
-                state, dcfg, buf, draws["idx"].to(buf["r"].device),
-                transform)
-            info = {k: float(infos[k][-1]) for k in INFO_KEYS}
-        else:
-            info = {k: 0.0 for k in INFO_KEYS}
+            with record_function("relmas.ddpg_update"):
+                state, infos = D.ddpg_update_rounds(
+                    state, dcfg, buf, draws["idx"].to(buf["r"].device),
+                    transform)
+            vals.update({k: infos[k][-1] for k in INFO_KEYS})
+        tele = {}
+        if telemetry:
+            with record_function("relmas.telemetry"):
+                tele = round_telemetry(mets["sla_rate"], einfos["reward"],
+                                       einfos["committed"], buf["size"],
+                                       buf["r"].shape[0])
+        host = _to_host(vals, tele)
         sigma = float(max(np.float32(sigma_min), np.float32(sigma)
                           * np.float32(sigma_decay ** batch_episodes)))
-        metrics = dict(sla=float(torch.mean(mets["sla_rate"])),
-                       reward=float(torch.mean(einfos["reward"])),
-                       energy_uj=float(torch.mean(mets["energy_uj"])),
-                       sigma=sigma, did_update=bool(do_update), **info)
+        metrics = dict(sla=host["sla"], reward=host["reward"],
+                       energy_uj=host["energy_uj"], sigma=sigma,
+                       did_update=bool(do_update),
+                       **{k: host.get(k, 0.0) for k in INFO_KEYS},
+                       **{k: host[k] for k in ROUND_TELE_KEYS if tele})
         if "fleet" in draws:
             metrics["fleet"] = int(draws["fleet"])
         return state, buf, sigma, metrics
@@ -155,27 +202,29 @@ def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
 def make_train_round(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
                      batch_episodes: int, num_updates: int, batch_size: int,
                      sigma_min: float, sigma_decay: float, arrivals=None,
-                     churn=None, draws_fn=round_draws, body_fn=_round_body):
+                     churn=None, draws_fn=round_draws, body_fn=_round_body,
+                     telemetry: bool = False):
     """One full training round: ``round_fn(state, buf, seed, sigma,
     do_update)`` -> ``(state, buf, sigma, metrics)``, drawing the
     round's draws from ``seed`` (``draws_fn``, :func:`round_draws`) and
     running the body (``body_fn``, :func:`_round_body`); the generalist
     passes its own two, with its fleets' envs as ``env``.
     ``batch_episodes * periods`` transitions ring-write per round and
-    must fit the replay capacity."""
+    must fit the replay capacity; ``telemetry`` goes to the body."""
     body = body_fn(env, dcfg, batch_episodes=batch_episodes,
                    num_updates=num_updates, batch_size=batch_size,
                    sigma_min=sigma_min, sigma_decay=sigma_decay,
-                   arrivals=arrivals, churn=churn)
+                   arrivals=arrivals, churn=churn, telemetry=telemetry)
     periods = (env[0] if isinstance(env, list) else env).cfg.periods
 
     def round_fn(state, buf, seed: int, sigma: float, do_update: bool):
         cap = buf["r"].shape[0]
         size_after = min(buf["size"] + batch_episodes * periods, cap)
-        draws = draws_fn(env, seed, batch_episodes=batch_episodes,
-                         num_updates=num_updates, batch_size=batch_size,
-                         size_after=size_after, arrivals=arrivals,
-                         churn=churn)
+        with record_function("relmas.trace_gen"):
+            draws = draws_fn(env, seed, batch_episodes=batch_episodes,
+                             num_updates=num_updates, batch_size=batch_size,
+                             size_after=size_after, arrivals=arrivals,
+                             churn=churn)
         return body(state, buf, draws, sigma, do_update)
 
     return round_fn

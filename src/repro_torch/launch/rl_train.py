@@ -30,9 +30,18 @@ Fault-tolerant loop, as in the reference:
   ``[resume] restored checkpoint``.  The best eval policy's actor goes
   to ``<outdir>/best`` as the reference writes it.
 
-Not ported: ``--devices > 1`` (ROADMAP A11) and ``--log-jsonl`` /
-``--profile-dir`` (A9) raise ``NotImplementedError`` naming their
-ROADMAP item.
+Telemetry, as in the reference: a console sink always (through
+``log_fn``), ``--log-jsonl PATH`` streams schema'd records
+(``run_header``, ``baseline``, ``train_round``, ``train_eval``,
+``span`` "collect"/"eval"/"ckpt", ``run_end``) there and turns on the
+round's device telemetry block (``replay_fill``, ``sla_hist``,
+``reward_hist`` and ``committed`` in each ``train_round``; bit-neutral,
+riding the round's one metrics transfer); ``--profile-dir DIR``
+captures a ``torch.profiler`` trace of the training loop, its phases
+marked by the ``relmas.*`` ranges of ``core.train``.
+
+Not ported: ``--devices > 1`` (ROADMAP A11) raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.rl_train --workload light \\
@@ -64,6 +73,8 @@ from repro_torch.core.train import INFO_KEYS, round_keys, train_rounds_host
 from repro_torch.sim.arrivals import ArrivalConfig
 from repro_torch.sim.churn import CHURN_SCENARIOS, churn_preset
 from repro_torch.sim.env import EnvConfig, SchedulingEnv
+from repro_torch.telemetry import (ROUND_TELE_KEYS, console_line,
+                                   make_telemetry, profile_trace)
 from repro_torch.workloads import build_registry
 
 
@@ -114,8 +125,12 @@ class TrainConfig:
     outdir: str = "runs/relmas"
     ckpt_every: int = 10
     fail_at: int = -1          # crash injection (episode index) for FT tests
-    log_jsonl: str = ""        # telemetry stream (ROADMAP A9)
-    profile_dir: str = ""      # profiler trace (ROADMAP A9)
+    # telemetry: "" disables the machine-readable stream; a path streams
+    # schema'd JSONL records there AND turns on the round's device
+    # telemetry block (bit-neutral, rides the round's metrics transfer)
+    log_jsonl: str = ""
+    # capture a torch.profiler trace of the training loop into this dir
+    profile_dir: str = ""
     device: str = "cuda"       # cuda | cpu (the plain versions)
 
 
@@ -180,10 +195,6 @@ def _unported(cfg: TrainConfig) -> None:
     if cfg.devices > 1:
         raise NotImplementedError("--devices > 1 (sharded rounds) is not "
                                   "ported yet: ROADMAP A11")
-    if cfg.log_jsonl or cfg.profile_dir:
-        raise NotImplementedError("--log-jsonl and --profile-dir "
-                                  "(telemetry) are not ported yet: "
-                                  "ROADMAP A9")
 
 
 def _plan_chunks(cfg: TrainConfig, start_ep: int) -> list[dict]:
@@ -288,9 +299,10 @@ class Run:
 
 
 def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
-                mgr: CheckpointManager, logf, log_fn):
-    """The chunks of rounds with their eval and checkpoint boundaries.
-    Returns (state, best eval, history)."""
+                mgr: CheckpointManager, logf, tele):
+    """The chunks of rounds with their eval and checkpoint boundaries,
+    reported through the telemetry session ``tele``.  Returns (state,
+    best eval, history)."""
     eval_seeds = range(7000, 7000 + cfg.eval_seeds)
     buf = run.replay_init(cfg.replay_capacity)
     best = {"sla_rate": -1.0}
@@ -307,12 +319,15 @@ def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
         keys = round_keys(cfg.seed + 1, chunk["round0"], len(rounds))
         kw = dict(batch_episodes=n, num_updates=cfg.updates_per_episode * n,
                   batch_size=cfg.batch_size, sigma_min=cfg.sigma_min,
-                  sigma_decay=cfg.sigma_decay)
+                  sigma_decay=cfg.sigma_decay,
+                  telemetry=bool(cfg.log_jsonl))
         if run.churn is not None:
             kw["churn"] = run.churn
         t0 = time.perf_counter()
-        state, buf, sigma, mets = run.rounds(state, buf, keys, sigma, flags,
-                                             **kw)
+        # span "collect": the rounds INCLUDING their metrics transfer
+        with tele.span("collect", episodes=int(sum(m for _, m in rounds))):
+            state, buf, sigma, mets = run.rounds(state, buf, keys, sigma,
+                                                 flags, **kw)
         # the metrics are host floats: the chunk's work has finished
         elapsed = max(time.perf_counter() - t0, 1e-9)
         pps = round(sum(m for _, m in rounds) * cfg.periods / elapsed, 1)
@@ -330,16 +345,24 @@ def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
                             for k in INFO_KEYS})
             history.append(rec)
             logf.write(json.dumps(rec) + "\n")
-            log_fn(f"[ep {ep:4d}] sla={rec['sla']:.3f} "
-                   f"sigma={rec['sigma']:.3f}"
-                   + (f" fleet={rec['fleet']}" if "fleet" in rec else ""))
+            emit = dict(rec)
+            if all(k in mets for k in ROUND_TELE_KEYS):
+                # the device block, on the host through the round's one
+                # metrics transfer: no added sync
+                emit.update(
+                    replay_fill=round(float(mets["tele_replay_fill"][i]), 4),
+                    sla_hist=[int(x) for x in mets["tele_sla_hist"][i]],
+                    reward_hist=[int(x) for x in mets["tele_reward_hist"][i]],
+                    committed=int(mets["tele_committed"][i]))
+            tele.emit("train_round", **emit)
         logf.flush()
 
         # chunk boundary: eval / best checkpoint / periodic checkpoint
         rs, rn = rounds[-1]
         ep = rs + rn - 1
         if chunk["eval"]:
-            ev = run.evaluate(state.actor, eval_seeds)
+            with tele.span("eval"):
+                ev = run.evaluate(state.actor, eval_seeds)
             history[-1]["eval_sla"] = round(ev["sla_rate"], 4)
             evrec = {"episode": ep, "eval_sla": history[-1]["eval_sla"]}
             if "per_fleet" in ev:
@@ -347,9 +370,7 @@ def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
                 evrec["eval_sla_per_fleet"] = ev["per_fleet"]
             logf.write(json.dumps(evrec) + "\n")
             logf.flush()
-            log_fn(f"[ep {ep:4d}] eval={evrec['eval_sla']:.4f}"
-                   + (f" per_fleet={ev['per_fleet']}" if "per_fleet" in ev
-                      else ""))
+            tele.emit("train_eval", **evrec)
             score = (min(ev["per_fleet"].values())
                      if cfg.best_metric == "min_fleet" else ev["sla_rate"])
             if score > best.get("score", -1.0):
@@ -359,7 +380,8 @@ def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
                     ep, state.actor,
                     dict(episode=ep, sla=ev["sla_rate"], **run.meta))
         if chunk["ckpt"]:
-            mgr.save(ep, state, dict(episode=ep, **run.meta))
+            with tele.span("ckpt"):
+                mgr.save(ep, state, dict(episode=ep, **run.meta))
     return state, best, history
 
 
@@ -413,7 +435,9 @@ def _build_run(cfg: TrainConfig, kind: str, fleets: list[str],
                                                        spec, env.device))
 
 
-def train(cfg: TrainConfig, log_fn=print) -> dict:
+def train(cfg: TrainConfig, log_fn=console_line) -> dict:
+    """Train as ``cfg`` says.  ``log_fn`` writes the console lines (the
+    console sink's writer; a test passes a capture)."""
     if cfg.batch_episodes < 1:
         raise ValueError(f"--batch-episodes must be >= 1, "
                          f"got {cfg.batch_episodes}")
@@ -433,16 +457,20 @@ def train(cfg: TrainConfig, log_fn=print) -> dict:
     baselines = _baseline_fns(cfg)
     kind, fleets = _resolve_kind(cfg)
     run = _build_run(cfg, kind, fleets, churn_cfg)
+    # the telemetry session: console always (through log_fn), the JSONL
+    # stream when --log-jsonl was given
+    tele = make_telemetry(log_fn=log_fn, jsonl_path=cfg.log_jsonl or None)
+    tele.run_header("train", dataclasses.asdict(cfg), device=cfg.device)
     if run.spec is not None:
-        log_fn(f"[generalist] fleets={','.join(fleets)} "
-               f"m_max={run.spec.m_max} desc_dim={run.spec.desc_dim} "
-               f"feat_dim={run.pcfg.feat_dim}")
+        tele.note(f"[generalist] fleets={','.join(fleets)} "
+                  f"m_max={run.spec.m_max} desc_dim={run.spec.desc_dim} "
+                  f"feat_dim={run.pcfg.feat_dim}")
     state = D.init_ddpg(torch.Generator().manual_seed(cfg.seed), run.dcfg,
                         device=cfg.device)
     mgr = CheckpointManager(os.path.join(cfg.outdir, "ckpt"))
-    state, start_ep = _resume(cfg, mgr, state, run.dcfg, kind, log_fn)
+    state, start_ep = _resume(cfg, mgr, state, run.dcfg, kind, tele.note)
     if start_ep:
-        log_fn(f"[resume] restored checkpoint at episode {start_ep - 1}")
+        tele.note(f"[resume] restored checkpoint at episode {start_ep - 1}")
 
     eval_seeds = range(7000, 7000 + cfg.eval_seeds)
     baseline_scores: dict[str, dict] = {}
@@ -451,15 +479,18 @@ def train(cfg: TrainConfig, log_fn=print) -> dict:
               for e in run.baseline_envs]
         m = {k: float(np.mean([x[k] for x in ms])) for k in ms[0]}
         baseline_scores[name] = {k: round(v, 4) for k, v in m.items()}
-        log_fn(f"[baseline] {name} sla={m['sla_rate']:.4f}")
+        tele.emit("baseline", name=name, sla_rate=round(m["sla_rate"], 4))
 
     os.makedirs(cfg.outdir, exist_ok=True)
-    with open(os.path.join(cfg.outdir, "log.jsonl"), "a") as logf:
+    with open(os.path.join(cfg.outdir, "log.jsonl"), "a") as logf, \
+            profile_trace(cfg.profile_dir, cfg.device):
         if baseline_scores:
             logf.write(json.dumps({"baselines": baseline_scores}) + "\n")
             logf.flush()
         state, best, history = _train_loop(cfg, run, state, start_ep, mgr,
-                                           logf, log_fn)
+                                           logf, tele)
+    tele.emit("run_end", best_sla=round(float(best.get("sla_rate", -1.0)), 4))
+    tele.close()
     return dict(best=best, history=history, env=run.env, pcfg=run.pcfg,
                 state=state, baselines=baseline_scores, policy_kind=kind,
                 fleets=fleets, spec=run.spec)
@@ -487,6 +518,11 @@ _HELP = {
     "eval_baselines": 'comma list scored on the eval seeds before '
                       'training, e.g. "fcfs,herald,magma" ("" = skip)',
     "fail_at": "inject a crash at this episode (fault-tolerance tests)",
+    "log_jsonl": "stream schema'd JSONL telemetry records to this path and "
+                 "enable the round's device telemetry block (bit-neutral; "
+                 "validate/render with scripts/metrics_summary.py)",
+    "profile_dir": "capture a torch.profiler trace of the training loop "
+                   "into this directory (view in TensorBoard/Perfetto)",
     "device": "cuda (kernels; raises without a GPU) or cpu (plain "
               "versions)",
 }
@@ -500,9 +536,9 @@ def main(argv=None) -> dict:
         ap.add_argument(f"--{f.name.replace('_', '-')}", type=type(f.default),
                         default=f.default, help=_HELP.get(f.name, " "))
     cfg = TrainConfig(**vars(ap.parse_args(argv)))
-    print(f"RELMAS DDPG training: {cfg}", flush=True)
-    out = train(cfg, log_fn=lambda msg: print(msg, flush=True))
-    print(f"best eval: {out['best']}", flush=True)
+    console_line(f"RELMAS DDPG training: {cfg}")
+    out = train(cfg)
+    console_line(f"best eval: {out['best']}")
     return out
 
 

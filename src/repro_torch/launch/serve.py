@@ -18,6 +18,17 @@ Two serving modes:
   across all streams; prints aggregate SLA, the per-tenant table and
   the tick wall times.
 
+Telemetry, as in the JAX package's driver: ``--log-jsonl PATH`` streams
+schema'd records (``run_header`` / ``serve_window`` / ``serve_episode``
+/ ``tenant`` / ``serve_summary`` / ``span`` / ``run_end``, see
+``repro_torch.telemetry.schema``) beside the console lines and turns on
+the queues' device telemetry block (bit-neutral; the JAX package's
+batched driver always carries it, here it follows the flag as the
+training driver's does, so a run without it is the telemetry-off run);
+``--window N`` sets the batched mode's ``serve_window`` cadence;
+``--profile-dir DIR`` captures a ``torch.profiler`` trace of the
+serving loop.  ``scripts/metrics_summary.py`` validates the stream.
+
 The last line of standard output is one JSON summary.
 
 Usage:
@@ -27,6 +38,9 @@ Usage:
       --policy herald --device cpu --episodes 2
   PYTHONPATH=src python -m repro_torch.launch.serve --workload lm_mixed \
       --policy herald --episodes 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload light \
+      --batched --log-jsonl runs/serve.jsonl --window 16 \
+      --profile-dir runs/serve_trace
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ from repro_torch.serving.loadgen import LoadGenConfig, request_streams
 from repro_torch.serving.service import MultiTenantService
 from repro_torch.sim.arrivals import ArrivalConfig
 from repro_torch.sim.env import EnvConfig
+from repro_torch.telemetry import console_line, make_telemetry, profile_trace
 from repro_torch.workloads import (LM_WORKLOADS, WORKLOADS, build_registry,
                                    build_llm_registry)
 
@@ -88,6 +103,16 @@ def parse_args(argv=None):
                          "arrival rate (--batched)")
     ap.add_argument("--requests", type=int, default=32,
                     help="requests per stream (--batched)")
+    ap.add_argument("--log-jsonl", default="",
+                    help="stream schema'd JSONL telemetry records to this "
+                         "path and carry the device telemetry block "
+                         "(validate with scripts/metrics_summary.py)")
+    ap.add_argument("--window", type=int, default=16,
+                    help="serve_window record cadence in ticks "
+                         "(--batched with --log-jsonl; 0 disables windows)")
+    ap.add_argument("--profile-dir", default="",
+                    help="capture a torch.profiler trace of the serving "
+                         "loop into this directory")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="device of the queues, tables and actor")
     return ap.parse_args(argv)
@@ -114,30 +139,36 @@ def build_service(args) -> MultiTenantService:
                               env_cfg=ecfg, arrivals=arr, device=args.device)
 
 
-def serve_batched(svc: MultiTenantService, args) -> tuple[dict, dict]:
-    """Drive the batched path on loadgen traffic.  Returns the summary
-    dict and the full ``serve_stream`` result."""
+def serve_batched(svc: MultiTenantService, args,
+                  tele=None) -> tuple[dict, dict]:
+    """Drive the batched path on loadgen traffic, reporting through the
+    telemetry session ``tele`` (console only when not given).  Returns
+    the summary dict and the full ``serve_stream`` result."""
+    tele = tele or make_telemetry()
     lg = LoadGenConfig(scenario=args.scenario, rate_scale=args.rate_scale,
                        n_requests=args.requests,
                        qos_factor=args.qos_factor, qos_level=args.qos)
     reqs = request_streams(svc.env, lg, args.streams, seed=9000)
-    res = svc.serve_stream(reqs, tick_k=args.tick_k)
+    on = bool(args.log_jsonl)
+    with tele.span("serve"), profile_trace(args.profile_dir, svc.device):
+        res = svc.serve_stream(reqs, tick_k=args.tick_k,
+                               telemetry=tele if on else None,
+                               window=args.window)
     agg, st = res["aggregate"], res["stats"]
+    if not on:          # serve_stream emitted the tenant table itself
+        for name, row in agg["per_tenant"].items():
+            tele.emit("tenant", tenant=name, jobs=row["jobs"],
+                      sla_rate=row["sla_rate"])
     tick_p50 = float(np.percentile(st["tick_wall_us"], 50))
     tick_p99 = float(np.percentile(st["tick_wall_us"], 99))
-    print(f"[serve batched] streams={args.streams} "
-          f"scenario={args.scenario} rate={args.rate_scale} "
-          f"sla={agg['sla_rate']:.3f} jobs={agg['counted']} "
-          f"energy={agg['energy_uj']:.0f}uJ", flush=True)
-    print(f"    ticks={st['ticks']} tick_p50={tick_p50:.0f}us "
-          f"tick_p99={tick_p99:.0f}us admitted={st['admitted']} "
-          f"deferred={st['deferred']} unserved={st['unserved']} "
-          f"mean_depth={st['mean_depth']:.1f}", flush=True)
-    for name, row in agg["per_tenant"].items():
-        sla = f"{row['sla_rate']:.3f}" if row["sla_rate"] is not None \
-            else "n/a"
-        print(f"    {name:>18s}: jobs={row['jobs']:3d} sla={sla}",
-              flush=True)
+    tele.note(f"[serve batched] streams={args.streams} "
+              f"scenario={args.scenario} rate={args.rate_scale} "
+              f"sla={agg['sla_rate']:.3f} jobs={agg['counted']} "
+              f"energy={agg['energy_uj']:.0f}uJ")
+    tele.note(f"    ticks={st['ticks']} tick_p50={tick_p50:.0f}us "
+              f"tick_p99={tick_p99:.0f}us admitted={st['admitted']} "
+              f"deferred={st['deferred']} unserved={st['unserved']} "
+              f"mean_depth={st['mean_depth']:.1f}")
     out = {"policy": args.policy, "policy_kind": svc.policy_kind,
            "workload": args.workload, "scenario": args.scenario,
            "rate_scale": args.rate_scale, "streams": args.streams,
@@ -151,27 +182,33 @@ def serve_batched(svc: MultiTenantService, args) -> tuple[dict, dict]:
 def main(argv=None):
     args = parse_args(argv)
     svc = build_service(args)
+    tele = make_telemetry(jsonl_path=args.log_jsonl or None)
+    tele.run_header("serve", dict(vars(args)), device=svc.device)
     if args.batched:
-        out, _ = serve_batched(svc, args)
-        print(json.dumps(out), flush=True)
-        return out
-    rates, energies = [], []
-    for ep in range(args.episodes):
-        m = svc.run_episode(seed=9000 + ep)
-        rates.append(m["sla_rate"])
-        energies.append(m["energy_uj"])
-        print(f"[serve ep {ep}] sla={m['sla_rate']:.3f} "
-              f"jobs={int(m['counted'])} energy={m['energy_uj']:.0f}uJ",
-              flush=True)
-        for tname, tm in m["per_tenant"].items():
-            if tm["jobs"]:
-                print(f"    {tname:>18s}: jobs={tm['jobs']:3d} "
-                      f"sla={tm['sla_rate']:.3f}", flush=True)
-    out = {"policy": args.policy, "workload": args.workload,
-           "device": str(svc.device),
-           "sla_rate_mean": float(np.mean(rates)),
-           "energy_uj_mean": float(np.mean(energies))}
-    print(json.dumps(out), flush=True)
+        out, _ = serve_batched(svc, args, tele)
+    else:
+        rates, energies = [], []
+        with profile_trace(args.profile_dir, svc.device):
+            for ep in range(args.episodes):
+                with tele.span("episode", episode=ep):
+                    m = svc.run_episode(seed=9000 + ep)
+                rates.append(m["sla_rate"])
+                energies.append(m["energy_uj"])
+                tele.emit("serve_episode", episode=ep,
+                          sla_rate=float(m["sla_rate"]),
+                          counted=int(m["counted"]),
+                          energy_uj=float(m["energy_uj"]))
+                for tname, tm in m["per_tenant"].items():
+                    if tm["jobs"]:
+                        tele.emit("tenant", tenant=tname, jobs=tm["jobs"],
+                                  sla_rate=tm["sla_rate"])
+        out = {"policy": args.policy, "workload": args.workload,
+               "device": str(svc.device),
+               "sla_rate_mean": float(np.mean(rates)),
+               "energy_uj_mean": float(np.mean(energies))}
+    tele.emit("run_end", summary=out)
+    tele.close()
+    console_line(json.dumps(out))
     return out
 
 

@@ -17,6 +17,11 @@ accumulators).
 - :func:`queue_metrics` final metrics from the accumulators, with the
   dtypes of ``SchedulingEnv.metrics``.
 
+``queue_init(..., telemetry=True)`` attaches a per-stream ``tele``
+block (:func:`queue_telemetry_init`); ``queue_admit`` and
+``queue_retire`` never touch it, the tick folds into it
+(``core.serve``) and the flush surfaces it.
+
 ``queue_admit`` and ``queue_retire`` update the queue dict in place:
 PyTorch tensors are mutable, and writing in place takes the role of the
 JAX package's buffer donation.  A freed slot's stale per-job state is
@@ -34,16 +39,35 @@ import torch
 
 from repro_torch.sim.engine import INF
 from repro_torch.sim.env import SchedulingEnv
+from repro_torch.telemetry.metrics import counter_init, hist_init
 
 I32 = torch.int32
 
 
-def queue_init(env: SchedulingEnv, streams: int) -> dict:
+def queue_telemetry_init(max_jobs: int, streams: int, device) -> dict:
+    """Device telemetry block of ``streams`` serving queues.
+
+    Lives as a ``"tele"`` subdict of the queue dict, so across-tick
+    aggregates (a queue-depth histogram per stream, committed sub-jobs,
+    tick count) accumulate on the device with no extra host transfer:
+    ``depth_hist`` counts (S, 8) over edges at eighths of the capacity,
+    ``committed`` and ``ticks`` (S,) int32 counters (the JAX package's
+    ``queue_telemetry_init``, one row per stream)."""
+    edges = [max_jobs * f for f in
+             (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875)]
+    return dict(depth_hist=hist_init(edges, device, shape=(streams,)),
+                committed=counter_init(device=device, shape=(streams,)),
+                ticks=counter_init(device=device, shape=(streams,)))
+
+
+def queue_init(env: SchedulingEnv, streams: int,
+               telemetry: bool = False) -> dict:
     """``streams`` empty queues for ``env`` (capacity ``cfg.max_jobs``).
 
     The job table doubles as the env's ``trace``/``state``: free slots
     carry ``arrival = INF`` (never active, never overdue), so
-    ``env.period`` runs on the queue unchanged.
+    ``env.period`` runs on the queue unchanged.  ``telemetry=True``
+    attaches the :func:`queue_telemetry_init` block.
     """
     S, J, dev = streams, env.cfg.max_jobs, env.device
     trace = dict(
@@ -54,7 +78,7 @@ def queue_init(env: SchedulingEnv, streams: int) -> dict:
         njl=torch.zeros((S, J), dtype=torch.int64, device=dev),
     )
     z = lambda *shape: torch.zeros(shape, dtype=I32, device=dev)
-    return dict(
+    qs = dict(
         trace=trace,
         state=env.init_state(trace),
         occupied=torch.zeros((S, J), dtype=torch.bool, device=dev),
@@ -63,6 +87,9 @@ def queue_init(env: SchedulingEnv, streams: int) -> dict:
                  ten_counted=z(S, env.num_models),
                  ten_hit=z(S, env.num_models)),
     )
+    if telemetry:
+        qs["tele"] = queue_telemetry_init(J, S, dev)
+    return qs
 
 
 def _put(arr, target, val):

@@ -44,6 +44,7 @@ from repro_torch.serving.request import Request, resolve_request
 from repro_torch.sim.arrivals import ArrivalConfig, generate_trace
 from repro_torch.sim.engine import INF
 from repro_torch.sim.env import EnvConfig, SchedulingEnv
+from repro_torch.telemetry.console import console_line
 
 
 def per_tenant_metrics(env: SchedulingEnv, state, trace) -> dict[str, dict]:
@@ -129,15 +130,15 @@ class MultiTenantService:
                 ck_fleet = meta.get("fleet")
                 fleet = getattr(registry.mas, "name", None)
                 if ck_fleet and fleet and ck_fleet != fleet:
-                    print(f"[service] checkpoint trained on fleet "
-                          f"{ck_fleet!r}, serving {fleet!r}; using "
-                          f"untrained policy", flush=True)
+                    console_line(f"[service] checkpoint trained on fleet "
+                                 f"{ck_fleet!r}, serving {fleet!r}; using "
+                                 f"untrained policy")
                 else:
                     self.actor.load_numpy(tree)
             except (ValueError, KeyError, FileNotFoundError) as e:
                 # trained for another MAS shape (M changes F and G)
-                print(f"[service] checkpoint incompatible ({e}); using "
-                      f"untrained policy", flush=True)
+                console_line(f"[service] checkpoint incompatible ({e}); "
+                             f"using untrained policy")
 
     def _act(self):
         return core_serve.build_act(self.env, self.policy_kind, self.actor,
@@ -177,7 +178,8 @@ class MultiTenantService:
     # batched path (one tick per period, all streams)
     # ------------------------------------------------------------------
     def serve_stream(self, request_streams, *, tick_k: int = 8,
-                     ticks: int | None = None) -> dict:
+                     ticks: int | None = None, telemetry=None,
+                     window: int = 0) -> dict:
         """Serve request streams through the batched tick.
 
         ``request_streams``: a list of per-stream ``Request`` lists (or
@@ -193,6 +195,16 @@ class MultiTenantService:
         :meth:`serve_trace_host`, per-stream completion records, and
         serving statistics (per-tick wall times, admitted/deferred
         counts, queue depth).
+
+        ``telemetry``: an optional :class:`repro_torch.telemetry.
+        Telemetry` session.  When given, the queues carry the device
+        telemetry block (depth histogram, committed and tick counters,
+        accumulated on the device and read back at the flush, which the
+        path pays for anyway; ``stats["device_tele"]``), and the host
+        emits ``serve_window`` records every ``window`` ticks (0: none),
+        the per-tenant ``tenant`` rows summed over streams and a
+        ``serve_summary``, all from values the loop already holds on the
+        host: no added device-to-host transfer.
         """
         if request_streams and isinstance(request_streams[0], Request):
             request_streams = [request_streams]
@@ -224,13 +236,15 @@ class MultiTenantService:
                                  actor=self.actor,
                                  baseline_fn=self._baseline_fn)
         flush = core_serve.make_serving_flush(env)
-        queues = queue_init(env, S)
+        queues = queue_init(env, S, telemetry=telemetry is not None)
         n_ticks = ticks if ticks is not None else env.cfg.periods
         t_s = float(env.cfg.t_s_us)
         head = np.zeros((S,), np.int64)    # first not-yet-admitted row
         completions: list[list[dict]] = [[] for _ in range(S)]
         tick_wall_us: list[float] = []
         depth_sum = admitted = deferred = 0
+        win = int(window) if telemetry is not None else 0
+        w_first, w_adm, w_def, w_comp, w_depth = 0, 0, 0, 0, 0
         lane = np.arange(K)
         for i in range(n_ticks):
             t_now = i * t_s
@@ -250,7 +264,23 @@ class MultiTenantService:
             head += n_adm
             admitted += int(n_adm.sum())
             deferred += int((n_stage - n_adm).sum())
-            depth_sum += int(out["depth"].sum())
+            depth = int(out["depth"].sum())
+            depth_sum += depth
+            if win:
+                w_adm += int(n_adm.sum())
+                w_def += int((n_stage - n_adm).sum())
+                w_comp += int(comp.sum())
+                w_depth += depth
+                if i + 1 - w_first >= win or i == n_ticks - 1:
+                    w_wall = tick_wall_us[w_first:i + 1]
+                    telemetry.emit(
+                        "serve_window", tick_first=w_first, tick_last=i,
+                        tick_p50_us=float(np.percentile(w_wall, 50)),
+                        tick_p99_us=float(np.percentile(w_wall, 99)),
+                        admitted=w_adm, deferred=w_def, completed=w_comp,
+                        mean_depth=w_depth / max(len(w_wall) * S, 1))
+                    w_first, w_adm, w_def, w_comp, w_depth = \
+                        i + 1, 0, 0, 0, 0
             if comp.any():
                 self._record(out, comp, completions)
         fout = flush(queues)
@@ -279,6 +309,20 @@ class MultiTenantService:
                      tick_wall_us=tick_wall_us, admitted=admitted,
                      deferred=deferred, unserved=int((n_req - head).sum()),
                      mean_depth=depth_sum / max(n_ticks, 1))
+        if "tele_depth_hist" in final:
+            # the device-accumulated block, read back at the flush
+            stats["device_tele"] = dict(
+                depth_hist=final["tele_depth_hist"].sum(axis=0).tolist(),
+                depth_edges=final["tele_depth_edges"][0].tolist(),
+                committed=int(final["tele_committed"].sum()),
+                ticks=int(final["tele_ticks"][0]))
+        if telemetry is not None:
+            for name, row in aggregate["per_tenant"].items():
+                telemetry.emit("tenant", tenant=name, jobs=row["jobs"],
+                               sla_rate=row["sla_rate"])
+            telemetry.emit("serve_summary",
+                           sla_rate=aggregate["sla_rate"],
+                           counted=tot_c, ticks=n_ticks)
         return dict(metrics=metrics, aggregate=aggregate,
                     completions=completions, stats=stats)
 

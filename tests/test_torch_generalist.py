@@ -235,28 +235,22 @@ def test_generalist_period_never_uses_padding(fleets, params):
     assert (st["sa_free"][:, :env.true_num_sas] > 0.0).any()
 
 
-def test_generalist_round_matches_jax(fleets, params):
-    """One churned fleet-sampling round on the draws the JAX round takes
-    from its key (generalist/train.py:171-183); the key is the first of
-    0..9 whose round samples the 4-SA fleet (the most padding)."""
-    jenvs, envs = fleets
-    jpcfg, _, pcfg, _ = params
-    jdcfg, dcfg = JD.DDPGConfig(policy=jpcfg), D.DDPGConfig(policy=pcfg)
-    jstate = JD.init_ddpg(jax.random.PRNGKey(0), jdcfg)
-    B, cap, sigma = ROUND_KW["batch_episodes"], 64, np.float32(0.3)
-    key = next(k for k in (jax.random.PRNGKey(i) for i in range(10))
-               if int(jax.random.randint(jax.random.split(k, 5)[0], (), 0,
-                                         3)) == 2)
+def jax_generalist_round(jenvs, jpcfg, jstate, key, cap, sigma,
+                         telemetry=False):
+    """The JAX generalist round under ``mixed`` churn from ``key``, and
+    the draws it takes from the key (generalist/train.py:171-183) as the
+    port's round body takes them.  Returns (JAX round outputs, draws)."""
+    jdcfg = JD.DDPGConfig(policy=jpcfg)
+    B = ROUND_KW["batch_episodes"]
     jchurn = JC.churn_preset("mixed")
     spec = JG.GeneralistSpec(m_max=8)
-    jnew, jbuf, jsigma, jm = JG.make_generalist_round(
-        jenvs, jdcfg, churn=jchurn, **ROUND_KW)(
+    jout = JG.make_generalist_round(
+        jenvs, jdcfg, churn=jchurn, telemetry=telemetry, **ROUND_KW)(
         jax.tree.map(jnp.copy, jstate),
         JG.generalist_replay_init(cap, jenvs[0].seq_len, spec), key,
         jnp.float32(sigma), jnp.bool_(True))
     kfleet, ktrace, kroll, kup, kchurn = jax.random.split(key, 5)
     f = int(jax.random.randint(kfleet, (), 0, 3))
-    assert f == int(jm["fleet"]) == 2
     stack = JG.stack_fleet_tables(jenvs)
     tr = generate_traces_jax(stack["min_lat"][f], jenvs[0].arrivals, ktrace,
                              B)
@@ -273,6 +267,30 @@ def test_generalist_round_matches_jax(fleets, params):
                  idx=torch.tensor(np.stack([np.asarray(i) for i in idx])),
                  churn={k: torch.tensor(np.asarray(v))
                         for k, v in sched.items()})
+    return jout, draws
+
+
+def fleet_key(f=2):
+    """The first of PRNGKey(0..9) whose generalist round samples fleet
+    ``f`` (2: the 4-SA fleet, the most padding)."""
+    return next(k for k in (jax.random.PRNGKey(i) for i in range(10))
+                if int(jax.random.randint(jax.random.split(k, 5)[0], (), 0,
+                                          3)) == f)
+
+
+def test_generalist_round_matches_jax(fleets, params):
+    """One churned fleet-sampling round on the draws the JAX round takes
+    from its key (generalist/train.py:171-183); the key is the first of
+    0..9 whose round samples the 4-SA fleet (the most padding)."""
+    jenvs, envs = fleets
+    jpcfg, _, pcfg, _ = params
+    jdcfg, dcfg = JD.DDPGConfig(policy=jpcfg), D.DDPGConfig(policy=pcfg)
+    jstate = JD.init_ddpg(jax.random.PRNGKey(0), jdcfg)
+    B, cap, sigma = ROUND_KW["batch_episodes"], 64, np.float32(0.3)
+    (jnew, jbuf, jsigma, jm), draws = jax_generalist_round(
+        jenvs, jpcfg, jstate, fleet_key(), cap, sigma)
+    f = draws["fleet"]
+    assert f == int(jm["fleet"]) == 2
     state = D.ddpg_state_from_numpy(jax.tree.map(np.asarray, jstate), dcfg,
                                     device="cpu")
     buf = G.generalist_replay_init(cap, envs[0].seq_len,

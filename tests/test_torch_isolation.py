@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, nothing of ``repro``, and no
-quiet fallback to the CPU."""
+quiet fallback to the CPU; it writes to stdout only through
+``telemetry/console.py``."""
 import pathlib
 import re
 import subprocess
@@ -13,6 +14,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|"
                        r"from\s+repro(\.|\s))", re.M)
+PRINT = re.compile(r"\bprint\(")
+CONSOLE = PKG / "telemetry" / "console.py"
 
 
 def _sources():
@@ -25,6 +28,17 @@ def test_no_jax_or_repro_imports(path):
     text = path.read_text()
     hits = [m.group(0).strip() for m in FORBIDDEN.finditer(text)]
     assert not hits, f"{path}: {hits}"
+
+
+def test_print_only_in_the_console_module():
+    """The counterpart of the reference's print lint: ``console_line``
+    is the one ``print`` call site of the package."""
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in sorted(PKG.rglob("*.py"))
+            if p != CONSOLE
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if PRINT.search(line)]
+    assert not hits, hits
+    assert len(PRINT.findall(CONSOLE.read_text())) == 2  # docstring + call
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -44,7 +58,13 @@ def test_every_module_imports_with_jax_blocked():
         "       'repro_torch.core.generalist.env',\n"
         "       'repro_torch.core.generalist.features',\n"
         "       'repro_torch.core.generalist.rollout',\n"
-        "       'repro_torch.core.generalist.train'}\n"
+        "       'repro_torch.core.generalist.train',\n"
+        "       'repro_torch.telemetry.console',\n"
+        "       'repro_torch.telemetry.metrics',\n"
+        "       'repro_torch.telemetry.profiler',\n"
+        "       'repro_torch.telemetry.runmeta',\n"
+        "       'repro_torch.telemetry.schema',\n"
+        "       'repro_torch.telemetry.sink'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

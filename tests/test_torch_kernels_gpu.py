@@ -519,3 +519,68 @@ def test_lstm_cell_kernel_rejects_what_it_does_not_take(card):
             cell_ops.lstm_cell(x, h, c, wx, wh[:, :64].contiguous(), b)
     torch.cuda.synchronize()
     assert cell_ops.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# telemetry primitives on the card: no sync, the CPU's counts
+# ---------------------------------------------------------------------------
+def _tele_values(case, rng):
+    """(values, weights, edges) of one case; values shaped (S, N) for the
+    per-stream histograms of the serving queue."""
+    from repro_torch.telemetry import metrics as M
+    if case == "sla":
+        return rng.uniform(0.0, 1.0, (1, 64)), None, M.SLA_EDGES
+    if case == "reward_weighted":
+        w = rng.uniform(-2.0, 3.0, (1, 97))       # fractional, negative
+        return rng.normal(0.0, 2.0, (1, 97)), w, M.REWARD_EDGES
+    if case == "edges_and_nonfinite":
+        v = np.array([[0.0, -0.0, 1.0, 0.5, np.nan, np.inf, -np.inf,
+                       0.2, 0.99, 2.0, -1e-45, 1e-45]])      # subnormals
+        return v, None, (0.0, 0.2, 0.5, 0.99, 1.0)
+    # the serving tick: one depth a stream, edges at eighths of 64 jobs
+    return (rng.integers(0, 65, (32, 1)), None,
+            [64 * f for f in (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sla", "reward_weighted",
+                                  "edges_and_nonfinite", "depth_rows"])
+def test_telemetry_primitives_on_the_card_are_sync_free(card, case):
+    """hist_init / hist_add / hist_merge / counter_add / round_telemetry
+    on CUDA tensors under ``set_sync_debug_mode("error")`` (a host sync
+    raises), equal to the same calls on the CPU."""
+    from repro_torch.telemetry import metrics as M
+    rng = np.random.default_rng(11)
+    vals, w, edges = _tele_values(case, rng)
+    S = vals.shape[0]
+    host = dict(v=torch.as_tensor(vals, dtype=torch.float32),
+                w=None if w is None else torch.as_tensor(w,
+                                                         dtype=torch.float32),
+                sla=torch.as_tensor(rng.uniform(0, 1, 8),
+                                    dtype=torch.float32),
+                rew=torch.as_tensor(rng.normal(0, 2, (8, 10)),
+                                    dtype=torch.float32),
+                com=torch.as_tensor(rng.integers(0, 90, (8, 10))))
+    dev = {k: None if v is None else v.cuda() for k, v in host.items()}
+    torch.cuda.synchronize()
+
+    def run(t, device):
+        h = M.hist_init(edges, device, shape=(S,) if S > 1 else ())
+        v = t["v"] if S > 1 else t["v"].reshape(-1)
+        wt = None if t["w"] is None else t["w"].reshape(-1)
+        h = M.hist_merge(M.hist_add(h, v, wt), M.hist_add(h, v, wt))
+        c = M.counter_add(M.counter_add(M.counter_init(device=device), 3),
+                          t["com"].sum())
+        g = M.gauge_set(M.gauge_init(device=device), t["sla"][0])
+        r = M.round_telemetry(t["sla"], t["rew"], t["com"], 480, 4000)
+        return dict(counts=h["counts"], c=c, g=g, **r)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(dev, "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    want = run(host, "cpu")
+    for k, v in want.items():
+        assert got[k].device.type == "cuda", k
+        assert torch.equal(got[k].cpu(), v), k

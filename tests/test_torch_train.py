@@ -17,6 +17,8 @@ into both packages.  Tolerances:
   2 * lr * num_updates + 1e-5 * |p| (each Adam step may flip the sign of
   a ~0 gradient element; see tests/test_torch_ddpg.py).
 """
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +51,7 @@ from repro_torch.sim.arrivals import (SCENARIOS, ArrivalConfig,
                                       generate_trace_torch, generate_traces,
                                       generate_traces_torch, scenario_preset)
 from repro_torch.sim.env import EnvConfig, SchedulingEnv
+from repro_torch.telemetry import validate_record
 from repro_torch.workloads import build_registry
 
 torch.set_num_threads(1)
@@ -343,15 +346,26 @@ def test_driver_crash_resume_continues_the_stream(tmp_path, capsys):
 
 
 def test_driver_rejects_what_is_not_ported(tmp_path):
-    """Only multi-device rounds (A11) and telemetry (A9) still raise;
-    churn, MAGMA and the generalist run (tests/test_torch_churn.py,
-    test_torch_magma.py, test_torch_generalist.py)."""
+    """Only multi-device rounds (A11) still raise; telemetry (A9) runs
+    and writes a valid stream and a trace, and churn, MAGMA and the
+    generalist run (tests/test_torch_churn.py, test_torch_magma.py,
+    test_torch_generalist.py, test_torch_telemetry_paths.py)."""
     base = SMOKE + ["--outdir", str(tmp_path / "x")]
-    for extra, item in ((["--devices", "2"], "A11"),
-                        (["--log-jsonl", str(tmp_path / "m.jsonl")], "A9"),
-                        (["--profile-dir", str(tmp_path / "p")], "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            rl_train.main(base + extra)
+    with pytest.raises(NotImplementedError, match="A11"):
+        rl_train.main(base + ["--devices", "2"])
+    stream, trace = tmp_path / "m.jsonl", tmp_path / "p"
+    for extra in (["--log-jsonl", str(stream)],
+                  ["--profile-dir", str(trace)]):
+        rl_train.main(SMOKE + ["--outdir", str(tmp_path / extra[0][2:])]
+                      + extra)
+    recs = [validate_record(json.loads(line))
+            for line in stream.read_text().splitlines()]
+    assert [r["kind"] for r in recs if r["kind"] != "span"] == [
+        "run_header", "train_round", "train_round", "train_eval",
+        "run_end"]
+    assert [r["episode"] for r in recs if r["kind"] == "train_round"] \
+        == [1, 3]
+    assert len(list(trace.glob("*.pt.trace.json"))) == 1
     for extra, msg in ((["--churn", "sometimes"], "--churn"),
                        (["--eval-baselines", "fcfs,random"], "random")):
         with pytest.raises(ValueError, match=msg):
