@@ -34,17 +34,28 @@ no result:
                         ``attention_chunked`` at the internlm2-1.8b
                         prefill shape and four others (causal, window,
                         MHA with D = 64, GQA group 4 with a ragged S,
-                        float32 with odd S), each element within
+                        float32 with odd S), whisper-tiny's encoder and
+                        cross-attention prefill (non-causal, Sk = 1500
+                        keys for Sq = 1500 and 4 queries), a ragged
+                        cross call (Sq = 77), a float32 one with
+                        Sq != Sk, the olmoe-1b-7b prefill and
+                        whisper-tiny's decoder self-attention prefill
+                        (causal, 4 prompt tokens), each element within
                         ``kernels.attn_tolerance`` (one bf16 ulp plus
                         1.5e-2 of its row's RMS; 1e-4 in float32);
                         kernel (back to back, and replayed from a CUDA
                         graph), plain and ``scaled_dot_product_attention``
                         times beside the bound, the kernel's TFLOP/s and
-                        its time over SDPA's;
+                        its time over SDPA's; causal Sq != Sk must raise
+                        before any launch;
 4. ``kernel:decode_gqa``  the decode attention kernel (the cache split
                         over the card by ``split_plan``, then merged)
                         against ``decode_attention_ref`` at the decode
-                        shape of phase 8, the batcher's of phase 9 and
+                        shape of phase 8, the batcher's of phase 9,
+                        whisper-tiny's self (132 slots, ragged) and
+                        cross (1500 frames, full), olmoe-1b-7b's
+                        (16 heads of 128, group 1) decode shape and its
+                        batcher's (phase 28: 16 slots of 512), and
                         four others (ragged lengths, a 32768-slot cache,
                         float32, short bf16 rows where one dropped key
                         fails the check), the same tolerance; kernel,
@@ -207,7 +218,37 @@ no result:
                         launches; then profiled with and without the
                         flag: the five ``relmas.*`` ranges (four
                         without), device-to-host copies a round no
-                        more than without.
+                        more than without;
+25. ``lm:whisper_prefill_decode`` (run after phase 14) whisper-tiny at
+                        full width and depth (4 encoder and 4 decoder
+                        layers, bf16 weights drawn on the card from
+                        seed 0): ``make_prefill_step`` on 8 clips of
+                        1500 stub frames (N(0, 1) x 0.1) and a 4-token
+                        prompt, cache padded to 132 slots, then 128
+                        greedy steps; exactly 12 ``flash_attention``
+                        launches per prefill (4 encoder, 4 self, 4
+                        cross) and 8 ``decode_gqa`` per step (4 self,
+                        4 cross); prefill ms, step p50/p99, tokens/s,
+                        peak memory, profiled busy shares;
+26. ``lm:whisper_parity``  the whole model on the CPU (plain versions)
+                        and on the card (kernels), bf16, 2 clips, 16
+                        prompt tokens and 16 teacher-forced steps,
+                        within ``LM_TOL``;
+27. ``lm:olmoe_prefill_decode``  olmoe-1b-7b at full width and depth
+                        (16 layers of 64 experts, top-8; 6.9 B
+                        parameters): prefill of 4 x 2048 tokens and 128
+                        greedy steps as phase 8; exactly 16
+                        ``flash_attention`` launches per prefill and 16
+                        ``decode_gqa`` per step; the share of the
+                        prefill's assignments that capacity dropped;
+28. ``lm:olmoe_batcher``  ``ContinuousBatcher`` on olmoe as phase 9
+                        (16 slots, 48 requests);
+29. ``lm:olmoe_parity``  the olmoe weights cut to 2 layers, CPU against
+                        card as phase 10: in float32 with equal routes
+                        and logits within ``OLMOE_F32_TOL``, then in
+                        bf16, every route flip a CPU near-tie (k-th and
+                        (k+1)-th router logits within ``ROUTE_MARGIN``)
+                        and the rows without a flip within ``LM_TOL``.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -218,6 +259,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -235,13 +277,24 @@ PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 TOL = 1e-4
-# (B, Hq, Hkv, S, D, window, dtype); causal throughout; the first is the
-# internlm2-1.8b prefill of phase 8
-FLASH_SHAPES = [(4, 16, 8, 2048, 128, 0, torch.bfloat16),
-                (1, 16, 8, 4096, 128, 1024, torch.bfloat16),
-                (2, 36, 36, 1024, 64, 0, torch.bfloat16),
-                (1, 8, 2, 777, 128, 0, torch.bfloat16),
-                (3, 4, 2, 300, 64, 0, torch.float32)]
+# (B, Hq, Hkv, Sq, Sk, D, causal, window, dtype); the first is the
+# internlm2-1.8b prefill of phase 8, then causal windowed, MHA at D = 64,
+# GQA group 4 with a ragged S and float32 with odd S; then whisper-tiny's
+# encoder (phase 25: non-causal, 1500 frames) and cross-attention
+# prefill (4 prompt tokens against 1500 frames), a ragged cross call, a
+# float32 one with Sq != Sk, the olmoe-1b-7b prefill (phase 27) and
+# whisper-tiny's decoder self-attention prefill (its 4 prompt tokens)
+FLASH_SHAPES = [(4, 16, 8, 2048, 2048, 128, True, 0, torch.bfloat16),
+                (1, 16, 8, 4096, 4096, 128, True, 1024, torch.bfloat16),
+                (2, 36, 36, 1024, 1024, 64, True, 0, torch.bfloat16),
+                (1, 8, 2, 777, 777, 128, True, 0, torch.bfloat16),
+                (3, 4, 2, 300, 300, 64, True, 0, torch.float32),
+                (8, 6, 6, 1500, 1500, 64, False, 0, torch.bfloat16),
+                (8, 6, 6, 4, 1500, 64, False, 0, torch.bfloat16),
+                (2, 6, 6, 77, 1500, 64, False, 0, torch.bfloat16),
+                (3, 4, 2, 50, 333, 128, False, 0, torch.float32),
+                (4, 16, 16, 2048, 2048, 128, True, 0, torch.bfloat16),
+                (8, 6, 6, 4, 4, 64, True, 0, torch.bfloat16)]
 # (B, Hq, Hkv, S, D, lengths, dtype); the first is the internlm2-1.8b
 # decode of phase 8 halfway through its 128 steps, the last the
 # batcher's of phase 9 (16 slots of 512, lengths up to 96)
@@ -251,7 +304,15 @@ DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, "mid", torch.bfloat16),
                  (4, 16, 8, 32768, 128, "full", torch.bfloat16),
                  (3, 4, 4, 100, 64, "ragged", torch.float32),
                  (16, 16, 8, 64, 128, "ragged", torch.bfloat16),
-                 (16, 16, 8, 512, 128, "batcher", torch.bfloat16)]
+                 (16, 16, 8, 512, 128, "batcher", torch.bfloat16),
+                 # whisper-tiny's decode (phase 25): self-attention over
+                 # its 132-slot cache, cross-attention over 1500 frames;
+                 # olmoe-1b-7b's (phase 27) halfway through its steps
+                 (8, 6, 6, 132, 64, "ragged", torch.bfloat16),
+                 (8, 6, 6, 1500, 64, "full", torch.bfloat16),
+                 (4, 16, 16, LM_PAD, 128, "mid", torch.bfloat16),
+                 # and olmoe-1b-7b's batcher (phase 28), as phase 9's
+                 (16, 16, 16, 512, 128, "batcher", torch.bfloat16)]
 LM_ARCH = "internlm2-1.8b"
 # card (kernels) against CPU (plain versions), bf16 weights and
 # activations: the tolerance of the port against JAX on the CPU
@@ -264,6 +325,20 @@ LM_TOL = dict(atol=0.1, rtol=0.02, mean=0.01)
 MAMBA_TOL = dict(atol=0.15, rtol=0.02, mean=0.02)
 MAMBA_ARCH = "mamba2-2.7b"
 MB_B, MB_S, MB_STEPS = 4, 2048, 32
+# whisper-tiny: 8 clips of 1500 stub frames, a 4-token prompt and 128
+# greedy steps, 132 of the decoder's 448 positions
+WH_ARCH = "whisper-tiny"
+WH_B, WH_PROMPT, WH_STEPS = 8, 4, 128
+# olmoe-1b-7b at the internlm2 phases' shapes (LM_B, LM_S, LM_STEPS)
+OLMOE_ARCH = "olmoe-1b-7b"
+# its 2-layer parity in float32: the flash kernel's float32 bound (1e-4
+# of a row's RMS) over two layers and float32 sums over d = 2048 and the
+# 50432-wide head in another order; a route flip moves logits by ~0.1
+OLMOE_F32_TOL = dict(atol=2e-3, rtol=1e-3, mean=2e-4)
+# in bf16 the two sides' float32 router logits differ by up to ~1e-2 (a
+# bf16 ulp of the hidden state through the router): a token whose k-th
+# and (k+1)-th logits are closer than this may pick another expert
+ROUTE_MARGIN = 0.05
 # (BC, C, N, H, P); the first is the mamba2-2.7b prefill of phase 12:
 # 4 prompts of 2048 tokens in chunks of 128, 80 heads of 64, state 128
 SSD_SHAPES = [(MB_B * MB_S // 128, 128, 128, 80, 64), (6, 16, 32, 7, 16),
@@ -527,10 +602,13 @@ def attn_bound_ms(flops, nbytes, dtype) -> tuple[float, str]:
                                       else "bytes")
 
 
-def visible_pairs(S, window) -> int:
-    """(query, key) pairs a causal (sliding-window) call computes."""
-    i = np.arange(S)
-    return int(np.minimum(i + 1, window if window > 0 else S).sum())
+def visible_pairs(Sq, Sk, causal, window) -> int:
+    """(query, key) pairs a call computes: all Sq * Sk without the
+    causal mask, the lower triangle (or band) with it."""
+    if not causal:
+        return Sq * Sk
+    i = np.arange(Sq)
+    return int(np.minimum(i + 1, window if window > 0 else Sq).sum())
 
 
 def check_flash(ops, ref, CARD):
@@ -541,41 +619,44 @@ def check_flash(ops, ref, CARD):
     main = None
     max_err = 0.0
     with torch.no_grad():
-        for (B, Hq, Hkv, S, D, window, dt) in FLASH_SHAPES:
-            q = torch.randn((B, Hq, S, D), generator=gen, device="cuda").to(dt)
-            k, v = (torch.randn((B, Hkv, S, D), generator=gen,
+        for (B, Hq, Hkv, Sq, Sk, D, causal, window, dt) in FLASH_SHAPES:
+            q = torch.randn((B, Hq, Sq, D), generator=gen,
+                            device="cuda").to(dt)
+            k, v = (torch.randn((B, Hkv, Sk, D), generator=gen,
                                 device="cuda").to(dt) for _ in range(2))
-            got = ops.flash_attention(q, k, v, causal=True, window=window)
-            want = ref.attention_chunked(q, k, v, causal=True, window=window)
+            call = lambda: ops.flash_attention(q, k, v, causal=causal,
+                                               window=window)
+            got = call()
+            want = ref.attention_chunked(q, k, v, causal=causal,
+                                         window=window)
             torch.cuda.synchronize()
             err, over = attn_err(got, want)
             ok = over <= 1.0
             if window > 0:      # the same function: an explicit band mask
-                i = torch.arange(S, device="cuda")
+                i = torch.arange(Sq, device="cuda")
                 mask = (i[:, None] >= i[None, :]) & \
                     (i[:, None] - i[None, :] < window)
                 lib = lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True)
             else:
                 lib = lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q, k, v, is_causal=causal, enable_gqa=True)
             lib_err = (lib().float() - want.float()).abs().max().item()
-            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                     window=window), reps=10)
+            ms = cuda_ms(call, reps=10)
             # bf16: the same calls replayed from a CUDA graph, device time
             # only, with no host dispatch between short calls
-            g_ms = graph_ms(lambda: ops.flash_attention(
-                q, k, v, causal=True, window=window), calls=10) \
-                if dt == torch.bfloat16 else float("nan")
+            g_ms = graph_ms(call, calls=10) if dt == torch.bfloat16 \
+                else float("nan")
             plain_ms = cuda_ms(lambda: ref.attention_chunked(
-                q, k, v, causal=True, window=window), reps=3, warmup=1)
+                q, k, v, causal=causal, window=window), reps=3, warmup=1)
             library_ms = cuda_ms(lib, reps=10)
             esz = q.element_size()
-            flops = 4.0 * B * Hq * D * visible_pairs(S, window)
-            nbytes = esz * B * S * D * (2 * Hq + 2 * Hkv)
+            flops = 4.0 * B * Hq * D * visible_pairs(Sq, Sk, causal, window)
+            nbytes = esz * B * D * (2 * Hq * Sq + 2 * Hkv * Sk)
             bound_ms, bound_by = attn_bound_ms(flops, nbytes, dt)
-            print(f"  flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
-                  f"window={window} {str(dt)[6:]} [{CARD}]: "
+            print(f"  flash_attention B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} "
+                  f"Sk={Sk} D={D} causal={causal} window={window} "
+                  f"{str(dt)[6:]} [{CARD}]: "
                   f"max_abs_err={err:.3e} err/bound={over:.3f} ok={ok} "
                   f"kernel_ms={ms:.4f} (CUDA graph {g_ms:.4f}) "
                   f"plain_ms={plain_ms:.4f} "
@@ -585,11 +666,25 @@ def check_flash(ops, ref, CARD):
                   f"kernel_over_sdpa={ms / library_ms:.3f}", flush=True)
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with its "
-                                     f"plain version at {(B, Hq, Hkv, S, D)}")
+                                     f"plain version at "
+                                     f"{(B, Hq, Hkv, Sq, Sk, D, causal)}")
             max_err = max(max_err, err)
             if main is None:
                 main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=library_ms)
+        # causal attention with Sq != Sk has no agreed alignment: refused
+        q = torch.zeros((1, 6, 4, 64), dtype=torch.bfloat16, device="cuda")
+        k = torch.zeros((1, 6, 1500, 64), dtype=torch.bfloat16, device="cuda")
+        before = ops.LAUNCHES
+        try:
+            ops.flash_attention(q, k, k, causal=True)
+        except ValueError as e:
+            print(f"  flash_attention causal Sq=4 Sk=1500 refused: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("flash_attention took causal Sq != Sk")
+        if ops.LAUNCHES != before:
+            raise AssertionError("flash_attention launched on causal Sq != Sk")
     return dict(max_abs_err=max_err, **main)
 
 
@@ -825,16 +920,20 @@ def lm_counts():
     return fa_ops, dec_ops
 
 
-def lm_model(n_layers=None):
-    """internlm2-1.8b at full width, bf16 weights drawn on the card from
-    seed 0; ``n_layers`` cuts the depth."""
+def lm_from_seed(arch: str):
+    """``arch`` at full width and depth, bf16 weights drawn on the card
+    from seed 0."""
     from repro_torch.configs import get_arch
     from repro_torch.models import LM
-    cfg = get_arch(LM_ARCH)
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return LM(cfg, device="cuda").init(gen)
+    return LM(get_arch(arch), device="cuda").init(gen)
+
+
+def check_ids(label, logits, toks, cfg):
+    if not torch.isfinite(logits.float()).all() or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()):
+        raise AssertionError(f"{label}: non-finite logits or ids out of "
+                             f"range")
 
 
 def pct(xs, q):
@@ -890,14 +989,15 @@ def profile_window(fn, label, CARD, top=6, share=None):
               f"(share {mine_us / dev_us:.4f})", flush=True)
 
 
-def timed_prefill_decode(prefill, decode, tokens, steps):
-    """One prefill of ``tokens`` (B, S), then ``steps`` greedy decode
-    steps, each timed on the host clock and ended by a synchronise.
-    Returns (prefill_ms, step_ms, ids (B, steps + 1), logits, cache)."""
+def timed_prefill_decode(prefill, decode, tokens, steps, extra=None):
+    """One prefill of ``tokens`` (B, S) (with the batch keys ``extra``,
+    such as whisper's frames), then ``steps`` greedy decode steps, each
+    timed on the host clock and ended by a synchronise.  Returns
+    (prefill_ms, step_ms, ids (B, steps + 1), logits, cache)."""
     B, S = tokens.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill({"tokens": tokens})
+    logits, cache = prefill({"tokens": tokens, **(extra or {})})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -935,10 +1035,7 @@ def lm_prefill_decode_phase(model, CARD):
                              f"{launches[0]} decode_gqa={launches[1]}, "
                              f"expected {cfg.n_layers} and "
                              f"{cfg.n_layers * LM_STEPS}")
-    if not torch.isfinite(logits.float()).all() or \
-            not bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()):
-        raise AssertionError("lm:prefill_decode: non-finite logits or ids "
-                             "out of range")
+    check_ids("lm:prefill_decode", logits, toks, cfg)
     if tuple(cache["k"].shape) != (cfg.n_layers, LM_B, cfg.n_kv, LM_PAD,
                                    cfg.head_dim):
         raise AssertionError(f"lm:prefill_decode: cache {cache['k'].shape}")
@@ -1035,26 +1132,39 @@ def to_cpu(tree):
     return tree.cpu()
 
 
-def parity_run(model_full, tol, label, CARD, B=2, S=256, steps=16):
-    """2 layers of the full-width weights, CPU (plain versions) against
-    the card (kernels): prefill of B x S tokens, then ``steps``
-    teacher-forced decode steps; logits within ``tol`` and greedy ids
-    equal wherever the CPU's top-2 gap exceeds it."""
+def cut_models(model_full, n_layers=2, dtype=None):
+    """The full-width weights cut to ``n_layers`` (in ``dtype`` if given,
+    else as they are) as one model on the card and one on the CPU."""
     from repro_torch.models import LM
-    cfg = dataclasses.replace(model_full.cfg, n_layers=2)
+    cfg = dataclasses.replace(model_full.cfg, n_layers=n_layers)
     gpu, cpu = LM(cfg, device="cuda"), LM(cfg, device="cpu")
     gpu.params = dict(model_full.params)
-    gpu.params["stack"] = cut_layers(model_full.params["stack"], 2)
+    gpu.params["stack"] = cut_layers(model_full.params["stack"], n_layers)
+    if dtype is not None:
+        gpu.params = cast(gpu.params, dtype)
     cpu.params = to_cpu(gpu.params)
-    rng = np.random.default_rng(4)
+    return gpu, cpu
+
+
+def cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def parity_history(gpu, cpu, B, S, steps, extra=None, seed=4):
+    """Prefill of B x S tokens (with the batch keys ``extra``, on the
+    CPU), then ``steps`` teacher-forced decode steps, on the CPU (plain
+    versions) and on the card (kernels), in turns.  Returns
+    [(kind, cpu logits, card logits on the CPU), ...] in float32."""
+    rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(
-        rng.integers(0, cfg.vocab, (B, S + steps)).astype(np.int32))
-    history, caches = [], {}
+        rng.integers(0, cpu.cfg.vocab, (B, S + steps)).astype(np.int32))
+    history, caches, out = [], {}, {}
     with torch.no_grad():
-        out = {}
         for name, m in (("cpu", cpu), ("gpu", gpu)):
-            out[name], caches[name] = m.prefill({"tokens": tokens[:, :S]},
-                                                pad_to=S + steps)
+            out[name], caches[name] = m.prefill(
+                {"tokens": tokens[:, :S], **(extra or {})}, pad_to=S + steps)
         history.append(("prefill", out["cpu"].float(),
                         out["gpu"].float().cpu()))
         for i in range(steps):          # teacher forcing: the given ids
@@ -1064,12 +1174,26 @@ def parity_run(model_full, tol, label, CARD, B=2, S=256, steps=16):
                 out[name], caches[name] = m.decode_step(caches[name], batch)
             history.append(("decode", out["cpu"].float(),
                             out["gpu"].float().cpu()))
+    return history
+
+
+def parity_check(history, tol, label, exempt=None):
+    """Logits within ``tol`` and greedy ids equal wherever the CPU's
+    top-2 gap exceeds it, on every row not in ``exempt`` (one (B,) bool
+    per history entry, or None).  Returns (worst by kind, the largest
+    mean difference, ids compared, rows compared)."""
     atol, rtol = tol["atol"], tol["rtol"]
     worst = {"prefill": 0.0, "decode": 0.0}
-    mean_err, checked = [], 0
-    for kind, c, g in history:
+    mean_err, checked, rows = [], 0, 0
+    for i, (kind, c, g) in enumerate(history):
+        if exempt is not None:
+            keep = ~exempt[i]
+            c, g = c[keep], g[keep]
+        rows += c.shape[0]
+        if c.shape[0] == 0:
+            continue
         diff = (c - g).abs()
-        worst[kind] = max(worst[kind], diff.max().item())
+        worst[kind] = max(worst.get(kind, 0.0), diff.max().item())
         mean_err.append(diff.mean().item())
         if not torch.allclose(g, c, atol=atol, rtol=rtol):
             raise AssertionError(f"{label}: {kind} logits differ by "
@@ -1084,16 +1208,32 @@ def parity_run(model_full, tol, label, CARD, B=2, S=256, steps=16):
             raise AssertionError(f"{label}: greedy id differs at a {kind} "
                                  f"step with a top-2 gap above the "
                                  f"tolerance")
-    if max(mean_err) > tol["mean"]:
+    if not mean_err or max(mean_err) > tol["mean"]:
         raise AssertionError(f"{label}: mean logit difference "
-                             f"{max(mean_err):.3e}")
-    print(f"  {label} {cfg.name} cut to {cfg.n_layers} layers, B={B} "
-          f"S={S} + {steps} teacher-forced steps, CPU vs [{CARD}]: "
-          f"max_abs_err prefill={worst['prefill']:.3e} "
-          f"decode={worst['decode']:.3e} (atol {atol}, rtol {rtol}) "
-          f"max_mean_abs_err={max(mean_err):.3e} (limit {tol['mean']}) "
-          f"greedy ids equal where compared={checked} "
-          f"(of {B * (steps + 1)})", flush=True)
+                             f"{max(mean_err, default=float('nan')):.3e}")
+    return worst, max(mean_err), checked, rows
+
+
+def parity_print(label, what, worst, mean_err, checked, n_ids, tol, CARD):
+    errs = " ".join(f"{k}={v:.3e}" for k, v in worst.items())
+    print(f"  {label} {what}, CPU vs [{CARD}]: max_abs_err {errs} "
+          f"(atol {tol['atol']}, rtol "
+          f"{tol['rtol']}) max_mean_abs_err={mean_err:.3e} (limit "
+          f"{tol['mean']}) greedy ids equal where compared={checked} "
+          f"(of {n_ids})", flush=True)
+
+
+def parity_run(model_full, tol, label, CARD, B=2, S=256, steps=16):
+    """2 layers of the full-width weights, CPU (plain versions) against
+    the card (kernels): prefill of B x S tokens, then ``steps``
+    teacher-forced decode steps; logits within ``tol`` and greedy ids
+    equal wherever the CPU's top-2 gap exceeds it."""
+    gpu, cpu = cut_models(model_full)
+    history = parity_history(gpu, cpu, B, S, steps)
+    worst, mean_err, checked, _ = parity_check(history, tol, label)
+    parity_print(label, f"{gpu.cfg.name} cut to {gpu.cfg.n_layers} layers, "
+                 f"B={B} S={S} + {steps} teacher-forced steps", worst,
+                 mean_err, checked, B * (steps + 1), tol, CARD)
     return steps
 
 
@@ -1212,15 +1352,6 @@ def check_ssd(ops, ref, CARD):
     return dict(max_abs_err=max_err, **main)
 
 
-def mamba_model():
-    """mamba2-2.7b at full width and depth, bf16 weights drawn on the
-    card from seed 0."""
-    from repro_torch.configs import get_arch
-    from repro_torch.models import LM
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    return LM(get_arch(MAMBA_ARCH), device="cuda").init(gen)
-
-
 def mamba_prefill_decode_phase(model, CARD):
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.models import make_decode_step, make_prefill_step
@@ -1242,10 +1373,7 @@ def mamba_prefill_decode_phase(model, CARD):
         raise AssertionError(f"lm:mamba2_prefill_decode: ssd_chunk launched "
                              f"{launches} times in one prefill, expected "
                              f"{cfg.n_layers}")
-    if not torch.isfinite(logits.float()).all() or \
-            not bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()):
-        raise AssertionError("lm:mamba2_prefill_decode: non-finite logits "
-                             "or ids out of range")
+    check_ids("lm:mamba2_prefill_decode", logits, toks, cfg)
     H, N, P = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_headdim
     conv_dim = cfg.ssm_expand * cfg.d_model + 2 * N
     if tuple(cache["ssm"].shape) != (cfg.n_layers, MB_B, H, N, P) or \
@@ -1302,6 +1430,334 @@ def mamba_parity_phase(model_full, CARD):
     if ssd_ops.LAUNCHES != 2:
         raise AssertionError(f"lm:mamba2_parity: ssd_chunk launched "
                              f"{ssd_ops.LAUNCHES} times, expected 2")
+
+
+# ---------------------------------------------------------------------------
+# Whisper (encoder-decoder) and OLMoE (MoE)
+# ---------------------------------------------------------------------------
+def whisper_frames(cfg, B, seed, device):
+    """Stub audio embeddings: N(0, 1) x 0.1, as the JAX smoke tests draw
+    them (tests/test_models_smoke.py)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((B, cfg.n_frames, cfg.d_model), generator=gen,
+                       device=device) * 0.1
+
+
+def whisper_prefill_decode_phase(model, CARD):
+    from repro_torch.models import make_decode_step, make_prefill_step
+    fa_ops, dec_ops = lm_counts()
+    cfg = model.cfg
+    pad = WH_PROMPT + WH_STEPS
+    prefill = make_prefill_step(model, pad_to=pad)
+    decode = make_decode_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (WH_B, WH_PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    frames = whisper_frames(cfg, WH_B, 0, "cuda")
+    run = lambda steps: timed_prefill_decode(prefill, decode, tokens, steps,
+                                             {"frames": frames})
+    run(2)                                      # warm-up: cuBLAS, kernels
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9     # weights and all
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    prefill_ms, step_ms, toks, logits, cache = run(WH_STEPS)
+    launches = (fa_ops.LAUNCHES, dec_ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a prefill: 4 encoder, 4 decoder self and 4 cross; a step: 4 self
+    # and 4 cross
+    want = (cfg.enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers * WH_STEPS)
+    if launches != want:
+        raise AssertionError(f"lm:whisper_prefill_decode: launches "
+                             f"flash_attention={launches[0]} decode_gqa="
+                             f"{launches[1]}, expected {want}")
+    check_ids("lm:whisper_prefill_decode", logits, toks, cfg)
+    shapes = {p: tuple(cache[p]["k"].shape) for p in ("self", "cross")}
+    if shapes != {"self": (cfg.n_layers, WH_B, cfg.n_kv, pad, cfg.head_dim),
+                  "cross": (cfg.n_layers, WH_B, cfg.n_kv, cfg.n_frames,
+                            cfg.head_dim)}:
+        raise AssertionError(f"lm:whisper_prefill_decode: cache {shapes}")
+    with torch.no_grad():
+        profile_window(lambda: prefill({"tokens": tokens, "frames": frames}),
+                       "whisper prefill", CARD, share="flash_attention")
+        pos = torch.full((WH_B,), WH_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        tok = toks[:, :1]
+        profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})
+                                for _ in range(4)], "whisper 4 decode steps",
+                       CARD, share="decode_gqa")
+    n_params = model.param_count()
+    cross_bytes = 2 * cache["cross"]["k"].numel() * 2
+    dec_s = sum(step_ms) / 1e3
+    print(f"  lm:whisper_prefill_decode {cfg.name} params={n_params} "
+          f"B={WH_B} frames={cfg.n_frames} prompt={WH_PROMPT} pad_to={pad} "
+          f"steps={WH_STEPS} [{CARD}]: prefill_ms={prefill_ms:.2f} "
+          f"decode_p50_ms={pct(step_ms, 50):.3f} "
+          f"decode_p99_ms={pct(step_ms, 99):.3f} "
+          f"decode_tokens_per_s={WH_B * WH_STEPS / dec_s:.1f} "
+          f"peak_mem_gb={peak_gb:.3f} (held before the run {held_gb:.3f}) "
+          f"launches flash_attention={launches[0]} "
+          f"decode_gqa={launches[1]} cross_cache_mb={cross_bytes / 1e6:.1f} "
+          f"step_read_bound_ms={(n_params * 2 + cross_bytes) / PEAK_BYTES * 1e3:.4f}",
+          flush=True)
+    return launches
+
+
+def whisper_parity_phase(model, CARD, B=2, S=16, steps=16):
+    """The whole model (4 + 4 layers, it is small) on the CPU (plain
+    versions) and on the card (kernels), bf16, the same frames: prefill
+    of B x S tokens, then teacher-forced decode steps, within
+    ``LM_TOL``."""
+    from repro_torch.models import LM
+    fa_ops, dec_ops = lm_counts()
+    cpu = LM(model.cfg, device="cpu")
+    cpu.params = to_cpu(model.params)
+    frames = whisper_frames(model.cfg, B, 1, "cpu")
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    history = parity_history(model, cpu, B, S, steps, {"frames": frames})
+    cfg = model.cfg
+    if (fa_ops.LAUNCHES, dec_ops.LAUNCHES) != (
+            cfg.enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers * steps):
+        raise AssertionError(f"lm:whisper_parity: launches "
+                             f"{fa_ops.LAUNCHES}, {dec_ops.LAUNCHES}")
+    worst, mean_err, checked, _ = parity_check(history, LM_TOL,
+                                               "lm:whisper_parity")
+    parity_print("lm:whisper_parity", f"{cfg.name} whole model, B={B} "
+                 f"frames={cfg.n_frames} S={S} + {steps} teacher-forced "
+                 f"steps", worst, mean_err, checked, B * (steps + 1), LM_TOL,
+                 CARD)
+
+
+@contextlib.contextmanager
+def moe_probe(pin=False):
+    """Record every MoE call of the port while it lasts: its device, the
+    top-k expert ids (B, S, k) in the router's order and each token's
+    gap between its k-th and (k+1)-th router logits; and every
+    dispatch's dropped and total assignments.  With ``pin``, the card's
+    i-th MoE call takes the expert ids of the i-th CPU call (which runs
+    first), gated by its own logits."""
+    from repro_torch.models import moe as MOE
+    rec = {"calls": [], "dropped": 0, "assigned": 0}
+    route, disp = MOE.route, MOE._group_dispatch
+
+    def probe_route(p, x, top_k):
+        logits = x.float() @ p["router"]
+        top = torch.topk(logits, top_k + 1, dim=-1)
+        rec["calls"].append((x.device.type, top.indices[..., :top_k].cpu(),
+                             (top.values[..., top_k - 1]
+                              - top.values[..., top_k]).cpu()))
+        idx, gates, all_logits = route(p, x, top_k)
+        if pin and x.device.type == "cuda":
+            n = sum(c[0] == "cuda" for c in rec["calls"]) - 1
+            idx = [c for c in rec["calls"] if c[0] == "cpu"][n][1]
+            idx = idx.to(x.device)
+            gates = torch.softmax(torch.gather(logits, -1, idx),
+                                  dim=-1).to(x.dtype)
+        return idx, gates, all_logits
+
+    def dispatch(x, eidx, n_experts, C):
+        slots, slot = disp(x, eidx, n_experts, C)
+        rec["dropped"] += int((slot == n_experts * C).sum())
+        rec["assigned"] += slot.numel()
+        return slots, slot
+    MOE.route, MOE._group_dispatch = probe_route, dispatch
+    try:
+        yield rec
+    finally:
+        MOE.route, MOE._group_dispatch = route, disp
+
+
+def olmoe_prefill_decode_phase(model, CARD):
+    from repro_torch.models import make_decode_step, make_prefill_step
+    fa_ops, dec_ops = lm_counts()
+    cfg = model.cfg
+    prefill = make_prefill_step(model, pad_to=LM_PAD)
+    decode = make_decode_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    run = lambda steps: timed_prefill_decode(prefill, decode, tokens, steps)
+    run(2)                                      # warm-up: cuBLAS, kernels
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9     # weights and all
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    prefill_ms, step_ms, toks, logits, cache = run(LM_STEPS)
+    launches = (fa_ops.LAUNCHES, dec_ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != (cfg.n_layers, cfg.n_layers * LM_STEPS):
+        raise AssertionError(f"lm:olmoe_prefill_decode: launches "
+                             f"flash_attention={launches[0]} decode_gqa="
+                             f"{launches[1]}, expected {cfg.n_layers} and "
+                             f"{cfg.n_layers * LM_STEPS}")
+    check_ids("lm:olmoe_prefill_decode", logits, toks, cfg)
+    if tuple(cache["k"].shape) != (cfg.n_layers, LM_B, cfg.n_kv, LM_PAD,
+                                   cfg.head_dim):
+        raise AssertionError(f"lm:olmoe_prefill_decode: cache "
+                             f"{tuple(cache['k'].shape)}")
+    with torch.no_grad(), moe_probe() as rec:
+        prefill({"tokens": tokens})
+    drop = rec["dropped"] / rec["assigned"]
+    with torch.no_grad():
+        profile_window(lambda: prefill({"tokens": tokens}), "olmoe prefill",
+                       CARD, top=8, share="flash_attention")
+        pos = torch.full((LM_B,), LM_S, dtype=torch.int32, device="cuda")
+        tok = toks[:, :1]
+        profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})
+                                for _ in range(4)], "olmoe 4 decode steps",
+                       CARD, top=8, share="decode_gqa")
+    n_params = model.param_count()
+    dec_s = sum(step_ms) / 1e3
+    print(f"  lm:olmoe_prefill_decode {cfg.name} params={n_params} "
+          f"B={LM_B} S={LM_S} pad_to={LM_PAD} steps={LM_STEPS} [{CARD}]: "
+          f"prefill_ms={prefill_ms:.2f} decode_p50_ms={pct(step_ms, 50):.3f} "
+          f"decode_p99_ms={pct(step_ms, 99):.3f} "
+          f"decode_tokens_per_s={LM_B * LM_STEPS / dec_s:.1f} "
+          f"prefill_tokens_per_s={LM_B * LM_S / prefill_ms * 1e3:.0f} "
+          f"peak_mem_gb={peak_gb:.2f} (held before the run {held_gb:.2f}) "
+          f"launches flash_attention={launches[0]} "
+          f"decode_gqa={launches[1]} prefill_dropped_assignments="
+          f"{rec['dropped']} of {rec['assigned']} (share {drop:.4f}, "
+          f"capacity factor {cfg.capacity_factor}) "
+          f"step_weight_read_bound_ms={n_params * 2 / PEAK_BYTES * 1e3:.3f}",
+          flush=True)
+    return launches
+
+
+def olmoe_batcher_phase(model, CARD):
+    _, dec_ops = lm_counts()
+    cfg = model.cfg
+    dec_ops.LAUNCHES = 0
+    done, steps, wall = serve_batcher(model, n=48, n_slots=16, smax=512,
+                                      prompt_len=32, max_new=64)
+    launches = dec_ops.LAUNCHES
+    n_tok = sum(len(r.tokens_out) for r in done)
+    if launches != cfg.n_layers * steps:
+        raise AssertionError(f"lm:olmoe_batcher: decode_gqa launched "
+                             f"{launches} times in {steps} steps")
+    print(f"  lm:olmoe_batcher {cfg.name} slots=16 smax=512 [{CARD}]: "
+          f"requests={len(done)} tokens_out={n_tok} "
+          f"batched_decode_steps={steps} (prompt feeding included) "
+          f"wall_s={wall:.2f} tokens_out_per_s={n_tok / wall:.1f} "
+          f"ms_per_step={wall / steps * 1e3:.3f} "
+          f"decode_gqa launches={launches}", flush=True)
+
+
+def route_flips(rec, n_layers, starts):
+    """Pair the CPU's and the card's MoE calls of one run (each model
+    call runs its n_layers in turn; call g's tokens sit at positions
+    starts[g], starts[g] + 1, ...) and sort the tokens whose expert set
+    differs into primary flips and flips downstream of another.  A
+    token's router input at layer l depends on the routes of its own
+    and earlier positions at layers below l (attention, and the
+    capacity, which an expert hands out in position order), so a flip
+    at (l, t) with one at (l' < l, t' <= t) in its row may be caused by
+    it; a primary flip has none and must be a near-tie.  Returns
+    (primary CPU margins, number downstream, (B,) earliest flipped
+    position of each row, or a large number)."""
+    cpu = [c for c in rec["calls"] if c[0] == "cpu"]
+    gpu = [c for c in rec["calls"] if c[0] == "cuda"]
+    if len(cpu) != len(gpu) or len(cpu) != n_layers * len(starts):
+        raise AssertionError(f"lm:olmoe_parity: {len(cpu)} CPU and "
+                             f"{len(gpu)} card MoE calls for "
+                             f"{len(starts)} model calls")
+    B = cpu[0][1].shape[0]
+    none = 1 << 30
+    first = torch.full((n_layers, B), none, dtype=torch.long)
+    primary, downstream = [], 0
+    for i, (c, g) in enumerate(zip(cpu, gpu)):
+        layer, start = i % n_layers, starts[i // n_layers]
+        flip = (c[1].sort(-1).values != g[1].sort(-1).values).any(-1)
+        reach = first[:layer].amin(0) if layer else torch.full((B,), none)
+        for b, t in flip.nonzero().tolist():
+            if reach[b] <= start + t:
+                downstream += 1
+            else:
+                primary.append(c[2][b, t].item())
+            first[layer, b] = min(first[layer, b].item(), start + t)
+    return primary, downstream, first.amin(0)
+
+
+def olmoe_parity_phase(model_full, CARD, B=2, S=256, steps=16):
+    """2 layers of the full-width weights, CPU against card: a forward
+    pass over B x S tokens, then parity_history's prefill and
+    teacher-forced steps.  float32 first (the bf16 weights cast up):
+    routes equal at every layer and token, logits within
+    ``OLMOE_F32_TOL``.  Then bf16: a token whose k-th and (k+1)-th
+    router logits are within ``ROUTE_MARGIN`` may pick another expert
+    on one side, and through attention and the capacity competition
+    that moves every later token of its row.  Every primary flip must
+    be such a CPU near-tie; the logits of every token with no flip at
+    or before its position in its row are held to ``LM_TOL``.  Last,
+    the same bf16 runs with the card's routes pinned to the CPU's
+    (``moe_probe(pin=True)``): every logit within ``LM_TOL``."""
+    fa_ops, dec_ops = lm_counts()
+    L_ = 2
+    # parity_history's prompts
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, model_full.cfg.vocab, (B, S + steps)).astype(np.int32))[:, :S]
+    # float32: every leaf cast up; bf16: the weights as drawn (the
+    # router float32)
+    for f32, tol in ((True, OLMOE_F32_TOL), (False, LM_TOL)):
+        label = f"lm:olmoe_parity[{'float32' if f32 else 'bfloat16'}]"
+        gpu, cpu = cut_models(model_full, L_,
+                              torch.float32 if f32 else None)
+        with torch.no_grad(), moe_probe() as rec:
+            fwd = [m.forward({"tokens": tokens}).float().cpu()
+                   for m in (cpu, gpu)]
+        primary, downstream, first = route_flips(rec, L_, [0])
+        n_fwd = len(primary)
+        keep = torch.arange(S)[None, :] < first[:, None]     # (B, S)
+        entries = [("forward", fwd[0][keep], fwd[1][keep])]
+        fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+        with moe_probe() as rec:
+            history = parity_history(gpu, cpu, B, S, steps)
+        if (fa_ops.LAUNCHES, dec_ops.LAUNCHES) != (L_, L_ * steps):
+            raise AssertionError(f"{label}: launches {fa_ops.LAUNCHES}, "
+                                 f"{dec_ops.LAUNCHES}")
+        p2, d2, first2 = route_flips(rec, L_, [0] + list(range(S, S + steps)))
+        primary += p2
+        downstream += d2
+        # history entry i's logits sit at position S - 1 + i
+        exempt = [first2 <= S - 1 + i for i in range(len(history))]
+        if f32 and (primary or downstream):
+            raise AssertionError(f"{label}: {len(primary) + downstream} "
+                                 f"tokens routed differently in float32 "
+                                 f"(CPU margins {primary})")
+        if primary and max(primary) >= ROUTE_MARGIN:
+            raise AssertionError(f"{label}: a primary route flip at a CPU "
+                                 f"margin of {max(primary):.4f}, above "
+                                 f"{ROUTE_MARGIN}")
+        worst, mean_err, checked, rows = parity_check(
+            entries + history, tol, label,
+            [torch.zeros(int(keep.sum()), dtype=torch.bool)] + exempt)
+        n_tok = B * (2 * S + steps) * L_       # forward, then the history
+        parity_print(label, f"{gpu.cfg.name} cut to {L_} layers, B={B} "
+                     f"S={S} forward + prefill + {steps} teacher-forced "
+                     f"steps; route flips: {len(primary)} primary ({n_fwd} "
+                     f"in the forward, the rest in the prefill of the same "
+                     f"prompt and the steps; CPU margins "
+                     f"{[round(m, 5) for m in primary]}, accepted under "
+                     f"{ROUTE_MARGIN}) and {downstream} downstream "
+                     f"of {n_tok} token-layers; forward tokens compared="
+                     f"{int(keep.sum())} of {B * S}, prefill/decode rows "
+                     f"compared={rows - int(keep.sum())} of "
+                     f"{B * len(history)}", worst, mean_err, checked,
+                     int(keep.sum()) + B * (steps + 1), tol, CARD)
+        if not keep.any():
+            raise AssertionError(f"{label}: no token left to compare")
+        if not f32:
+            with torch.no_grad(), moe_probe(pin=True):
+                fwd = [m.forward({"tokens": tokens}).float().cpu()
+                       for m in (cpu, gpu)]
+                history = parity_history(gpu, cpu, B, S, steps)
+            label += " routes pinned"
+            worst, mean_err, checked, _ = parity_check(
+                [("forward", fwd[0].flatten(0, 1), fwd[1].flatten(0, 1))]
+                + history, tol, label)
+            parity_print(label, f"the same runs with the card's expert ids "
+                         f"the CPU's, every token compared", worst, mean_err,
+                         checked, B * (S + steps + 1), tol, CARD)
+        del gpu, cpu
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2338,6 +2794,15 @@ def telemetry_train_phase(CARD):
         raise AssertionError("telemetry:train: the profiled run differs")
 
 
+def free(model) -> None:
+    """Drop the model's weights from the card before the next model:
+    the phases' closures and profiler windows can hold it in reference
+    cycles, which only the cycle collector frees."""
+    model.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2380,25 +2845,37 @@ def main() -> int:
     with phase("telemetry:serve"):
         telemetry_serve_phase(serve_cli, ops, relmas_out, relmas_res, CARD)
     with phase("lm:prefill_decode"):
-        model = lm_model()
+        model = lm_from_seed(LM_ARCH)
         lm_launches = lm_prefill_decode_phase(model, CARD)
     with phase("lm:batcher"):
         lm_batcher_phase(model, CARD)
     with phase("lm:parity"):
         lm_parity_phase(model, CARD)
-    del model
-    torch.cuda.empty_cache()
+    free(model)
     with phase("kernel:ssd_chunk"):
         ssd_info = check_ssd(ssd_ops, ssd_ref, CARD)
     with phase("lm:mamba2_prefill_decode"):
-        model = mamba_model()
+        model = lm_from_seed(MAMBA_ARCH)
         ssd_launches = mamba_prefill_decode_phase(model, CARD)
     with phase("lm:mamba2_batcher"):
         mamba_batcher_phase(model, CARD)
     with phase("lm:mamba2_parity"):
         mamba_parity_phase(model, CARD)
-    del model
-    torch.cuda.empty_cache()
+    free(model)
+    with phase("lm:whisper_prefill_decode"):
+        model = lm_from_seed(WH_ARCH)
+        wh_launches = whisper_prefill_decode_phase(model, CARD)
+    with phase("lm:whisper_parity"):
+        whisper_parity_phase(model, CARD)
+    free(model)
+    with phase("lm:olmoe_prefill_decode"):
+        model = lm_from_seed(OLMOE_ARCH)
+        moe_launches = olmoe_prefill_decode_phase(model, CARD)
+    with phase("lm:olmoe_batcher"):
+        olmoe_batcher_phase(model, CARD)
+    with phase("lm:olmoe_parity"):
+        olmoe_parity_phase(model, CARD)
+    free(model)
     with phase("kernel:lstm_cell"):
         cell_info = check_cell(cell_ops, cell_ref, CARD)
     with phase("train:rl_train"):
@@ -2427,11 +2904,13 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/"
                       "flash_attention.py:87",
-             launches=lm_launches[0], **fa_info),
+             launches=lm_launches[0] + wh_launches[0] + moe_launches[0],
+             **fa_info),
         dict(name="decode_gqa", route="cuda",
              source="src/repro_torch/csrc/decode_gqa.cu",
              replaces="src/repro/kernels/decode_gqa/decode_gqa.py:65",
-             launches=lm_launches[1], **dec_info),
+             launches=lm_launches[1] + wh_launches[1] + moe_launches[1],
+             **dec_info),
         dict(name="ssd_chunk", route="cuda",
              source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:45",

@@ -1,21 +1,27 @@
 // Blocked prefill attention for Hopper (sm_90a): causal or sliding-window
-// masks, grouped-query heads, an online softmax over key tiles.
+// masks, or none (an encoder, or cross-attention with Sk keys for Sq
+// queries), grouped-query heads, an online softmax over key tiles.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas
 //   (body _flash_kernel)
-// and computes the same function: q (B,Hq,S,D), k/v (B,Hkv,S,D) ->
-// o (B,Hq,S,D) in q's dtype; query head h reads KV head h / (Hq/Hkv);
-// query i sees key j when (not causal or i >= j) and (window <= 0 or
-// i - j < window); masked scores are -1e30 and their weights 0; float32
-// running (m, l, acc) per query row and a final acc / max(l, 1e-30).
+// and computes the same function: q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D) ->
+// o (B,Hq,Sq,D) in q's dtype; query head h reads KV head h / (Hq/Hkv);
+// query i sees key j < Sk when (not causal or i >= j) and (window <= 0
+// or i - j < window); masked scores are -1e30 and their weights 0;
+// float32 running (m, l, acc) per query row and a final
+// acc / max(l, 1e-30).  Sq and Sk differ only without the causal mask
+// (the wrapper refuses the rest): query tiles and the output run over
+// Sq rows, key tiles and the key mask over Sk.
 //
 // What bounds it on an H100.  A causal call does 2*2*B*Hq*S*S/2*D
 // operations on B*S*D*(2*Hq + 2*Hkv) elements: at the internlm2-1.8b
 // prefill (B=4, Hq=16, Hkv=8, S=2048, D=128, bf16) that is 68.7 GFLOP
 // against 0.1 GB, 69 us at the 989 TFLOP/s bf16 tensor-core peak and
 // 30 us at 3.35 TB/s: operations bound it, and only the tensor cores
-// (wgmma) come near that rate.
+// (wgmma) come near that rate.  A call without the mask does
+// 4*B*Hq*Sq*Sk*D: at whisper-tiny's encoder (B=8, Hq=Hkv=6,
+// Sq=Sk=1500, D=64) 27.6 GFLOP, 28 us.
 //
 // bfloat16: a warp-specialised tensor-core kernel.  The TPU kernel walks
 // a sequential grid (B, Hq, S/bq, S/bk) and keeps (m, l, acc) in VMEM
@@ -29,14 +35,14 @@
 //   * K and V tiles of 128 rows stream through a 3-stage ring in shared
 //     memory with 128-byte swizzle (at D = 128: Q 32 KB + 3 x 64 KB,
 //     225 KB of the 227 KB a block may use), loaded by TMA from 3-D
-//     tensor maps (D, S, B*H): rows past S are zero-filled and never read
-//     from the next head; each stage has a K-full, a V-full and an empty
+//     tensor maps (D, Sq or Sk, B*H): rows past the end are zero-filled
+//     and never read from the next head; each stage has a K-full, a V-full and an empty
 //     mbarrier, so S = Q.K^T starts before V has landed;
 //   * S = Q.K^T is wgmma m64n128k16 with both operands K-major in shared
 //     memory (a 128-wide head is two 64-column swizzle boxes), float32
 //     sums; the scale 1/sqrt(D) (times log2 e, for exp2) is applied to
 //     the float32 scores; masks are applied only on tiles that cross the
-//     diagonal, the window's edge or S; row max and row sum are quad
+//     diagonal, the window's edge or Sk; row max and row sum are quad
 //     shuffles over the accumulator layout;
 //   * O += P.V is wgmma with A = P in registers (the float32 scores
 //     rounded to bf16 pairs in place) and B = the V tile, MN-major, read
@@ -126,7 +132,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hkv, int S, int causal, int window, float scale) {
+                       int Hkv, int Sq, int Sk, int causal, int window,
+                       float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * (D + 1);
@@ -139,12 +146,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int q0 = qt * BQ;
-  const T* qb = q + (static_cast<size_t>(b) * Hq + h) * S * D;
-  const T* kb = k + (static_cast<size_t>(b) * Hkv + hk) * S * D;
-  const T* vb = v + (static_cast<size_t>(b) * Hkv + hk) * S * D;
-  T* ob = o + (static_cast<size_t>(b) * Hq + h) * S * D;
+  const T* qb = q + (static_cast<size_t>(b) * Hq + h) * Sq * D;
+  const T* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const T* vb = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  T* ob = o + (static_cast<size_t>(b) * Hq + h) * Sq * D;
 
-  stage<T, D>(Qs, D + 1, qb, q0, BQ, S);
+  stage<T, D>(Qs, D + 1, qb, q0, BQ, Sq);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -156,15 +163,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // key tiles that hold a visible key for some query row of the block
-  int kt_end = (S + BK - 1) / BK;
+  int kt_end = (Sk + BK - 1) / BK;
   if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
   const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's K, V and P are consumed
-    stage<T, D>(Ks, D + 1, kb, k0, BK, S);
-    stage<T, D>(Vs, D, vb, k0, BK, S);
+    stage<T, D>(Ks, D + 1, kb, k0, BK, Sk);
+    stage<T, D>(Vs, D, vb, k0, BK, Sk);
     __syncthreads();
 
     float s[4][4];
@@ -193,7 +200,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < S && (!causal || qpos >= kpos) &&
+        ok[j] = kpos < Sk && (!causal || qpos >= kpos) &&
                 (window <= 0 || qpos - kpos < window);
         s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
@@ -237,7 +244,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float lsafe = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jd = 0; jd < NC; ++jd)
@@ -248,7 +255,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int S, int causal, int window,
+           int Hq, int Hkv, int Sq, int Sk, int causal, int window,
            cudaStream_t stream) {
   auto kern = flash_attention_kernel<T, D>;
   const size_t smem = smem_floats(D) * sizeof(float);
@@ -256,11 +263,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BQ - 1) / BQ, Hq, B);
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, S, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -505,7 +512,7 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // The online softmax of one score tile.  Masks (MASK: the tile crosses
-// the diagonal, the window's edge or S) set a score to -1e30; the rows'
+// the diagonal, the window's edge or Sk) set a score to -1e30; the rows'
 // running max m is kept scaled to the log2 domain, so a weight is one
 // FMA and one ex2 of the float32 score: 2^(s * scale_log2 - m).  Updates
 // m and this thread's part of the row sums l, writes P as bf16 pairs
@@ -517,7 +524,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2],
                                              uint32_t (&p)[BKV / 4],
                                              float (&m)[2], float (&l)[2],
                                              float (&corr)[2], int r0, int t,
-                                             int k0, int S, int causal,
+                                             int k0, int Sk, int causal,
                                              int window, float scale_log2) {
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -527,7 +534,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2],
       if (MASK) {
         const int row = r0 + 8 * (j >> 1);
         const int col = k0 + 8 * i + 2 * t + (j & 1);
-        const bool ok = col < S && (!causal || row >= col) &&
+        const bool ok = col < Sk && (!causal || row >= col) &&
                         (window <= 0 || row - col < window);
         if (!ok) sc[4 * i + j] = NEG_INF;
       }
@@ -566,8 +573,8 @@ __global__ void __launch_bounds__(NT, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int S,
-                   int causal, int window, float scale_log2) {
+                   __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
+                   int Sk, int causal, int window, float scale_log2) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -583,7 +590,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last tile first
 
   // key tiles that hold a visible key for some query row of the block
-  int kt_end = (S + BKV - 1) / BKV;
+  int kt_end = (Sk + BKV - 1) / BKV;
   if (causal) kt_end = min(kt_end, (q0 + BQ - 1) / BKV + 1);
   const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BKV : 0;
   const int n_tiles = kt_end - kt_begin;
@@ -636,9 +643,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
   const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
   const uint32_t q_wg = q_s + wg * 64 * ROW;
   // a tile needs masks where it crosses the diagonal, the window's edge
-  // or S, for some row of this warpgroup
+  // or Sk, for some row of this warpgroup
   auto masked = [&](int k0) {
-    return k0 + BKV > S || (causal && k0 + BKV - 1 > row_lo) ||
+    return k0 + BKV > Sk || (causal && k0 + BKV - 1 > row_lo) ||
            (window > 0 && row_lo + 63 - k0 >= window);
   };
 
@@ -651,10 +658,10 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
 
   auto softmax = [&](int k0, uint32_t (&p)[BKV / 4]) {
     if (masked(k0))
-      softmax_tile<true>(sc, p, m, l, corr, r0, t, k0, S, causal, window,
+      softmax_tile<true>(sc, p, m, l, corr, r0, t, k0, Sk, causal, window,
                          scale_log2);
     else
-      softmax_tile<false>(sc, p, m, l, corr, r0, t, k0, S, causal, window,
+      softmax_tile<false>(sc, p, m, l, corr, r0, t, k0, Sk, causal, window,
                           scale_log2);
   };
   // Tile it: its S = Q K^T is issued before tile it-1's O += P V, so its
@@ -718,13 +725,13 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
     finish(pa);
   }
 
-  __nv_bfloat16* ob = o + static_cast<size_t>(bh) * S * D;
+  __nv_bfloat16* ob = o + static_cast<size_t>(bh) * Sq * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = r0 + 8 * r;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float lsafe = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = ob + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
@@ -778,7 +785,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int BH,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int S, int causal, int window,
+           int Hq, int Hkv, int Sq, int Sk, int causal, int window,
            cudaStream_t stream) {
   auto kern = flash_attention_tc<D>;
   const int smem = static_cast<int>(Layout<D>::BYTES);
@@ -796,14 +803,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (dev < MAX_DEVICES) smem_set[dev].store(true);
   }
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, D, S, B * Hq, BQ) ||
-      !make_map(&km, k, D, S, B * Hkv, BKV) ||
-      !make_map(&vm, v, D, S, B * Hkv, BKV))
+  if (!make_map(&qm, q, D, Sq, B * Hq, BQ) ||
+      !make_map(&km, k, D, Sk, B * Hkv, BKV) ||
+      !make_map(&vm, v, D, Sk, B * Hkv, BKV))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
+  const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   kern<<<grid, NT, smem, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o),
-                                   Hq, Hkv, S, causal, window, scale_log2);
+                                   Hq, Hkv, Sq, Sk, causal, window,
+                                   scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -825,29 +833,32 @@ size_t flash_attention_smem_bytes(int D) {
   return fma > tcb ? fma : tcb;
 }
 
-// q (B,Hq,S,D), k/v (B,Hkv,S,D), o (B,Hq,S,D), all contiguous on the
+// q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D), o (B,Hq,Sq,D), all contiguous on the
 // current device, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
-// D in {64, 128}; Hq a multiple of Hkv.  bfloat16 runs the tensor-core
+// D in {64, 128}; Hq a multiple of Hkv; Sk >= 1, and Sk == Sq when
+// causal.  bfloat16 runs the tensor-core
 // kernel, float32 the FMA kernel.  Launches on `stream`, does not
 // synchronise, returns cudaGetLastError() (cudaErrorInvalidValue for a
 // D it does not take or a tensor map the driver refuses).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int Hq, int Hkv, int S, int D,
-                           int is_bf16, int causal, int window,
+                           void* o, int B, int Hq, int Hkv, int Sq, int Sk,
+                           int D, int is_bf16, int causal, int window,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (D == 64)
-      return tc::launch<64>(q, k, v, o, B, Hq, Hkv, S, causal, window, st);
+      return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
+                            st);
     if (D == 128)
-      return tc::launch<128>(q, k, v, o, B, Hq, Hkv, S, causal, window, st);
+      return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
+                             st);
   } else {
     if (D == 64)
-      return launch<float, 64>(q, k, v, o, B, Hq, Hkv, S, causal, window,
-                               st);
+      return launch<float, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
+                               window, st);
     if (D == 128)
-      return launch<float, 128>(q, k, v, o, B, Hq, Hkv, S, causal, window,
-                                st);
+      return launch<float, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
+                                window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,7 +28,7 @@ def _lib():
     if _LIB is None:
         lib = _build.load("flash_attention")
         lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
@@ -36,15 +36,28 @@ def _lib():
     return _LIB
 
 
-def _check(q, k, v):
+def _check_shapes(q, k, v, causal):
+    """(B, Hq, Hkv, Sq, Sk, D), or raise.  Keys may be more or fewer than
+    queries only without the causal mask: the reference model never asks
+    for causal Sq != Sk, and its two plain versions place the diagonal
+    differently there (``attention_naive`` aligns the ends,
+    ``attention_chunked`` the starts)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: q, k, v must be (B, H, S, D)")
-    B, Hq, S, D = q.shape
-    Hkv = k.shape[1]
-    if tuple(k.shape) != (B, Hkv, S, D) or tuple(v.shape) != tuple(k.shape):
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Hkv, Sk, D) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be (B, Hkv, S, D) with q "
+                         f"{tuple(v.shape)} must be (B, Hkv, Sk, D) with q "
                          f"{tuple(q.shape)}")
+    if causal and Sq != Sk:
+        raise ValueError(f"flash_attention: causal attention takes as many "
+                         f"keys as queries, got Sq={Sq}, Sk={Sk}")
+    return B, Hq, Hkv, Sq, Sk, D
+
+
+def _check(q, k, v, causal):
+    B, Hq, Hkv, Sq, Sk, D = _check_shapes(q, k, v, causal)
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of "
                          f"Hkv={Hkv}")
@@ -73,11 +86,12 @@ def _check(q, k, v):
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise RuntimeError("flash_attention kernel has no backward; call it "
                            "under torch.no_grad()")
-    return B, Hq, Hkv, S, D
+    return B, Hq, Hkv, Sq, Sk, D
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q (B,Hq,S,D), k/v (B,Hkv,S,D) -> (B,Hq,S,D) in q's dtype.
+    """q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D) -> (B,Hq,Sq,D) in q's dtype; Sk
+    may differ from Sq only when ``causal`` is false (cross-attention).
 
     CPU tensors go through :func:`attention_chunked`; CUDA tensors
     through the kernel, which takes contiguous float32 or bfloat16
@@ -85,10 +99,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """
     global LAUNCHES
     if q.device.type == "cpu":
+        _check_shapes(q, k, v, causal)
         return attention_chunked(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    B, Hq, Hkv, S, D = _check(q, k, v)
+    B, Hq, Hkv, Sq, Sk, D = _check(q, k, v, causal)
     lib = _lib()
     smem = lib.flash_attention_smem_bytes(D)
     limit = getattr(torch.cuda.get_device_properties(q.device),
@@ -97,14 +112,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: D={D} needs {smem} B of shared "
                          f"memory per block, the card allows {limit}")
     o = torch.empty_like(q)
-    if B == 0 or S == 0 or Hq == 0:
+    if B == 0 or Sq == 0 or Hq == 0:
         return o
+    if Sk == 0:
+        raise ValueError("flash_attention: no keys (Sk = 0)")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
-            Hkv, S, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
-            int(window), stream)
+            Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16),
+            int(bool(causal)), int(window), stream)
     _build.raise_on_error(lib, "flash_attention", err)
     LAUNCHES += 1
     return o

@@ -1,5 +1,6 @@
-"""Model building blocks: RMSNorm, RoPE, GQA attention, gated MLP,
-embeddings, and their initialisers.
+"""Model building blocks: RMSNorm, RoPE, GQA attention and Whisper's
+cross-attention, gated (SiLU) and GELU MLPs, embeddings, sinusoidal
+positions, and their initialisers.
 
 A port of ``repro.models.layers`` for one device (no sharding context).
 Parameters are plain dicts of tensors; the forward functions are pure
@@ -86,22 +87,27 @@ def _out_proj(o, w):
     return o.flatten(-2) @ w.reshape(H * Dh, d)
 
 
-def attention_fwd(p, x, *, window=0, rope_theta=10000.0):
-    """Causal full-sequence attention (prefill) at positions 0..S-1.
-    x (B,S,d) -> (out (B,S,d), (k, v) each (B,Hkv,S,D))."""
+def attention_fwd(p, x, *, causal=True, window=0, rope_theta=10000.0,
+                  use_rope=True):
+    """Full-sequence attention (prefill) at positions 0..S-1, causal or
+    not, with or without RoPE.  x (B,S,d) -> (out (B,S,d), (k, v) each
+    (B,Hkv,S,D))."""
     S = x.shape[1]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    q, k = rope(q, positions, rope_theta), rope(k, positions, rope_theta)
+    if use_rope:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None, :]
+        q, k = rope(q, positions, rope_theta), rope(k, positions, rope_theta)
     q = q.transpose(1, 2).contiguous()
     k = k.transpose(1, 2).contiguous()
     v = v.transpose(1, 2).contiguous()
-    o = flash_attention(q, k, v, causal=True, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     out = _out_proj(o.transpose(1, 2), p["wo"])
     return out, (k, v)
 
 
-def attention_decode(p, x, cache, pos, *, window=0, rope_theta=10000.0):
+def attention_decode(p, x, cache, pos, *, window=0, rope_theta=10000.0,
+                     use_rope=True):
     """One-token decode. x (B,1,d); cache dict(k, v (B,Hkv,Smax,D)),
     updated in place; pos (B,) int.  Returns (out (B,1,d), cache).
 
@@ -112,8 +118,9 @@ def attention_decode(p, x, cache, pos, *, window=0, rope_theta=10000.0):
     """
     B = x.shape[0]
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    q = rope(q, pos[:, None], rope_theta)
-    k = rope(k, pos[:, None], rope_theta)
+    if use_rope:
+        q = rope(q, pos[:, None], rope_theta)
+        k = rope(k, pos[:, None], rope_theta)
     Smax = cache["k"].shape[2]
     slot = pos % max(window, 1) if window > 0 else pos
     slot = torch.clamp(slot, max=Smax - 1).long()
@@ -128,6 +135,38 @@ def attention_decode(p, x, cache, pos, *, window=0, rope_theta=10000.0):
 
 
 # ---------------------------------------------------------------------------
+# Cross-attention (Whisper decoder): queries from the token stream, keys
+# and values from the fixed encoder output.  No RoPE: positions enter as
+# sinusoids added at the stack level.
+# ---------------------------------------------------------------------------
+def cross_kv(p, enc_out):
+    """The cross-attention K/V of the encoder output (B,Se,d): each
+    (B,Hkv,Se,D), contiguous."""
+    k = _proj(enc_out, p["wk"]).transpose(1, 2).contiguous()
+    v = _proj(enc_out, p["wv"]).transpose(1, 2).contiguous()
+    return k, v
+
+
+def cross_attention_fwd(p, x, enc_kv):
+    """x (B,S,d) against enc_kv = (k, v) each (B,Hkv,Se,D), not causal:
+    the prefill kernel with Sq = S and Sk = Se."""
+    q = _proj(x, p["wq"]).transpose(1, 2).contiguous()
+    k, v = enc_kv
+    o = flash_attention(q, k, v, causal=False)
+    return _out_proj(o.transpose(1, 2), p["wo"])
+
+
+def cross_attention_decode(p, x, cross_cache):
+    """One token x (B,1,d) against the whole fixed encoder K/V cache."""
+    B = x.shape[0]
+    q = _proj(x, p["wq"]).transpose(1, 2).contiguous()
+    k, v = cross_cache["k"], cross_cache["v"]
+    length = torch.full((B,), k.shape[2], dtype=torch.int32, device=x.device)
+    o = decode_attention(q, k, v, length)
+    return _out_proj(o.transpose(1, 2), p["wo"])
+
+
+# ---------------------------------------------------------------------------
 # Embeddings
 # ---------------------------------------------------------------------------
 def embedding_init(gen, vocab: int, d: int, dtype):
@@ -139,14 +178,42 @@ def embedding(table, tokens):
     return table[tokens.long()]
 
 
+def sinusoid(pos, d: int):
+    """Whisper's fixed position embedding of float positions ``pos``
+    (...,) -> (..., d) float32: [sin | cos] of ``pos * freqs``, the
+    frequencies ``exp(-log(10000) * i / max(d/2 - 1, 1))`` in float32
+    throughout (the log taken of a float32 10000, as the reference)."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=pos.device)
+    freqs = torch.exp(-torch.log(torch.tensor(10000.0, device=pos.device))
+                      * i / max(half - 1, 1))
+    ang = pos[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(S: int, d: int, device="cpu"):
+    """Whisper-style sinusoidal position embeddings (S, d) of 0..S-1,
+    float32."""
+    return sinusoid(torch.arange(S, device=device), d)
+
+
 # ---------------------------------------------------------------------------
-# Gated MLP (SiLU)
+# Gated MLP (SiLU) / GELU MLP
 # ---------------------------------------------------------------------------
-def mlp_init(gen, d, f, dtype):
-    return {"w_up": dense_init(gen, (d, f), dtype),
-            "w_down": dense_init(gen, (f, d), dtype, f),
-            "w_gate": dense_init(gen, (d, f), dtype)}
+def mlp_init(gen, d, f, dtype, gated=True):
+    p = {"w_up": dense_init(gen, (d, f), dtype),
+         "w_down": dense_init(gen, (f, d), dtype, f)}
+    if gated:
+        p["w_gate"] = dense_init(gen, (d, f), dtype)
+    return p
 
 
 def mlp_fwd(p, x):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """SiLU-gated where ``p`` has ``w_gate``, else GELU in its tanh form
+    (``jax.nn.gelu``'s default, not torch's exact erf)."""
+    h = x @ p["w_up"]
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"]) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["w_down"]

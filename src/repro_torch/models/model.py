@@ -1,28 +1,37 @@
-"""Top-level decoder-only LM: embeddings -> family stack -> head.
+"""Top-level LM: embeddings -> family stack -> head.
 
-A port of ``repro.models.model.LM`` for the dense and Mamba-2 (``ssm``)
-families (the others raise ``NotImplementedError`` naming their slice).
-The module owns its parameters, a nested dict of tensors on its device
-with the JAX package's layout (stacked ``(L, ...)`` layers,
-``wq (d, H, Dh)``, ``w_in (d, 2*d_inner + 2*N + H)`` and so on), in
-bfloat16 where ``cfg.param_dtype == "bfloat16"`` except the SSM's
-``A_log``, ``D`` and ``dt_bias``, which are float32 as in the reference.
+A port of ``repro.models.model.LM`` for the dense, MoE, Mamba-2
+(``ssm``) and encoder-decoder (``encdec``, Whisper-class) families; the
+hybrid and VLM families raise ``NotImplementedError`` naming their
+slice.  The module owns its parameters, a nested dict of tensors on its
+device with the JAX package's layout (stacked ``(L, ...)`` layers,
+``wq (d, H, Dh)``, ``w_in (d, 2*d_inner + 2*N + H)``, ``w_gate (E, d,
+f)`` and so on), in bfloat16 where ``cfg.param_dtype == "bfloat16"``
+except the SSM's ``A_log``, ``D`` and ``dt_bias`` and the MoE router,
+which are float32 as in the reference.
 
 API:
   LM(cfg, device).init(generator)   random weights drawn on the device
-  forward(batch)                    -> logits (B, S, Vp)
+  forward(batch, with_aux=False)    -> logits (B, S, Vp), or (logits,
+                                       aux) with the MoE load-balancing
+                                       loss (a float32 0 without MoE)
   prefill(batch, pad_to=)           -> (last logits (B, Vp), cache)
   decode_step(cache, batch)         -> (logits (B, Vp), cache), the cache
                                        updated in place
   init_cache(B, smax, dtype)        -> {"k", "v": (L, B, Hkv, Smax, D)}
-                                       (dense), {"ssm": (L, B, H, N, P)
-                                       float32, "conv": (L, B, K-1,
-                                       conv_dim) in ``dtype``} (ssm)
+                                       (dense, moe), {"ssm": (L, B, H,
+                                       N, P) float32, "conv": (L, B,
+                                       K-1, conv_dim)} (ssm), {"self":
+                                       {"k", "v"} with Smax slots,
+                                       "cross": {"k", "v"} with n_frames}
+                                       (encdec)
   param_count()
 
-``batch`` keys: ``tokens`` (B, S) int; ``token`` (B, 1) and ``pos``
-(B,) for a decode step.  :func:`lm_params_from_numpy` carries the JAX
-package's parameters (its pytree mapped to NumPy) into the port.
+``batch`` keys: ``tokens`` (B, S) int; ``frames`` (B, n_frames, d)
+(encdec: the stub audio embeddings, cast to the weights' dtype);
+``token`` (B, 1) and ``pos`` (B,) for a decode step.
+:func:`lm_params_from_numpy` carries the JAX package's parameters (its
+pytree mapped to NumPy) into the port.
 """
 from __future__ import annotations
 
@@ -31,9 +40,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
-from repro_torch.models.ssm import FLOAT32_KEYS, ssm_init_state
+
+# leaves the reference keeps in float32 whatever the weights' dtype
+FLOAT32_KEYS = SSM.FLOAT32_KEYS + MOE.FLOAT32_KEYS
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -53,8 +67,8 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, device="cpu"):
     """The JAX package's ``LM.init`` params, as a nested dict of NumPy
     arrays (``jax.tree.map(np.asarray, params)``), as the port's params
     on ``device``: in the config's dtype, except the leaves the
-    reference keeps in float32 (``ssm.FLOAT32_KEYS``), which stay
-    float32 bit for bit."""
+    reference keeps in float32 (``FLOAT32_KEYS``), which stay float32
+    bit for bit."""
     T.check_family(cfg)
     dt = param_dtype(cfg)
 
@@ -64,22 +78,31 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, device="cpu"):
         return _to_tensor(x, torch.float32 if key in FLOAT32_KEYS else dt,
                           device)
 
-    want = {"embed", "final_norm", "stack"} | (
+    body = {"enc", "dec", "enc_norm"} if cfg.family == "encdec" \
+        else {"stack"}
+    want = {"embed", "final_norm"} | body | (
         set() if cfg.tie_embeddings else {"lm_head"})
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: params have keys {sorted(tree)}, "
                          f"expected {sorted(want)}")
-    T.check_stack_keys(cfg, tree["stack"])
+    if cfg.family == "encdec":
+        ED.check_keys(cfg, tree)
+    else:
+        T.check_stack_keys(cfg, tree["stack"])
     return conv(tree)
 
 
 def _pad_cache_seq(cache, smax: int):
     """Zero-pad the k/v cache tensors (stacked (L,B,H,S,D)) to ``smax``
-    sequence slots.  Other leaves (the SSM and conv states) have no
-    sequence dimension and pass through untouched."""
+    sequence slots.  The cross-attention cache (Whisper's encoder K/V)
+    has a fixed size and is left as it is; other leaves (the SSM and
+    conv states) have no sequence dimension and pass through
+    untouched."""
     out = {}
     for name, x in cache.items():
-        if name in ("k", "v") and x.shape[3] < smax:
+        if isinstance(x, dict):
+            x = x if name == "cross" else _pad_cache_seq(x, smax)
+        elif name in ("k", "v") and x.shape[3] < smax:
             x = torch.nn.functional.pad(x, (0, 0, 0, smax - x.shape[3]))
         out[name] = x
     return out
@@ -109,7 +132,10 @@ class LM(torch.nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(
                 gen, (cfg.d_model, cfg.vocab_padded), dt)
-        params["stack"] = T.stack_init(gen, cfg, dt)
+        if cfg.family == "encdec":
+            params.update(ED.encdec_init(gen, cfg, dt))
+        else:
+            params["stack"] = T.stack_init(gen, cfg, dt)
         self.params = params
         return self
 
@@ -135,21 +161,40 @@ class LM(torch.nn.Module):
             return x @ self.params["embed"].t()
         return x @ self.params["lm_head"]
 
+    def _encode(self, batch):
+        frames = batch["frames"].to(device=self.device, dtype=self.dtype)
+        return ED.encode(self.params, frames, self.cfg)
+
     # --------------------------------------------------------------- forward
-    def forward(self, batch):
-        """tokens (B, S) -> logits (B, S, Vp)."""
+    def forward(self, batch, *, with_aux: bool = False):
+        """tokens (B, S) (and frames, encdec) -> logits (B, S, Vp); with
+        ``with_aux`` also the MoE auxiliary loss, the mean over layers
+        (a float32 0 for the other families), as the reference's
+        ``forward`` returns it."""
         x = self._embed(batch["tokens"])
-        x, _ = T.stack_fwd(self.params["stack"], x, self.cfg)
-        return self._head(x)
+        if self.cfg.family == "encdec":
+            x, _ = ED.decode_fwd(self.params, x, self._encode(batch),
+                                 self.cfg)
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        else:
+            x, _, aux = T.stack_fwd(self.params["stack"], x, self.cfg,
+                                    with_aux=with_aux)
+        logits = self._head(x)
+        return (logits, aux) if with_aux else logits
 
     # --------------------------------------------------------------- prefill
     def prefill(self, batch, *, pad_to: int | None = None):
-        """tokens (B, S) -> (logits of the last position (B, Vp), cache).
-        ``pad_to`` grows the cache to that many sequence slots so that
-        decode steps can append."""
+        """tokens (B, S) (and frames, encdec) -> (logits of the last
+        position (B, Vp), cache).  ``pad_to`` grows the self-attention
+        cache to that many sequence slots so that decode steps can
+        append."""
         x = self._embed(batch["tokens"])
-        x, cache = T.stack_fwd(self.params["stack"], x, self.cfg,
-                               collect_cache=True)
+        if self.cfg.family == "encdec":
+            x, cache = ED.decode_fwd(self.params, x, self._encode(batch),
+                                     self.cfg, collect_cache=True)
+        else:
+            x, cache, _ = T.stack_fwd(self.params["stack"], x, self.cfg,
+                                      collect_cache=True)
         logits = self._head(x[:, -1])
         if pad_to is not None:
             cache = _pad_cache_seq(cache, pad_to)
@@ -158,19 +203,25 @@ class LM(torch.nn.Module):
     # ----------------------------------------------------------- decode step
     def decode_step(self, cache, batch):
         """token (B, 1), pos (B,) -> (logits (B, Vp), cache); writes this
-        token's keys and values (dense) or the new SSM and conv states
-        (ssm) into ``cache`` in place."""
+        token's keys and values (dense, moe, encdec's self cache) or the
+        new SSM and conv states (ssm) into ``cache`` in place."""
         x = self._embed(batch["token"])                   # (B, 1, d)
         pos = batch["pos"].to(self.device)
-        x, cache = T.stack_decode(self.params["stack"], cache, x, pos,
-                                  self.cfg)
+        if self.cfg.family == "encdec":
+            x, cache = ED.decode_step(self.params, cache, x, pos, self.cfg)
+        else:
+            x, cache = T.stack_decode(self.params["stack"], cache, x, pos,
+                                      self.cfg)
         return self._head(x[:, 0]), cache
 
     # ------------------------------------------------------------ init_cache
     def init_cache(self, B: int, smax: int, dtype=torch.bfloat16):
         cfg = self.cfg
+        if cfg.family == "encdec":
+            return ED.init_cache(cfg, B, smax, dtype, self.device)
         if cfg.family == "ssm":                 # no sequence dimension
-            state = ssm_init_state(B, cfg.d_model, cfg, dtype, self.device)
+            state = SSM.ssm_init_state(B, cfg.d_model, cfg, dtype,
+                                       self.device)
             return {k: v.new_zeros((cfg.n_layers, *v.shape))
                     for k, v in state.items()}
         if cfg.window > 0:

@@ -159,6 +159,58 @@ def test_decode_is_prefill_row():
                                **TOL["float32"])
 
 
+# (B, Hq, Hkv, Sq, Sk, D): non-causal calls with other key counts, as
+# Whisper's cross-attention (queries from the tokens, keys from the
+# encoder frames): more keys, a ragged Sk over the 512-row block, fewer
+# keys, GQA
+CROSS = [(2, 4, 4, 5, 40, 16), (1, 6, 6, 77, 600, 16), (2, 4, 2, 33, 7, 8),
+         (1, 8, 2, 3, 150, 32)]
+
+
+def _cross_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed=7):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+    return ([jnp.asarray(a, getattr(jnp, dtype)) for a in arrs],
+            [torch.as_tensor(a).to(getattr(torch, dtype)) for a in arrs])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", CROSS)
+def test_attention_chunked_takes_other_key_counts(B, Hq, Hkv, Sq, Sk, D,
+                                                  dtype):
+    """Non-causal Sq != Sk against the JAX package's oracles (its model
+    calls ``attention_chunked`` so for cross-attention), and the
+    wrapper's plain version for CPU tensors, with no launch."""
+    j, t = _cross_inputs(B, Hq, Hkv, Sq, Sk, D, dtype)
+    want = jattn.attention_chunked(*j, causal=False, block_q=32)
+    got = attn.attention_chunked(*t, causal=False)
+    assert got.dtype == t[0].dtype and got.shape == t[0].shape
+    np.testing.assert_allclose(_t2np(got), _np(want), **TOL[dtype])
+    tol = TOL[dtype] if dtype == "float32" else NAIVE_BF16_TOL
+    np.testing.assert_allclose(_t2np(attn.attention_naive(*t, causal=False)),
+                               _np(jattn.attention_naive(*j, causal=False)),
+                               **tol)
+    before = fa_ops.LAUNCHES
+    np.testing.assert_array_equal(
+        _t2np(fa_ops.flash_attention(*t, causal=False)), _t2np(got))
+    assert fa_ops.LAUNCHES == before
+
+
+def test_causal_with_other_key_counts_is_refused():
+    """The plain versions disagree on causal Sq != Sk (``attention_naive``
+    aligns the ends, ``attention_chunked`` the starts) and the model
+    never asks for it: the wrapper raises on the CPU as on the card."""
+    _, (q, k, v) = _cross_inputs(1, 2, 2, 6, 9, 16, "float32")
+    na = attn.attention_naive(q, k, v, causal=True)
+    ch = attn.attention_chunked(q, k, v, causal=True)
+    assert not torch.allclose(na, ch, atol=1e-3)
+    with pytest.raises(ValueError, match="Sq=6, Sk=9"):
+        fa_ops.flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="must be"):
+        fa_ops.flash_attention(q, k, v[:, :, :-1], causal=False)
+
+
 def test_wrappers_reject_other_devices():
     _, (q, k, v) = _prefill_inputs(1, 2, 1, 8, 16, "float32")
     with pytest.raises(ValueError, match="unsupported device"):

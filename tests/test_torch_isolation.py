@@ -64,7 +64,8 @@ def test_every_module_imports_with_jax_blocked():
         "       'repro_torch.telemetry.profiler',\n"
         "       'repro_torch.telemetry.runmeta',\n"
         "       'repro_torch.telemetry.schema',\n"
-        "       'repro_torch.telemetry.sink'}\n"
+        "       'repro_torch.telemetry.sink',\n"
+        "       'repro_torch.models.encdec', 'repro_torch.models.moe'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -95,6 +96,8 @@ def test_default_device_entry_points_raise_without_gpu():
                lambda: serve.main(["--workload", "lm_light", "--batched"]),
                lambda: LM(cfg),
                lambda: LM(get_arch("mamba2-2.7b", smoke=True)),
+               lambda: LM(get_arch("whisper-tiny", smoke=True)),
+               lambda: LM(get_arch("olmoe-1b-7b", smoke=True)),
                lambda: ContinuousBatcher(LM(cfg)),
                lambda: rl_train.main(["--workload", "light"]),
                lambda: ddpg.init_ddpg(torch.Generator(), ddpg.DDPGConfig(

@@ -191,6 +191,46 @@ def test_flash_attention_kernel_matches_plain(card, B, Hq, Hkv, S, D, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [
+    # whisper-tiny's cross-attention prefill (4 prompt tokens against
+    # 1500 encoder frames), a ragged prompt, D = 128 with GQA, keys
+    # fewer than queries, keys inside one tile
+    (8, 6, 6, 4, 1500, 64), (2, 6, 6, 77, 1500, 64),
+    (2, 8, 2, 130, 1500, 128), (1, 4, 4, 300, 37, 128),
+    (3, 4, 2, 200, 129, 64), (1, 2, 1, 64, 5, 64)])
+def test_flash_attention_kernel_takes_fewer_or_more_keys(card, B, Hq, Hkv, Sq,
+                                                        Sk, D, dtype):
+    """Non-causal calls with Sk != Sq (cross-attention): query tiles
+    and the output over Sq rows, key tiles and the key mask over Sk."""
+    rng = np.random.default_rng(15)
+    q = _randn((B, Hq, Sq, D), dtype, rng)
+    k, v = (_randn((B, Hkv, Sk, D), dtype, rng) for _ in range(2))
+    before = fa_ops.LAUNCHES
+    got = fa_ops.flash_attention(q, k, v, causal=False)
+    want = fa_ref.attention_chunked(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert attn_err(got, want)[1] <= 1.0
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_causal_with_other_key_counts(card):
+    """Causal Sq != Sk has no agreed alignment (the plain versions
+    disagree): it raises before any launch."""
+    rng = np.random.default_rng(16)
+    q = _randn((1, 4, 8, 64), torch.bfloat16, rng)
+    k = _randn((1, 4, 12, 64), torch.bfloat16, rng)
+    before = fa_ops.LAUNCHES
+    with pytest.raises(ValueError, match="Sq=8, Sk=12"):
+        fa_ops.flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="Sq=8, Sk=12"):
+        fa_ops.flash_attention(q.cpu(), k.cpu(), k.cpu(), causal=True)
+    assert fa_ops.LAUNCHES == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,causal", [
     (2, 8, 4, 1000, 128, True), (1, 4, 2, 1000, 64, False),
     (1, 4, 1, 300, 128, False)])

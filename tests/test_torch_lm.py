@@ -193,9 +193,7 @@ def test_lm_params_from_numpy_checks_keys():
                                    "lm_head": np.zeros((2, 2))})
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "olmoe-1b-7b",
-                                  "jamba-v0.1-52b", "whisper-tiny",
-                                  "internvl2-76b"])
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "internvl2-76b"])
 def test_later_families_raise(name):
     with pytest.raises(NotImplementedError, match="slice"):
         LM(get_arch(name, smoke=True), device="cpu")
@@ -204,7 +202,9 @@ def test_later_families_raise(name):
 
 
 def test_hybrid_names_the_moe_slice():
-    with pytest.raises(NotImplementedError, match="MoE slice"):
+    with pytest.raises(NotImplementedError,
+                       match="hybrid slice .*Mamba-2 and MoE layers are "
+                             "ported, its super-block layout is not"):
         LM(get_arch("jamba-v0.1-52b", smoke=True), device="cpu")
 
 
