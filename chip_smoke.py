@@ -38,9 +38,11 @@ no result:
                         cross-attention prefill (non-causal, Sk = 1500
                         keys for Sq = 1500 and 4 queries), a ragged
                         cross call (Sq = 77), a float32 one with
-                        Sq != Sk, the olmoe-1b-7b prefill and
+                        Sq != Sk, the olmoe-1b-7b prefill,
                         whisper-tiny's decoder self-attention prefill
-                        (causal, 4 prompt tokens), each element within
+                        (causal, 4 prompt tokens) and the jamba-v0.1-52b
+                        (32 heads over 8, phase 30) and internvl2-76b
+                        (64 over 8, phase 33) prefills, each element within
                         ``kernels.attn_tolerance`` (one bf16 ulp plus
                         1.5e-2 of its row's RMS; 1e-4 in float32);
                         kernel (back to back, and replayed from a CUDA
@@ -55,7 +57,10 @@ no result:
                         whisper-tiny's self (132 slots, ragged) and
                         cross (1500 frames, full), olmoe-1b-7b's
                         (16 heads of 128, group 1) decode shape and its
-                        batcher's (phase 28: 16 slots of 512), and
+                        batcher's (phase 28: 16 slots of 512),
+                        jamba-v0.1-52b's (group 4) and internvl2-76b's
+                        (group 8) decode shapes and their batchers'
+                        (phases 31 and 34), and
                         four others (ragged lengths, a 32768-slot cache,
                         float32, short bf16 rows where one dropped key
                         fails the check), the same tolerance; kernel,
@@ -100,8 +105,10 @@ no result:
                         CPU's top-2 gap exceeds it;
 11. ``kernel:ssd_chunk``  the Mamba-2 SSD intra-chunk kernel against
                         ``ssd_intra_ref`` at the mamba2-2.7b prefill
-                        shape and two small ones (C = 16 and 64, head
-                        counts 7 and 9 that no 4-head group divides), in
+                        shape, two small ones (C = 16 and 64, head
+                        counts 7 and 9 that no 4-head group divides) and
+                        the jamba-v0.1-52b prefill's (N = 16, 128 heads
+                        in blocks of 32), in
                         two draws (decays kept above exp(-60) over a
                         chunk, and the model's range of A, which drives
                         them past the clip), each element within 1e-4 of
@@ -248,7 +255,45 @@ no result:
                         and logits within ``OLMOE_F32_TOL``, then in
                         bf16, every route flip a CPU near-tie (k-th and
                         (k+1)-th router logits within ``ROUTE_MARGIN``)
-                        and the rows without a flip within ``LM_TOL``.
+                        and the rows without a flip within ``LM_TOL``;
+30. ``lm:jamba_prefill_decode``  jamba-v0.1-52b at full width, cut to
+                        one super-block (8 of its 32 layers: 52 B
+                        parameters are 104 GB of bf16, over the card's
+                        80 GB; 7 Mamba-2 sublayers, one attention, 4
+                        MoE FFNs of 16 experts top-2, 13.3 B parameters
+                        with the embedding and head), bf16 weights drawn
+                        on the card from seed 0: prefill of 4 x 2048
+                        tokens, 32 greedy steps; exactly 1
+                        ``flash_attention`` and 7 ``ssd_chunk`` launches
+                        per prefill and 1 ``decode_gqa`` per step; the
+                        cache's shapes; prefill ms beside its bound
+                        (``prefill_bound``), decode p50/p99 beside one
+                        read of the weights, peak memory, profiled busy
+                        shares;
+31. ``lm:jamba_batcher``  ``ContinuousBatcher`` on it as phase 13 (8
+                        slots, 16 requests);
+32. ``lm:jamba_parity``  CPU (plain versions) against the card
+                        (kernels) sublayer by sublayer in float32, each
+                        sublayer fed the card's input to it and moved to
+                        the CPU alone (at most ~11 GB), its output and
+                        cache within ``SUBLAYER_F32_TOL`` with the MoE
+                        routes pinned; then the whole super-block in
+                        bf16 with the routes pinned, within
+                        ``JAMBA_TOL``; the host's free memory printed,
+                        and the phase fails on a host with too little;
+33. ``lm:vlm_prefill_decode``  internvl2-76b at full width, cut to 8 of
+                        its 80 layers (80 x 1.71 GB plus 4.2 GB of
+                        embedding and head are over 80 GB): prefill of
+                        4 x (256 stub patches, N(0, 1), + 1792 text
+                        tokens), 128 greedy steps from position 2048;
+                        exactly 8 ``flash_attention`` launches per
+                        prefill and 8 ``decode_gqa`` per step, as phase
+                        30 otherwise;
+34. ``lm:vlm_batcher``  the batcher on it, text only as the reference's
+                        (16 slots, 16 requests of 32 + 32 tokens);
+35. ``lm:vlm_parity``  its weights cut to 2 layers, CPU against card
+                        as phase 10 with the patches before the text,
+                        within ``LM_TOL``.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -282,8 +327,10 @@ TOL = 1e-4
 # GQA group 4 with a ragged S and float32 with odd S; then whisper-tiny's
 # encoder (phase 25: non-causal, 1500 frames) and cross-attention
 # prefill (4 prompt tokens against 1500 frames), a ragged cross call, a
-# float32 one with Sq != Sk, the olmoe-1b-7b prefill (phase 27) and
-# whisper-tiny's decoder self-attention prefill (its 4 prompt tokens)
+# float32 one with Sq != Sk, the olmoe-1b-7b prefill (phase 27),
+# whisper-tiny's decoder self-attention prefill (its 4 prompt tokens),
+# and the jamba-v0.1-52b (phase 30: 32 query heads over 8 KV heads) and
+# internvl2-76b (phase 33: 64 over 8, group 8) prefills
 FLASH_SHAPES = [(4, 16, 8, 2048, 2048, 128, True, 0, torch.bfloat16),
                 (1, 16, 8, 4096, 4096, 128, True, 1024, torch.bfloat16),
                 (2, 36, 36, 1024, 1024, 64, True, 0, torch.bfloat16),
@@ -294,12 +341,26 @@ FLASH_SHAPES = [(4, 16, 8, 2048, 2048, 128, True, 0, torch.bfloat16),
                 (2, 6, 6, 77, 1500, 64, False, 0, torch.bfloat16),
                 (3, 4, 2, 50, 333, 128, False, 0, torch.float32),
                 (4, 16, 16, 2048, 2048, 128, True, 0, torch.bfloat16),
-                (8, 6, 6, 4, 4, 64, True, 0, torch.bfloat16)]
-# (B, Hq, Hkv, S, D, lengths, dtype); the first is the internlm2-1.8b
-# decode of phase 8 halfway through its 128 steps, the last the
-# batcher's of phase 9 (16 slots of 512, lengths up to 96)
+                (8, 6, 6, 4, 4, 64, True, 0, torch.bfloat16),
+                (4, 32, 8, 2048, 2048, 128, True, 0, torch.bfloat16),
+                (4, 64, 8, 2048, 2048, 128, True, 0, torch.bfloat16)]
+# (B, Hq, Hkv, S, D, lengths, dtype); lengths an int (every row's),
+# "full", "ragged" or "batcher" (1 to 96); the first is the
+# internlm2-1.8b decode of phase 8 halfway through its 128 steps, the
+# sixth the batcher's of phase 9 (16 slots of 512)
 LM_B, LM_S, LM_PAD, LM_STEPS = 4, 2048, 2048 + 128, 128
-DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, "mid", torch.bfloat16),
+LM_MID = LM_S + LM_STEPS // 2
+# jamba-v0.1-52b at full width, one super-block: 8 of its 32 layers
+# (its 52 B parameters are 104 GB in bf16, over the card's 80 GB);
+# prefill 4 x 2048, 32 steps, the batcher as mamba2's
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+JB_B, JB_S, JB_STEPS = 4, 2048, 32
+# internvl2-76b at full width, 8 of its 80 layers (80 x 1.71 GB of
+# layers and 4.2 GB of embedding and head are over 80 GB); prefill
+# 4 x (256 stub patches + 1792 text tokens), 128 steps
+VLM_ARCH, VLM_LAYERS = "internvl2-76b", 8
+VL_B, VL_TXT, VL_STEPS = 4, 1792, 128
+DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, LM_MID, torch.bfloat16),
                  (32, 16, 8, 4096, 128, "ragged", torch.bfloat16),
                  (4, 16, 8, 32768, 128, "full", torch.bfloat16),
                  (3, 4, 4, 100, 64, "ragged", torch.float32),
@@ -310,9 +371,18 @@ DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, "mid", torch.bfloat16),
                  # olmoe-1b-7b's (phase 27) halfway through its steps
                  (8, 6, 6, 132, 64, "ragged", torch.bfloat16),
                  (8, 6, 6, 1500, 64, "full", torch.bfloat16),
-                 (4, 16, 16, LM_PAD, 128, "mid", torch.bfloat16),
+                 (4, 16, 16, LM_PAD, 128, LM_MID, torch.bfloat16),
                  # and olmoe-1b-7b's batcher (phase 28), as phase 9's
-                 (16, 16, 16, 512, 128, "batcher", torch.bfloat16)]
+                 (16, 16, 16, 512, 128, "batcher", torch.bfloat16),
+                 # jamba-v0.1-52b's decode (phase 30, group 4) halfway
+                 # through its 32 steps and its batcher's (phase 31: 8
+                 # slots of 128); internvl2-76b's (phase 33, group 8)
+                 # and its batcher's (phase 34: 16 slots of 512)
+                 (JB_B, 32, 8, JB_S + JB_STEPS, 128, JB_S + JB_STEPS // 2,
+                  torch.bfloat16),
+                 (8, 32, 8, 128, 128, "batcher", torch.bfloat16),
+                 (VL_B, 64, 8, LM_PAD, 128, LM_MID, torch.bfloat16),
+                 (16, 64, 8, 512, 128, "batcher", torch.bfloat16)]
 LM_ARCH = "internlm2-1.8b"
 # card (kernels) against CPU (plain versions), bf16 weights and
 # activations: the tolerance of the port against JAX on the CPU
@@ -340,9 +410,10 @@ OLMOE_F32_TOL = dict(atol=2e-3, rtol=1e-3, mean=2e-4)
 # and (k+1)-th logits are closer than this may pick another expert
 ROUTE_MARGIN = 0.05
 # (BC, C, N, H, P); the first is the mamba2-2.7b prefill of phase 12:
-# 4 prompts of 2048 tokens in chunks of 128, 80 heads of 64, state 128
+# 4 prompts of 2048 tokens in chunks of 128, 80 heads of 64, state 128;
+# the last jamba-v0.1-52b's (phase 30): 128 heads of 64, state 16
 SSD_SHAPES = [(MB_B * MB_S // 128, 128, 128, 80, 64), (6, 16, 32, 7, 16),
-              (5, 64, 128, 9, 64)]
+              (5, 64, 128, 9, 64), (JB_B * JB_S // 128, 128, 16, 128, 64)]
 SERVE_ARGS = ["--workload", "mixed", "--fleet", "paper6", "--hidden", "256",
               "--batched", "--streams", "32", "--requests", "32",
               "--scenario", "steady", "--rate-scale", "1.0",
@@ -700,11 +771,11 @@ def check_decode(ops, ref, CARD):
             q = torch.randn((B, Hq, 1, D), generator=gen, device="cuda").to(dt)
             k, v = (torch.randn((B, Hkv, S, D), generator=gen,
                                 device="cuda").to(dt) for _ in range(2))
-            if lengths == "full":
+            if isinstance(lengths, int):
+                length = torch.full((B,), lengths, dtype=torch.int32,
+                                    device="cuda")
+            elif lengths == "full":
                 length = torch.full((B,), S, dtype=torch.int32, device="cuda")
-            elif lengths == "mid":
-                length = torch.full((B,), LM_S + LM_STEPS // 2,
-                                    dtype=torch.int32, device="cuda")
             elif lengths == "batcher":
                 length = torch.randint(1, 97, (B,), generator=gen,
                                        device="cuda", dtype=torch.int32)
@@ -920,13 +991,16 @@ def lm_counts():
     return fa_ops, dec_ops
 
 
-def lm_from_seed(arch: str):
-    """``arch`` at full width and depth, bf16 weights drawn on the card
-    from seed 0."""
+def lm_from_seed(arch: str, n_layers: int | None = None):
+    """``arch`` at full width and depth (or its first ``n_layers``), bf16
+    weights drawn on the card from seed 0."""
     from repro_torch.configs import get_arch
     from repro_torch.models import LM
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return LM(get_arch(arch), device="cuda").init(gen)
+    return LM(cfg, device="cuda").init(gen)
 
 
 def check_ids(label, logits, toks, cfg):
@@ -989,12 +1063,15 @@ def profile_window(fn, label, CARD, top=6, share=None):
               f"(share {mine_us / dev_us:.4f})", flush=True)
 
 
-def timed_prefill_decode(prefill, decode, tokens, steps, extra=None):
+def timed_prefill_decode(prefill, decode, tokens, steps, extra=None,
+                         prefix=0):
     """One prefill of ``tokens`` (B, S) (with the batch keys ``extra``,
-    such as whisper's frames), then ``steps`` greedy decode steps, each
-    timed on the host clock and ended by a synchronise.  Returns
+    such as whisper's frames or the VLM's patches, of which ``prefix``
+    positions precede the text), then ``steps`` greedy decode steps,
+    each timed on the host clock and ended by a synchronise.  Returns
     (prefill_ms, step_ms, ids (B, steps + 1), logits, cache)."""
     B, S = tokens.shape
+    S += prefix
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill({"tokens": tokens, **(extra or {})})
@@ -1152,10 +1229,11 @@ def cast(tree, dtype):
     return tree.to(dtype)
 
 
-def parity_history(gpu, cpu, B, S, steps, extra=None, seed=4):
+def parity_history(gpu, cpu, B, S, steps, extra=None, seed=4, prefix=0):
     """Prefill of B x S tokens (with the batch keys ``extra``, on the
-    CPU), then ``steps`` teacher-forced decode steps, on the CPU (plain
-    versions) and on the card (kernels), in turns.  Returns
+    CPU, of which ``prefix`` positions precede the text, as the VLM's
+    patches), then ``steps`` teacher-forced decode steps, on the CPU
+    (plain versions) and on the card (kernels), in turns.  Returns
     [(kind, cpu logits, card logits on the CPU), ...] in float32."""
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(
@@ -1164,12 +1242,14 @@ def parity_history(gpu, cpu, B, S, steps, extra=None, seed=4):
     with torch.no_grad():
         for name, m in (("cpu", cpu), ("gpu", gpu)):
             out[name], caches[name] = m.prefill(
-                {"tokens": tokens[:, :S], **(extra or {})}, pad_to=S + steps)
+                {"tokens": tokens[:, :S], **(extra or {})},
+                pad_to=prefix + S + steps)
         history.append(("prefill", out["cpu"].float(),
                         out["gpu"].float().cpu()))
         for i in range(steps):          # teacher forcing: the given ids
             batch = {"token": tokens[:, S + i:S + i + 1],
-                     "pos": torch.full((B,), S + i, dtype=torch.int32)}
+                     "pos": torch.full((B,), prefix + S + i,
+                                       dtype=torch.int32)}
             for name, m in (("cpu", cpu), ("gpu", gpu)):
                 out[name], caches[name] = m.decode_step(caches[name], batch)
             history.append(("decode", out["cpu"].float(),
@@ -1758,6 +1838,457 @@ def olmoe_parity_phase(model_full, CARD, B=2, S=256, steps=16):
                          checked, B * (S + steps + 1), tol, CARD)
         del gpu, cpu
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Jamba (hybrid) and InternVL2 (VLM)
+# ---------------------------------------------------------------------------
+# the jamba sublayer parity in float32: OLMOE_F32_TOL, the flash and
+# decode kernels' float32 bounds and ssd_chunk's 3xTF32 (1e-4 of a
+# block's RMS) through one sublayer, float32 sums in another order
+SUBLAYER_F32_TOL = OLMOE_F32_TOL
+# the jamba super-block in bf16, routes pinned: MAMBA_TOL, set for two
+# Mamba-2 layers, over eight sublayers (seven Mamba-2): its bounds
+# grown as sqrt(8 / 2) = 2, rounding differences adding as a random walk
+JAMBA_TOL = dict(atol=0.3, rtol=0.04, mean=0.04)
+
+
+def host_free_gb() -> float:
+    """The host's available memory (``MemAvailable``), GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def layer_kinds(cfg) -> list[tuple[str, str]]:
+    """(mixer, ffn) of every layer of the stack, in order."""
+    from repro_torch.models import transformer as T
+    if cfg.family == "hybrid":
+        return T.sb_layout(cfg) * (cfg.n_layers // cfg.attn_every)
+    return [T._kinds(cfg)] * cfg.n_layers
+
+
+def prefill_bound(model, B, S) -> tuple[float, str, float]:
+    """Least time of a prefill of B x S positions (the VLM's patches
+    included): its bf16 matrix products (projections, MLPs, every
+    expert's capacity slots as the reference runs them, causal
+    attention, the patch projector, the last position's head) over the
+    bf16 peak plus each Mamba-2 layer's SSD intra-chunk bound
+    (``ssd_bound_ms``); or one read of the weights; whichever is larger.
+    Returns (ms, bound by, bf16 TFLOP)."""
+    from repro_torch.models import moe as MOE
+    cfg = model.cfg
+    d, D, T_ = cfg.d_model, cfg.head_dim, B * S
+    d_inner, H = cfg.ssm_expand * d, cfg.n_ssm_heads
+    mixer = {"attn": 2 * T_ * d * D * (2 * cfg.n_heads + 2 * cfg.n_kv)
+             + 4 * B * cfg.n_heads * D * S * (S + 1) / 2,
+             "ssm": 2 * T_ * d * (3 * d_inner + 2 * cfg.ssm_state + H)}
+    ffn = {"mlp": 2 * T_ * 3 * d * cfg.d_ff, "": 0}
+    if cfg.is_moe:
+        C = MOE.capacity(S, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        ffn["moe"] = (2 * B * cfg.n_experts * C * 3 * d * cfg.d_ff
+                      + 2 * T_ * d * cfg.n_experts)
+    kinds = layer_kinds(cfg)
+    flops = sum(mixer[m] + ffn[f] for m, f in kinds)
+    flops += 2 * B * d * cfg.vocab_padded
+    if cfg.family == "vlm":
+        flops += 2 * B * cfg.n_patches * cfg.vit_dim * d
+    chunk = cfg.ssd_chunk
+    ssd_ms = sum(m == "ssm" for m, _ in kinds) * (ssd_bound_ms(
+        B * -(-S // chunk), chunk, cfg.ssm_state, H, cfg.ssm_headdim)[0]
+        if H else 0.0)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3 + ssd_ms
+    t_bytes = model.param_count() * 2 / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops / 1e12
+
+
+def jamba_prefill_decode_phase(model, CARD):
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.models import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+    fa_ops, dec_ops = lm_counts()
+    cfg = model.cfg
+    nsb = cfg.n_layers // cfg.attn_every
+    kinds = layer_kinds(cfg)
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    n_ssm = len(kinds) - n_attn
+    pad = JB_S + JB_STEPS
+    prefill = make_prefill_step(model, pad_to=pad)
+    decode = make_decode_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab, (JB_B, JB_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    run = lambda steps: timed_prefill_decode(prefill, decode, tokens, steps)
+    run(2)                                      # warm-up: cuBLAS, kernels
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9     # weights and all
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+    prefill_ms, step_ms, toks, logits, cache = run(JB_STEPS)
+    launches = (fa_ops.LAUNCHES, dec_ops.LAUNCHES, ssd_ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a prefill: one flash per attention sublayer, one ssd_chunk per
+    # Mamba-2 sublayer; a step: one decode_gqa per attention sublayer
+    want = (n_attn, n_attn * JB_STEPS, n_ssm)
+    if launches != want:
+        raise AssertionError(f"lm:jamba_prefill_decode: launches "
+                             f"flash_attention, decode_gqa, ssd_chunk = "
+                             f"{launches}, expected {want}")
+    check_ids("lm:jamba_prefill_decode", logits, toks, cfg)
+    H, N, P = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_headdim
+    conv_dim = cfg.ssm_expand * cfg.d_model + 2 * N
+    want_shapes = {}
+    for i, (mixer, _) in enumerate(T.sb_layout(cfg)):
+        want_shapes[f"l{i}"] = (
+            {"k": (nsb, JB_B, cfg.n_kv, pad, cfg.head_dim),
+             "v": (nsb, JB_B, cfg.n_kv, pad, cfg.head_dim)}
+            if mixer == "attn" else
+            {"ssm": (nsb, JB_B, H, N, P),
+             "conv": (nsb, JB_B, cfg.ssm_conv - 1, conv_dim)})
+    shapes = {k: {n: tuple(x.shape) for n, x in c.items()}
+              for k, c in cache.items()}
+    if shapes != want_shapes or not all(
+            torch.isfinite(c["ssm"]).all() and c["ssm"].dtype ==
+            torch.float32 for c in cache.values() if "ssm" in c):
+        raise AssertionError(f"lm:jamba_prefill_decode: cache {shapes}")
+    with torch.no_grad(), moe_probe() as rec:
+        prefill({"tokens": tokens})
+    drop = rec["dropped"] / rec["assigned"]
+    with torch.no_grad():
+        profile_window(lambda: prefill({"tokens": tokens}), "jamba prefill",
+                       CARD, top=8, share="ssd_chunk")
+        pos = torch.full((JB_B,), JB_S, dtype=torch.int32, device="cuda")
+        tok = toks[:, :1]
+        profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})
+                                for _ in range(4)], "jamba 4 decode steps",
+                       CARD, top=8, share="decode_gqa")
+    n_params = model.param_count()
+    bound_ms, bound_by, tflop = prefill_bound(model, JB_B, JB_S)
+    dec_s = sum(step_ms) / 1e3
+    print(f"  lm:jamba_prefill_decode {cfg.name} cut to {cfg.n_layers} of "
+          f"32 layers ({nsb} super-block) params={n_params} B={JB_B} "
+          f"S={JB_S} pad_to={pad} steps={JB_STEPS} [{CARD}]: "
+          f"prefill_ms={prefill_ms:.2f} (bound {bound_ms:.2f}, {bound_by}: "
+          f"{tflop:.1f} TFLOP of bf16 products) "
+          f"decode_p50_ms={pct(step_ms, 50):.3f} "
+          f"decode_p99_ms={pct(step_ms, 99):.3f} "
+          f"decode_tokens_per_s={JB_B * JB_STEPS / dec_s:.1f} "
+          f"prefill_tokens_per_s={JB_B * JB_S / prefill_ms * 1e3:.0f} "
+          f"peak_mem_gb={peak_gb:.2f} (held before the run {held_gb:.2f}) "
+          f"launches flash_attention={launches[0]} decode_gqa={launches[1]} "
+          f"ssd_chunk={launches[2]} prefill_dropped_assignments="
+          f"{rec['dropped']} of {rec['assigned']} (share {drop:.4f}) "
+          f"step_weight_read_bound_ms={n_params * 2 / PEAK_BYTES * 1e3:.3f}",
+          flush=True)
+    return launches
+
+
+def jamba_batcher_phase(model, CARD):
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    _, dec_ops = lm_counts()
+    cfg = model.cfg
+    n_attn = sum(m == "attn" for m, _ in layer_kinds(cfg))
+    dec_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+    done, steps, wall = serve_batcher(model, n=16, n_slots=8, smax=128,
+                                      prompt_len=16, max_new=16)
+    n_tok = sum(len(r.tokens_out) for r in done)
+    if (dec_ops.LAUNCHES, ssd_ops.LAUNCHES) != (n_attn * steps, 0):
+        raise AssertionError(f"lm:jamba_batcher: decode_gqa, ssd_chunk "
+                             f"launched {dec_ops.LAUNCHES}, "
+                             f"{ssd_ops.LAUNCHES} times in {steps} steps")
+    print(f"  lm:jamba_batcher {cfg.name} slots=8 smax=128 [{CARD}]: "
+          f"requests={len(done)} tokens_out={n_tok} "
+          f"batched_decode_steps={steps} (prompt feeding included) "
+          f"wall_s={wall:.2f} tokens_out_per_s={n_tok / wall:.1f} "
+          f"ms_per_step={wall / steps * 1e3:.3f} "
+          f"decode_gqa launches={dec_ops.LAUNCHES}", flush=True)
+
+
+def hold(label, what, cpu, gpu, tol) -> float:
+    """``gpu`` (brought to the CPU) within ``tol`` of ``cpu``; returns
+    the largest difference."""
+    c, g = cpu.float(), gpu.float().cpu()
+    diff = (c - g).abs()
+    if c.shape != g.shape or not torch.allclose(
+            g, c, atol=tol["atol"], rtol=tol["rtol"]) or \
+            diff.mean().item() > tol["mean"]:
+        raise AssertionError(f"{label}: {what} differs by "
+                             f"{diff.max().item():.3e} (mean "
+                             f"{diff.mean().item():.3e})")
+    return diff.max().item()
+
+
+def snapshot(tree):
+    """A copy on the CPU, which later in-place writes do not reach."""
+    if isinstance(tree, dict):
+        return {k: snapshot(v) for k, v in tree.items()}
+    return tree.to("cpu", copy=True)
+
+
+def sublayer_inputs(model, tokens, S, steps):
+    """The card's bf16 prefill of tokens[:, :S] and ``steps``
+    teacher-forced decode steps, recording every sublayer's input:
+    (prefill inputs by sublayer, [step][sublayer] decode inputs)."""
+    from repro_torch.models import transformer as T
+    seen = {"fwd": [], "dec": []}
+    fwd, dec = T._layer_fwd, T._layer_decode
+
+    def rec_fwd(p, x, *a, **k):
+        seen["fwd"].append(x.clone())
+        return fwd(p, x, *a, **k)
+
+    def rec_dec(p, x, *a, **k):
+        seen["dec"].append(x.clone())
+        return dec(p, x, *a, **k)
+    B = tokens.shape[0]
+    T._layer_fwd, T._layer_decode = rec_fwd, rec_dec
+    try:
+        with torch.no_grad():
+            _, cache = model.prefill({"tokens": tokens[:, :S]},
+                                     pad_to=S + steps)
+            for i in range(steps):
+                model.decode_step(cache, {
+                    "token": tokens[:, S + i:S + i + 1],
+                    "pos": torch.full((B,), S + i, dtype=torch.int32)})
+    finally:
+        T._layer_fwd, T._layer_decode = fwd, dec
+    n = len(seen["fwd"])
+    return seen["fwd"], [seen["dec"][j * n:(j + 1) * n]
+                         for j in range(steps)]
+
+
+def jamba_parity_phase(model, CARD, B=1, S=128, steps=4):
+    """The full-width super-block, CPU (plain versions) against the card
+    (kernels), held in two ways, as a float32 copy of the whole
+    super-block (~51 GB) would not fit the host beside the rest:
+    sublayer by sublayer in float32, each fed the card's bf16 input to
+    it, its weights cast up and copied to the CPU one sublayer at a time
+    (at most a MoE sublayer's ~11 GB) and freed after it, its output and
+    the cache it writes (after the prefill of B x S and after each of
+    ``steps`` decode steps) within ``SUBLAYER_F32_TOL``, with the MoE
+    routes pinned to the CPU's and every flip a near-tie; then the
+    whole super-block in bf16 (a ~27 GB copy) with the routes pinned,
+    its logits within ``JAMBA_TOL``.  Fails, without running, on a host
+    with too little memory free."""
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.models import LM
+    from repro_torch.models import transformer as T
+    fa_ops, dec_ops = lm_counts()
+    cfg = model.cfg
+    label = "lm:jamba_parity"
+    need_gb = 1.5 * model.param_count() * 2 / 1e9
+    free_gb = host_free_gb()
+    print(f"  {label}: host memory available {free_gb:.1f} GB, the "
+          f"super-block's bf16 copy needs {need_gb / 1.5:.1f} GB (asked "
+          f"{need_gb:.1f})", flush=True)
+    if free_gb < need_gb:
+        raise AssertionError(f"{label}: the host has {free_gb:.1f} GB free, "
+                             f"the parity needs {need_gb:.1f} GB")
+    rng = np.random.default_rng(4)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, S + steps)).astype(np.int32))
+    x_fwd, x_dec = sublayer_inputs(model, tokens, S, steps)
+    layout = T.sb_layout(cfg)
+    if len(x_fwd) != len(layout) * cfg.n_layers // cfg.attn_every:
+        raise AssertionError(f"{label}: {len(x_fwd)} sublayer inputs")
+    for i, (mixer, ffn) in enumerate(layout):
+        t0 = time.perf_counter()
+        p_gpu = cast(T.layer_params(model.params["stack"][f"l{i}"], 0),
+                     torch.float32)
+        p_cpu = to_cpu(p_gpu)
+        sides = {}
+        with torch.no_grad(), moe_probe(pin=True) as rec:
+            for side, p in (("cpu", p_cpu), ("cuda", p_gpu)):  # CPU first
+                x = x_fwd[i].to(side, torch.float32)
+                y, c, _ = T._layer_fwd(p, x, cfg, mixer, ffn)
+                if mixer == "attn":
+                    c = {k: torch.nn.functional.pad(v, (0, 0, 0, steps))
+                         for k, v in c.items()}
+                outs, caches = [y.cpu()], [snapshot(c)]
+                for j in range(steps):
+                    pos = torch.full((B,), S + j, dtype=torch.int32,
+                                     device=side)
+                    y, c = T._layer_decode(p, x_dec[j][i].to(side,
+                                                            torch.float32),
+                                           c, pos, cfg, mixer, ffn)
+                    outs.append(y.cpu())
+                caches.append(snapshot(c))
+                sides[side] = (outs, caches)
+        primary = []
+        if ffn == "moe":
+            primary, downstream, _ = route_flips(
+                rec, 1, [0] + list(range(S, S + steps)))
+            if primary and max(primary) >= ROUTE_MARGIN:
+                raise AssertionError(f"{label}: l{i} flipped a route at a "
+                                     f"CPU margin of {max(primary):.4f}")
+        worst = max(hold(label, f"l{i} output {n}", c, g, SUBLAYER_F32_TOL)
+                    for n, (c, g) in enumerate(zip(*(sides[k][0]
+                                                     for k in sides))))
+        cworst = max(hold(label, f"l{i} cache {k} ({when})", c[k], g[k],
+                          SUBLAYER_F32_TOL)
+                     for when, c, g in zip(("prefill", "last step"),
+                                           *(sides[k][1] for k in sides))
+                     for k in c)
+        print(f"  {label} l{i} ({mixer}, {ffn}) in float32, CPU vs "
+              f"[{CARD}]: max_abs_err output={worst:.3e} cache="
+              f"{cworst:.3e} (atol {SUBLAYER_F32_TOL['atol']}, rtol "
+              f"{SUBLAYER_F32_TOL['rtol']}, mean "
+              f"{SUBLAYER_F32_TOL['mean']}) route flips pinned: "
+              f"{len(primary)} (CPU margins "
+              f"{[round(m, 6) for m in primary]}) host free "
+              f"{host_free_gb():.1f} GB in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        del p_gpu, p_cpu, sides
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the whole super-block in bf16, the card's routes the CPU's
+    cpu = LM(cfg, device="cpu")
+    cpu.params = to_cpu(model.params)
+    n_moe = sum(f == "moe" for _, f in layer_kinds(cfg))
+    n_attn = sum(m == "attn" for m, _ in layer_kinds(cfg))
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+    with moe_probe(pin=True) as rec:
+        history = parity_history(model, cpu, B, S, steps)
+    launches = (fa_ops.LAUNCHES, dec_ops.LAUNCHES, ssd_ops.LAUNCHES)
+    if launches != (n_attn, n_attn * steps, len(layer_kinds(cfg)) - n_attn):
+        raise AssertionError(f"{label}: launches {launches}")
+    primary, downstream, _ = route_flips(rec, n_moe,
+                                         [0] + list(range(S, S + steps)))
+    worst, mean_err, checked, _ = parity_check(history, JAMBA_TOL, label)
+    parity_print(f"{label} routes pinned", f"{cfg.name} super-block in "
+                 f"bf16, B={B} S={S} + {steps} teacher-forced steps; the "
+                 f"card's own routes would have flipped {len(primary)} "
+                 f"primary (CPU margins {[round(m, 5) for m in primary]}) "
+                 f"and {downstream} downstream of "
+                 f"{B * (S + steps) * n_moe} token-layers; host free "
+                 f"{host_free_gb():.1f} GB", worst, mean_err, checked,
+                 B * (steps + 1), JAMBA_TOL, CARD)
+    if primary and max(primary) >= ROUTE_MARGIN:
+        raise AssertionError(f"{label}: a primary route flip at a CPU "
+                             f"margin of {max(primary):.4f}")
+    del cpu, history
+    gc.collect()
+
+
+def vlm_patches(cfg, B, seed, device):
+    """Stub patch embeddings: N(0, 1), as the JAX smoke tests draw them
+    (tests/test_models_smoke.py)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((B, cfg.n_patches, cfg.vit_dim), generator=gen,
+                       device=device)
+
+
+def vlm_prefill_decode_phase(model, CARD):
+    from repro_torch.models import make_decode_step, make_prefill_step
+    fa_ops, dec_ops = lm_counts()
+    cfg = model.cfg
+    S = cfg.n_patches + VL_TXT
+    pad = S + VL_STEPS
+    prefill = make_prefill_step(model, pad_to=pad)
+    decode = make_decode_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    tokens = torch.randint(0, cfg.vocab, (VL_B, VL_TXT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    patches = vlm_patches(cfg, VL_B, 0, "cuda")
+    run = lambda steps: timed_prefill_decode(
+        prefill, decode, tokens, steps, {"patches": patches},
+        prefix=cfg.n_patches)
+    run(2)                                      # warm-up: cuBLAS, kernels
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9     # weights and all
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    prefill_ms, step_ms, toks, logits, cache = run(VL_STEPS)
+    launches = (fa_ops.LAUNCHES, dec_ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != (cfg.n_layers, cfg.n_layers * VL_STEPS):
+        raise AssertionError(f"lm:vlm_prefill_decode: launches "
+                             f"flash_attention={launches[0]} decode_gqa="
+                             f"{launches[1]}, expected {cfg.n_layers} and "
+                             f"{cfg.n_layers * VL_STEPS}")
+    check_ids("lm:vlm_prefill_decode", logits, toks, cfg)
+    if tuple(cache["k"].shape) != (cfg.n_layers, VL_B, cfg.n_kv, pad,
+                                   cfg.head_dim):
+        raise AssertionError(f"lm:vlm_prefill_decode: cache "
+                             f"{tuple(cache['k'].shape)}")
+    with torch.no_grad():
+        profile_window(lambda: prefill({"tokens": tokens,
+                                        "patches": patches}),
+                       "internvl2 prefill", CARD, share="flash_attention")
+        pos = torch.full((VL_B,), S, dtype=torch.int32, device="cuda")
+        tok = toks[:, :1]
+        profile_window(lambda: [decode(cache, {"token": tok, "pos": pos})
+                                for _ in range(4)],
+                       "internvl2 4 decode steps", CARD, share="decode_gqa")
+    n_params = model.param_count()
+    bound_ms, bound_by, tflop = prefill_bound(model, VL_B, S)
+    kv_bytes = 2 * cfg.n_layers * VL_B * cfg.n_kv * cfg.head_dim * 2 * (
+        S + VL_STEPS // 2)
+    dec_s = sum(step_ms) / 1e3
+    print(f"  lm:vlm_prefill_decode {cfg.name} cut to {cfg.n_layers} of 80 "
+          f"layers params={n_params} B={VL_B} patches={cfg.n_patches} "
+          f"text={VL_TXT} pad_to={pad} steps={VL_STEPS} [{CARD}]: "
+          f"prefill_ms={prefill_ms:.2f} (bound {bound_ms:.2f}, {bound_by}: "
+          f"{tflop:.1f} TFLOP of bf16 products) "
+          f"decode_p50_ms={pct(step_ms, 50):.3f} "
+          f"decode_p99_ms={pct(step_ms, 99):.3f} "
+          f"decode_tokens_per_s={VL_B * VL_STEPS / dec_s:.1f} "
+          f"prefill_tokens_per_s={VL_B * S / prefill_ms * 1e3:.0f} "
+          f"peak_mem_gb={peak_gb:.2f} (held before the run {held_gb:.2f}) "
+          f"launches flash_attention={launches[0]} "
+          f"decode_gqa={launches[1]} "
+          f"step_weight_read_bound_ms={n_params * 2 / PEAK_BYTES * 1e3:.3f} "
+          f"(+kv {kv_bytes / PEAK_BYTES * 1e3:.3f})", flush=True)
+    return launches
+
+
+def vlm_batcher_phase(model, CARD):
+    """Text-only requests, as the reference's batcher passes no
+    patches."""
+    _, dec_ops = lm_counts()
+    cfg = model.cfg
+    dec_ops.LAUNCHES = 0
+    done, steps, wall = serve_batcher(model, n=16, n_slots=16, smax=512,
+                                      prompt_len=32, max_new=32)
+    launches = dec_ops.LAUNCHES
+    n_tok = sum(len(r.tokens_out) for r in done)
+    if launches != cfg.n_layers * steps:
+        raise AssertionError(f"lm:vlm_batcher: decode_gqa launched "
+                             f"{launches} times in {steps} steps")
+    print(f"  lm:vlm_batcher {cfg.name} (text only) slots=16 smax=512 "
+          f"[{CARD}]: requests={len(done)} tokens_out={n_tok} "
+          f"batched_decode_steps={steps} (prompt feeding included) "
+          f"wall_s={wall:.2f} tokens_out_per_s={n_tok / wall:.1f} "
+          f"ms_per_step={wall / steps * 1e3:.3f} "
+          f"decode_gqa launches={launches}", flush=True)
+
+
+def vlm_parity_phase(model_full, CARD, B=2, S=64, steps=8):
+    """The internvl2 weights cut to 2 layers, CPU (plain versions)
+    against the card (kernels), as phase 10, with the stub patches
+    before the text: prefill of B x (n_patches + S), then ``steps``
+    teacher-forced steps from position n_patches + S, within
+    ``LM_TOL``."""
+    fa_ops, dec_ops = lm_counts()
+    gpu, cpu = cut_models(model_full)
+    cfg = cpu.cfg
+    patches = vlm_patches(cfg, B, 1, "cpu")
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    history = parity_history(gpu, cpu, B, S, steps, {"patches": patches},
+                             prefix=cfg.n_patches)
+    if (fa_ops.LAUNCHES, dec_ops.LAUNCHES) != (2, 2 * steps):
+        raise AssertionError(f"lm:vlm_parity: launches {fa_ops.LAUNCHES}, "
+                             f"{dec_ops.LAUNCHES}")
+    worst, mean_err, checked, _ = parity_check(history, LM_TOL,
+                                               "lm:vlm_parity")
+    parity_print("lm:vlm_parity", f"{cfg.name} cut to {cfg.n_layers} "
+                 f"layers, B={B} patches={cfg.n_patches} S={S} + {steps} "
+                 f"teacher-forced steps", worst, mean_err, checked,
+                 B * (steps + 1), LM_TOL, CARD)
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2876,6 +3407,22 @@ def main() -> int:
     with phase("lm:olmoe_parity"):
         olmoe_parity_phase(model, CARD)
     free(model)
+    with phase("lm:jamba_prefill_decode"):
+        model = lm_from_seed(JAMBA_ARCH, JAMBA_LAYERS)
+        jb_launches = jamba_prefill_decode_phase(model, CARD)
+    with phase("lm:jamba_batcher"):
+        jamba_batcher_phase(model, CARD)
+    with phase("lm:jamba_parity"):
+        jamba_parity_phase(model, CARD)
+    free(model)
+    with phase("lm:vlm_prefill_decode"):
+        model = lm_from_seed(VLM_ARCH, VLM_LAYERS)
+        vl_launches = vlm_prefill_decode_phase(model, CARD)
+    with phase("lm:vlm_batcher"):
+        vlm_batcher_phase(model, CARD)
+    with phase("lm:vlm_parity"):
+        vlm_parity_phase(model, CARD)
+    free(model)
     with phase("kernel:lstm_cell"):
         cell_info = check_cell(cell_ops, cell_ref, CARD)
     with phase("train:rl_train"):
@@ -2904,17 +3451,17 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/"
                       "flash_attention.py:87",
-             launches=lm_launches[0] + wh_launches[0] + moe_launches[0],
-             **fa_info),
+             launches=lm_launches[0] + wh_launches[0] + moe_launches[0]
+             + jb_launches[0] + vl_launches[0], **fa_info),
         dict(name="decode_gqa", route="cuda",
              source="src/repro_torch/csrc/decode_gqa.cu",
              replaces="src/repro/kernels/decode_gqa/decode_gqa.py:65",
-             launches=lm_launches[1] + wh_launches[1] + moe_launches[1],
-             **dec_info),
+             launches=lm_launches[1] + wh_launches[1] + moe_launches[1]
+             + jb_launches[1] + vl_launches[1], **dec_info),
         dict(name="ssd_chunk", route="cuda",
              source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:45",
-             launches=ssd_launches, **ssd_info),
+             launches=ssd_launches + jb_launches[2], **ssd_info),
         dict(name="lstm_cell", route="cuda",
              source="src/repro_torch/csrc/lstm_cell.cu",
              replaces="src/repro/kernels/lstm_cell/lstm_cell.py:51",

@@ -1,12 +1,16 @@
 """Top-level LM: embeddings -> family stack -> head.
 
-A port of ``repro.models.model.LM`` for the dense, MoE, Mamba-2
-(``ssm``) and encoder-decoder (``encdec``, Whisper-class) families; the
-hybrid and VLM families raise ``NotImplementedError`` naming their
-slice.  The module owns its parameters, a nested dict of tensors on its
-device with the JAX package's layout (stacked ``(L, ...)`` layers,
-``wq (d, H, Dh)``, ``w_in (d, 2*d_inner + 2*N + H)``, ``w_gate (E, d,
-f)`` and so on), in bfloat16 where ``cfg.param_dtype == "bfloat16"``
+A port of ``repro.models.model.LM`` for every family of the reference:
+dense, MoE, Mamba-2 (``ssm``), the Jamba-class hybrid (super-blocks of
+Mamba-2 and attention sublayers, MLP or MoE FFNs), the encoder-decoder
+(``encdec``, Whisper-class) and the InternVL2-class VLM (a projected
+patch-embedding prefix before the dense decoder; the vision tower is a
+stub in the reference too).  The module owns its parameters, a nested
+dict of tensors on its device with the JAX package's layout (stacked
+``(L, ...)`` layers, ``wq (d, H, Dh)``, ``w_in (d, 2*d_inner + 2*N +
+H)``, ``w_gate (E, d, f)``, the hybrid's ``{"l0": ..., "l{P-1}":
+...}`` stacked over super-blocks, the VLM's ``patch_proj (vit_dim,
+d)`` and so on), in bfloat16 where ``cfg.param_dtype == "bfloat16"``
 except the SSM's ``A_log``, ``D`` and ``dt_bias`` and the MoE router,
 which are float32 as in the reference.
 
@@ -19,17 +23,23 @@ API:
   decode_step(cache, batch)         -> (logits (B, Vp), cache), the cache
                                        updated in place
   init_cache(B, smax, dtype)        -> {"k", "v": (L, B, Hkv, Smax, D)}
-                                       (dense, moe), {"ssm": (L, B, H,
-                                       N, P) float32, "conv": (L, B,
-                                       K-1, conv_dim)} (ssm), {"self":
-                                       {"k", "v"} with Smax slots,
-                                       "cross": {"k", "v"} with n_frames}
-                                       (encdec)
+                                       (dense, moe, vlm), {"ssm": (L, B,
+                                       H, N, P) float32, "conv": (L, B,
+                                       K-1, conv_dim)} (ssm), {"l{i}":
+                                       sublayer i's k/v or ssm/conv with
+                                       the super-blocks leading}
+                                       (hybrid), {"self": {"k", "v"} with
+                                       Smax slots, "cross": {"k", "v"}
+                                       with n_frames} (encdec)
   param_count()
 
 ``batch`` keys: ``tokens`` (B, S) int; ``frames`` (B, n_frames, d)
 (encdec: the stub audio embeddings, cast to the weights' dtype);
-``token`` (B, 1) and ``pos`` (B,) for a decode step.
+``patches`` (B, n_patches, vit_dim) (vlm: the stub patch embeddings,
+cast to the weights' dtype, projected and put before the text, so the
+sequence is n_patches + S long and positions run over all of it);
+``token`` (B, 1) and ``pos`` (B,) for a decode step (the VLM decodes
+text only, as the dense family).
 :func:`lm_params_from_numpy` carries the JAX package's parameters (its
 pytree mapped to NumPy) into the port.
 """
@@ -81,7 +91,8 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, device="cpu"):
     body = {"enc", "dec", "enc_norm"} if cfg.family == "encdec" \
         else {"stack"}
     want = {"embed", "final_norm"} | body | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if cfg.tie_embeddings else {"lm_head"}) | (
+        {"patch_proj"} if cfg.family == "vlm" else set())
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: params have keys {sorted(tree)}, "
                          f"expected {sorted(want)}")
@@ -93,11 +104,12 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, device="cpu"):
 
 
 def _pad_cache_seq(cache, smax: int):
-    """Zero-pad the k/v cache tensors (stacked (L,B,H,S,D)) to ``smax``
-    sequence slots.  The cross-attention cache (Whisper's encoder K/V)
-    has a fixed size and is left as it is; other leaves (the SSM and
-    conv states) have no sequence dimension and pass through
-    untouched."""
+    """Zero-pad the k/v cache tensors (stacked (L,B,H,S,D)), at any
+    depth of the cache dict (the hybrid's attention sublayer), to
+    ``smax`` sequence slots.  The cross-attention cache (Whisper's
+    encoder K/V) has a fixed size and is left as it is; other leaves
+    (the SSM and conv states) have no sequence dimension and pass
+    through untouched."""
     out = {}
     for name, x in cache.items():
         if isinstance(x, dict):
@@ -136,6 +148,9 @@ class LM(torch.nn.Module):
             params.update(ED.encdec_init(gen, cfg, dt))
         else:
             params["stack"] = T.stack_init(gen, cfg, dt)
+        if cfg.family == "vlm":
+            params["patch_proj"] = L.dense_init(
+                gen, (cfg.vit_dim, cfg.d_model), dt)
         self.params = params
         return self
 
@@ -161,17 +176,27 @@ class LM(torch.nn.Module):
             return x @ self.params["embed"].t()
         return x @ self.params["lm_head"]
 
+    def _inputs(self, batch):
+        """The decoder's input sequence: the token embeddings, after the
+        projected patches for the VLM."""
+        x = self._embed(batch["tokens"])
+        if self.cfg.family != "vlm":
+            return x
+        patches = batch["patches"].to(device=self.device, dtype=self.dtype)
+        return torch.cat([patches @ self.params["patch_proj"], x], dim=1)
+
     def _encode(self, batch):
         frames = batch["frames"].to(device=self.device, dtype=self.dtype)
         return ED.encode(self.params, frames, self.cfg)
 
     # --------------------------------------------------------------- forward
     def forward(self, batch, *, with_aux: bool = False):
-        """tokens (B, S) (and frames, encdec) -> logits (B, S, Vp); with
-        ``with_aux`` also the MoE auxiliary loss, the mean over layers
-        (a float32 0 for the other families), as the reference's
-        ``forward`` returns it."""
-        x = self._embed(batch["tokens"])
+        """tokens (B, S) (and frames, encdec; patches, vlm) -> logits
+        (B, S, Vp) (B, n_patches + S, Vp for the VLM); with
+        ``with_aux`` also the MoE auxiliary loss, summed over layers
+        and divided by ``n_layers`` (a float32 0 without MoE), as the
+        reference's ``forward`` returns it."""
+        x = self._inputs(batch)
         if self.cfg.family == "encdec":
             x, _ = ED.decode_fwd(self.params, x, self._encode(batch),
                                  self.cfg)
@@ -184,11 +209,11 @@ class LM(torch.nn.Module):
 
     # --------------------------------------------------------------- prefill
     def prefill(self, batch, *, pad_to: int | None = None):
-        """tokens (B, S) (and frames, encdec) -> (logits of the last
-        position (B, Vp), cache).  ``pad_to`` grows the self-attention
-        cache to that many sequence slots so that decode steps can
-        append."""
-        x = self._embed(batch["tokens"])
+        """tokens (B, S) (and frames, encdec; patches, vlm) -> (logits
+        of the last position (B, Vp), cache).  ``pad_to`` grows the
+        self-attention cache to that many sequence slots so that decode
+        steps can append."""
+        x = self._inputs(batch)
         if self.cfg.family == "encdec":
             x, cache = ED.decode_fwd(self.params, x, self._encode(batch),
                                      self.cfg, collect_cache=True)
@@ -203,8 +228,10 @@ class LM(torch.nn.Module):
     # ----------------------------------------------------------- decode step
     def decode_step(self, cache, batch):
         """token (B, 1), pos (B,) -> (logits (B, Vp), cache); writes this
-        token's keys and values (dense, moe, encdec's self cache) or the
-        new SSM and conv states (ssm) into ``cache`` in place."""
+        token's keys and values (dense, moe, vlm, encdec's self cache,
+        the hybrid's attention sublayers) or the new SSM and conv states
+        (ssm, the hybrid's Mamba-2 sublayers) into ``cache`` in
+        place."""
         x = self._embed(batch["token"])                   # (B, 1, d)
         pos = batch["pos"].to(self.device)
         if self.cfg.family == "encdec":
@@ -219,13 +246,24 @@ class LM(torch.nn.Module):
         cfg = self.cfg
         if cfg.family == "encdec":
             return ED.init_cache(cfg, B, smax, dtype, self.device)
-        if cfg.family == "ssm":                 # no sequence dimension
-            state = SSM.ssm_init_state(B, cfg.d_model, cfg, dtype,
-                                       self.device)
-            return {k: v.new_zeros((cfg.n_layers, *v.shape))
-                    for k, v in state.items()}
         if cfg.window > 0:
             smax = min(smax, cfg.window)        # sliding-window ring buffer
-        shape = (cfg.n_layers, B, cfg.n_kv, smax, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+        def attn_cache(n):
+            shape = (n, B, cfg.n_kv, smax, cfg.head_dim)
+            return {k: torch.zeros(shape, dtype=dtype, device=self.device)
+                    for k in ("k", "v")}
+
+        def ssm_cache(n):                       # no sequence dimension
+            state = SSM.ssm_init_state(B, cfg.d_model, cfg, dtype,
+                                       self.device)
+            return {k: v.new_zeros((n, *v.shape)) for k, v in state.items()}
+
+        if cfg.family == "ssm":
+            return ssm_cache(cfg.n_layers)
+        if cfg.family == "hybrid":
+            nsb = cfg.n_layers // cfg.attn_every
+            return {f"l{i}": attn_cache(nsb) if mixer == "attn"
+                    else ssm_cache(nsb)
+                    for i, (mixer, _) in enumerate(T.sb_layout(cfg))}
+        return attn_cache(cfg.n_layers)

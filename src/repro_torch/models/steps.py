@@ -1,6 +1,8 @@
 """Serving step factories: batch prefill and one greedy decode step, as
-``repro.models.steps.make_prefill_step`` / ``make_decode_step``.  The
-training step is ported with the LM-training slice."""
+``repro.models.steps.make_prefill_step`` / ``make_decode_step``, for
+every family: the prefill passes the batch through as it is (whisper's
+``frames``, the VLM's ``patches``).  The training step is ported with
+the LM-training slice."""
 from __future__ import annotations
 
 import torch

@@ -1,16 +1,19 @@
-"""Decoder stacks of the dense, MoE and Mamba-2 (``ssm``) families: a
-loop over layers whose parameters are stacked with a leading layer
-dimension ``(L, ...)``, as in ``repro.models.transformer`` (where the
-loop is a ``lax.scan``).  A dense layer is attention + gated MLP, a MoE
-layer attention + the MoE FFN (``models/moe.py``); an SSM layer is a
-Mamba-2 mixer with no FFN.  The encoder-decoder family has its own
-stack (``models/encdec.py``).
+"""Decoder stacks of the dense, MoE, Mamba-2 (``ssm``), VLM and hybrid
+(Jamba) families: a loop over layers whose parameters are stacked with
+a leading layer dimension ``(L, ...)``, as in
+``repro.models.transformer`` (where the loop is a ``lax.scan``).  A
+dense (or VLM) layer is attention + gated MLP, a MoE layer attention +
+the MoE FFN (``models/moe.py``); an SSM layer is a Mamba-2 mixer with
+no FFN.  The hybrid stacks super-blocks of ``attn_every`` sublayers
+``{"l0": ..., "l{P-1}": ...}`` (:func:`sb_layout`), each stacked over
+the ``n_layers // attn_every`` super-blocks.  The encoder-decoder
+family has its own stack (``models/encdec.py``).
 
-The Jamba hybrid and the VLM are ported with later slices and raise
-``NotImplementedError``.  Caches for serving are dicts of stacked
-tensors: ``k``/``v`` ``(L, B, Hkv, S, D)`` for the dense and MoE
-families, ``ssm`` ``(L, B, H, N, P)`` and ``conv`` ``(L, B, K-1,
-conv_dim)`` for the SSM family.
+Caches for serving are dicts of stacked tensors: ``k``/``v`` ``(L, B,
+Hkv, S, D)`` for the dense, MoE and VLM families, ``ssm`` ``(L, B, H,
+N, P)`` and ``conv`` ``(L, B, K-1, conv_dim)`` for the SSM family, and
+for the hybrid one such dict per sublayer, ``{"l{i}": ...}``, with the
+super-blocks as the leading dimension.
 """
 from __future__ import annotations
 
@@ -21,15 +24,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-FAMILIES = ("dense", "moe", "ssm", "encdec")
-LATER = {
-    "hybrid": "the hybrid slice (jamba-v0.1-52b: its Mamba-2 and MoE "
-              "layers are ported, its super-block layout is not)",
-    "vlm": "the VLM slice (internvl2-76b)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # parameter keys of one layer, of its mixer and of its FFN, by kind
 LAYER_KEYS = {("attn", "mlp"): {"mixer", "norm1", "ffn", "norm2"},
               ("attn", "moe"): {"mixer", "norm1", "ffn", "norm2"},
+              ("ssm", "mlp"): {"mixer", "norm1", "ffn", "norm2"},
+              ("ssm", "moe"): {"mixer", "norm1", "ffn", "norm2"},
               ("ssm", ""): {"mixer", "norm1"}}
 MIXER_KEYS = {"attn": {"wq", "wk", "wv", "wo"},
               "ssm": {"w_in", "conv_w", "A_log", "D", "dt_bias", "norm",
@@ -38,35 +38,56 @@ FFN_KEYS = {"mlp": {"w_up", "w_down", "w_gate"}, "moe": MOE.KEYS}
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family this package does not run yet."""
+    """Raise for a family the reference does not know."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is ported with "
-            f"{LATER.get(cfg.family, 'a later slice')}; this package runs "
-            f"the {', '.join(FAMILIES)} families")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"families are {', '.join(FAMILIES)}")
 
 
 def _kinds(cfg: ArchConfig) -> tuple[str, str]:
-    """(mixer, ffn) kind of every layer: ("ssm", "") for Mamba-2 (no
-    FFN), ("attn", "moe") for the MoE family, ("attn", "mlp") for the
-    dense family."""
+    """(mixer, ffn) kind of every layer of a homogeneous stack: ("ssm",
+    "") for Mamba-2 (no FFN), ("attn", "moe") for the MoE family,
+    ("attn", "mlp") for the dense and VLM families."""
     if cfg.family == "ssm":
         return "ssm", ""
     return "attn", ("moe" if cfg.is_moe else "mlp")
 
 
-def check_stack_keys(cfg: ArchConfig, stack) -> None:
-    """Raise unless the stacked layer params ``stack`` have the keys of
-    the family's layers, mixers and FFNs."""
-    mixer, ffn = _kinds(cfg)
-    checks = [("layer", stack, LAYER_KEYS[(mixer, ffn)]),
-              ("mixer", stack.get("mixer", {}), MIXER_KEYS[mixer])]
+def sb_layout(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """(mixer, ffn) kind of each sublayer of a hybrid super-block:
+    attention at ``attn_index`` and Mamba-2 elsewhere; the MoE FFN
+    where ``i % moe_every == 1`` (with experts), else the MLP."""
+    return [("attn" if i == cfg.attn_index else "ssm",
+             "moe" if cfg.is_moe and i % cfg.moe_every == 1 else "mlp")
+            for i in range(cfg.attn_every)]
+
+
+def _check_layer_keys(cfg: ArchConfig, where: str, layer, mixer: str,
+                      ffn: str) -> None:
+    checks = [("layer", layer, LAYER_KEYS[(mixer, ffn)]),
+              ("mixer", layer.get("mixer", {}), MIXER_KEYS[mixer])]
     if ffn:
-        checks.append(("ffn", stack.get("ffn", {}), FFN_KEYS[ffn]))
+        checks.append(("ffn", layer.get("ffn", {}), FFN_KEYS[ffn]))
     for what, got, want in checks:
         if set(got) != want:
-            raise ValueError(f"{cfg.name}: {what} params have keys "
+            raise ValueError(f"{cfg.name}: {where}{what} params have keys "
                              f"{sorted(got)}, expected {sorted(want)}")
+
+
+def check_stack_keys(cfg: ArchConfig, stack) -> None:
+    """Raise unless the stacked layer params ``stack`` have the keys of
+    the family's layers, mixers and FFNs (for the hybrid, of every
+    sublayer ``l0 .. l{P-1}`` of the super-block)."""
+    if cfg.family != "hybrid":
+        _check_layer_keys(cfg, "", stack, *_kinds(cfg))
+        return
+    layout = sb_layout(cfg)
+    want = {f"l{i}" for i in range(len(layout))}
+    if set(stack) != want:
+        raise ValueError(f"{cfg.name}: super-block params have keys "
+                         f"{sorted(stack)}, expected {sorted(want)}")
+    for i, (mixer, ffn) in enumerate(layout):
+        _check_layer_keys(cfg, f"l{i} ", stack[f"l{i}"], mixer, ffn)
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +120,21 @@ def stack_trees(trees):
 
 
 def stack_init(gen, cfg: ArchConfig, dtype):
-    check_family(cfg)
-    mixer, ffn = _kinds(cfg)
-    return stack_trees([layer_init(gen, cfg, mixer, ffn, dtype)
-                        for _ in range(cfg.n_layers)])
+    """Layer params stacked over layers; for the hybrid (the
+    reference's ``hybrid_init``) ``{"l{i}": sublayer i's params stacked
+    over the super-blocks}``."""
+    if cfg.family != "hybrid":
+        mixer, ffn = _kinds(cfg)
+        return stack_trees([layer_init(gen, cfg, mixer, ffn, dtype)
+                            for _ in range(cfg.n_layers)])
+    P = cfg.attn_every
+    if cfg.n_layers % P:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of attn_every {P}")
+    layout = sb_layout(cfg)
+    return stack_trees([{f"l{i}": layer_init(gen, cfg, mixer, ffn, dtype)
+                         for i, (mixer, ffn) in enumerate(layout)}
+                        for _ in range(cfg.n_layers // P)])
 
 
 def layer_params(params, i: int):
@@ -161,32 +193,55 @@ def _layer_decode(p, x, cache, pos, cfg: ArchConfig, mixer: str, ffn: str):
 # ---------------------------------------------------------------------------
 # stacks
 # ---------------------------------------------------------------------------
+def _walk(params, cfg: ArchConfig, caches=None):
+    """Every layer in order as (cache key, params, cache slice or None,
+    mixer, ffn): key None in a homogeneous stack, ``"l{i}"`` for
+    sublayer i of a hybrid super-block (the reference's
+    ``hybrid_fwd`` / ``hybrid_decode``).  Slices are views, so a decode
+    writes into ``caches``."""
+    if cfg.family != "hybrid":
+        mixer, ffn = _kinds(cfg)
+        for i in range(cfg.n_layers):
+            yield (None, layer_params(params, i),
+                   None if caches is None else layer_params(caches, i),
+                   mixer, ffn)
+        return
+    layout = sb_layout(cfg)
+    for sb in range(cfg.n_layers // cfg.attn_every):
+        sbp = layer_params(params, sb)
+        sbc = None if caches is None else layer_params(caches, sb)
+        for i, (mixer, ffn) in enumerate(layout):
+            key = f"l{i}"
+            yield (key, sbp[key], None if sbc is None else sbc[key], mixer,
+                   ffn)
+
+
 def stack_fwd(params, x, cfg: ArchConfig, collect_cache: bool = False,
               with_aux: bool = False):
-    """x (B,S,d) -> (x, stacked cache or None, aux): with ``with_aux``
-    aux is the mean of the layers' MoE auxiliary losses, a float32 0
-    without MoE; else None, and no MoE layer computes it."""
-    check_family(cfg)
-    mixer, ffn = _kinds(cfg)
-    caches = []
+    """x (B,S,d) -> (x, stacked cache or None, aux).  The cache is
+    stacked over layers, or for the hybrid ``{"l{i}": sublayer i's cache
+    stacked over super-blocks}``.  With ``with_aux`` aux is the sum of
+    the MoE layers' auxiliary losses over ``n_layers`` (a float32 0
+    without MoE); else None, and no MoE layer computes it."""
+    caches = {}
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if with_aux else None)
-    for i in range(cfg.n_layers):
-        x, cache, a = _layer_fwd(layer_params(params, i), x, cfg, mixer,
-                                 ffn, with_aux)
+    for key, p, _, mixer, ffn in _walk(params, cfg):
+        x, cache, a = _layer_fwd(p, x, cfg, mixer, ffn, with_aux)
         if a is not None:
             aux = aux + a
         if collect_cache:
-            caches.append(cache)
-    return (x, (stack_trees(caches) if collect_cache else None),
+            caches.setdefault(key, []).append(cache)
+    if collect_cache:
+        caches = {k: stack_trees(v) for k, v in caches.items()}
+        if cfg.family != "hybrid":
+            caches = caches[None]
+    return (x, caches if collect_cache else None,
             aux / cfg.n_layers if with_aux else None)
 
 
 def stack_decode(params, caches, x, pos, cfg: ArchConfig):
     """One token through every layer; ``caches`` is updated in place."""
-    check_family(cfg)
-    mixer, ffn = _kinds(cfg)
-    for i in range(cfg.n_layers):
-        x, _ = _layer_decode(layer_params(params, i), x,
-                             layer_params(caches, i), pos, cfg, mixer, ffn)
+    for _, p, cache, mixer, ffn in _walk(params, cfg, caches):
+        x, _ = _layer_decode(p, x, cache, pos, cfg, mixer, ffn)
     return x, caches

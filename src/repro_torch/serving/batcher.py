@@ -6,9 +6,12 @@ Fixed-slot continuous batching: ``n_slots`` concurrent sequences share
 one decode step; new requests are prefilled into free slots; finished
 sequences free their slot at once (no batch barrier).  The cache is
 preallocated on the model's device by ``model.init_cache``: a
-``(L, n_slots, Hkv, smax, D)`` K/V pair for the dense family, the SSM
-and conv states ``(L, n_slots, ...)`` for Mamba-2; per-slot positions
-advance independently.
+``(L, n_slots, Hkv, smax, D)`` K/V pair for the dense, MoE and VLM
+families, the SSM and conv states ``(L, n_slots, ...)`` for Mamba-2,
+one of either per sublayer for the hybrid; per-slot positions advance
+independently.  The batcher knows no family.  It passes no ``frames``
+or ``patches``, as the reference's does not: whisper decodes against
+a zero cross cache, and a VLM request is text only.
 
 ``add`` prefills a prompt token by token through full batched decode
 steps.  While it does, the other slots re-run their last token at their
@@ -16,7 +19,8 @@ last position.  For attention that rewrites the same cache slot with
 the same values; for an SSM it advances the slot's state once more.  A
 slot's SSM and conv state are not reset when a new request takes it.
 Both are the reference's behaviour, kept as they are, so Mamba-2 token
-streams depend on the slots' history.
+streams, and the hybrid's through its Mamba-2 sublayers, depend on the
+slots' history.
 """
 from __future__ import annotations
 

@@ -175,7 +175,15 @@ def _randn(shape, dtype, rng):
     (2, 4, 2, 129, 128, True, 0, torch.bfloat16),
     (1, 8, 2, 777, 128, True, 0, torch.bfloat16),
     (1, 4, 2, 700, 128, True, 200, torch.bfloat16),
-    (2, 4, 2, 333, 64, False, 0, torch.bfloat16)])
+    (2, 4, 2, 333, 64, False, 0, torch.bfloat16),
+    # jamba-v0.1-52b's heads (32 over 8 KV heads, group 4) and
+    # internvl2-76b's (64 over 8, group 8: query head h reads KV head
+    # h // 8 on the TMA path), D = 128, causal, at short S; group 8 with
+    # one KV head and a ragged S; the float32 kernel at group 8
+    (2, 32, 8, 256, 128, True, 0, torch.bfloat16),
+    (2, 64, 8, 256, 128, True, 0, torch.bfloat16),
+    (1, 8, 1, 333, 128, True, 0, torch.bfloat16),
+    (1, 16, 2, 200, 128, True, 0, torch.float32)])
 def test_flash_attention_kernel_matches_plain(card, B, Hq, Hkv, S, D, causal,
                                               window, dtype):
     rng = np.random.default_rng(3)
@@ -257,7 +265,12 @@ def test_flash_attention_kernel_rescales_across_tiles(card, B, Hq, Hkv, S, D,
     (3, 4, 4, 100, 64, torch.float32),
     (2, 32, 2, 333, 64, torch.bfloat16),
     (2, 8, 1, 999, 128, torch.float32),
-    (16, 16, 8, 64, 128, torch.bfloat16)])
+    (16, 16, 8, 64, 128, torch.bfloat16),
+    # jamba-v0.1-52b's and internvl2-76b's decode heads (groups 4 and
+    # 8 at D = 128), and group 8 in float32
+    (4, 32, 8, 300, 128, torch.bfloat16),
+    (4, 64, 8, 300, 128, torch.bfloat16),
+    (2, 16, 2, 150, 128, torch.float32)])
 def test_decode_gqa_kernel_matches_plain(card, B, Hq, Hkv, S, D, dtype):
     rng = np.random.default_rng(4)
     q = _randn((B, Hq, 1, D), dtype, rng)
@@ -391,7 +404,13 @@ def _ssd_inputs(BC, C, N, H, P, decay, seed=8):
                                         (6, 16, 32, 7, 16),
                                         (5, 64, 128, 9, 64),
                                         (3, 32, 64, 5, 32),
-                                        (2, 128, 16, 3, 16)])
+                                        (2, 128, 16, 3, 16),
+                                        # jamba-v0.1-52b's N = 16 at its
+                                        # 128 heads of 64: a few chunks,
+                                        # and its prefill's 64, where the
+                                        # blocks take 32 heads each
+                                        (4, 128, 16, 128, 64),
+                                        (64, 128, 16, 128, 64)])
 def test_ssd_chunk_kernel_matches_plain(card, BC, C, N, H, P, decay):
     args = _ssd_inputs(BC, C, N, H, P, decay)
     before = ssd_ops.LAUNCHES

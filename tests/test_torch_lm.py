@@ -193,19 +193,36 @@ def test_lm_params_from_numpy_checks_keys():
                                    "lm_head": np.zeros((2, 2))})
 
 
-@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "internvl2-76b"])
-def test_later_families_raise(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        LM(get_arch(name, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        lm_params_from_numpy(get_arch(name, smoke=True), {})
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_every_smoke_config_builds_and_runs(name):
+    """Every family of the reference runs in the port: each smoke
+    config builds an LM on the CPU, draws its weights and runs a
+    forward to finite logits of the reference's shape."""
+    cfg = get_arch(name, smoke=True)
+    model = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (1, 5)).astype(np.int32))}
+    S = 5
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (1, cfg.n_frames, cfg.d_model)).astype(np.float32) * 0.1)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.as_tensor(rng.standard_normal(
+            (1, cfg.n_patches, cfg.vit_dim)).astype(np.float32))
+        S += cfg.n_patches
+    logits = model.forward(batch)
+    assert logits.shape == (1, S, cfg.vocab_padded)
+    assert torch.isfinite(logits.float()).all()
 
 
-def test_hybrid_names_the_moe_slice():
-    with pytest.raises(NotImplementedError,
-                       match="hybrid slice .*Mamba-2 and MoE layers are "
-                             "ported, its super-block layout is not"):
-        LM(get_arch("jamba-v0.1-52b", smoke=True), device="cpu")
+def test_an_unknown_family_is_refused():
+    cfg = dataclasses.replace(get_arch("internlm2-1.8b", smoke=True),
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        LM(cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        lm_params_from_numpy(cfg, {})
 
 
 # ---------------------------------------------------------------------------

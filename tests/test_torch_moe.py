@@ -219,9 +219,11 @@ def _flips(rec):
     return np.stack(flips).any(0)
 
 
-def _close(got, want, dtype, exempt=None):
+def _close(got, want, dtype, exempt=None, slack=None):
     """``exempt``: bool over the leading dims of the logits that may
-    differ because a route flipped at or before them."""
+    differ because a route flipped at or before them.  ``slack``: a
+    difference the reference makes itself on these elements (shaped as
+    ``want``), added to each bf16 bound and its mean to the mean's."""
     got = got.float().numpy()
     want = _np(want)
     assert got.shape == want.shape
@@ -232,8 +234,11 @@ def _close(got, want, dtype, exempt=None):
     keep = np.ones(got.shape[:-1], bool) if exempt is None \
         else ~np.broadcast_to(np.asarray(exempt), got.shape[:-1])
     assert keep.any(), "every logit is exempt"
-    np.testing.assert_allclose(got[keep], want[keep], atol=0.1, rtol=0.02)
-    assert np.abs(got[keep] - want[keep]).mean() < 0.01
+    slack = np.zeros_like(want) if slack is None else np.asarray(slack)
+    diff, slack = np.abs(got - want)[keep], slack[keep]
+    over = diff - (0.1 + 0.02 * np.abs(want[keep]) + slack)
+    assert (over <= 0).all(), f"{(over > 0).sum()} beyond, by {over.max()}"
+    assert diff.mean() < 0.01 + slack.mean()
 
 
 def test_params_carry_over_with_a_float32_router(pair):
@@ -395,3 +400,42 @@ def test_batcher_streams_match_jax():
     assert [r.rid for r in done] == [r.rid for r in jdone]
     for r, jr in zip(done, jdone):
         assert r.tokens_out == jr.tokens_out, r.rid
+
+
+def test_mixtral_past_its_window_matches_jax():
+    """mixtral-smoke (a 32-token window) in float32 with capacity for
+    every assignment (cf 4 = E): a prompt of S = 40, which the
+    windowed prefill cuts, padded to 48 slots, then 20 decode steps
+    whose slots ``pos % window`` wrap over the cache the prefill wrote
+    (the reference's windowed decode after a longer prefill, ROADMAP
+    C "Facts"); logits and k/v caches against JAX's at every step."""
+    name, S_, pad, steps = "mixtral-8x7b", 40, 48, 20
+    cf = dict(capacity_factor=4.0)
+    jmodel = jax_build_model(dataclasses.replace(
+        jax_get_arch(name, smoke=True), **cf))
+    params = jmodel.init(jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(get_arch(name, smoke=True), **cf)
+    assert cfg.window == 32 < S_ and cfg.n_experts == 4
+    model = LM(cfg, device="cpu").load_numpy(jax.tree.map(np.asarray, params))
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab, (B, S_)).astype(np.int32)
+    jl, jc = jmodel.prefill(params, {"tokens": jnp.asarray(toks)}, Ctx(),
+                            pad_to=pad)
+    logits, cache = model.prefill({"tokens": torch.as_tensor(toks)},
+                                  pad_to=pad)
+    _close(logits, jl, "float32")
+    assert cache["k"].shape == jc["k"].shape == (
+        cfg.n_layers, B, cfg.n_kv, pad, cfg.head_dim)
+    decode = make_decode_step(model)
+    # traced once, not once a step
+    jdecode = jax.jit(lambda c, b: jmodel.decode_step(params, c, b, Ctx()))
+    for step in range(steps):
+        tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+        pos = np.full((B,), S_ + step, np.int32)
+        jl, jc = jdecode(jc, {"token": jnp.asarray(tok),
+                              "pos": jnp.asarray(pos)})
+        _, logits, cache = decode(cache, {"token": torch.as_tensor(tok),
+                                          "pos": torch.as_tensor(pos)})
+        _close(logits, jl, "float32")
+        for key in ("k", "v"):
+            _close(cache[key], jc[key], "float32")
