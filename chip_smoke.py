@@ -94,7 +94,7 @@ no result:
                         prefill gives ``flash_attention``'s share of its
                         kernel time;
 9. ``lm:batcher``       ``ContinuousBatcher`` at full width, 16 slots,
-                        smax 512, 48 requests of 32 prompt and 64 new
+                        smax 512, 32 requests of 32 prompt and 64 new
                         tokens; all served, 24 ``decode_gqa`` launches
                         per batched decode step;
 10. ``lm:parity``       the same weights cut to 2 layers, on the CPU
@@ -249,7 +249,7 @@ no result:
                         ``decode_gqa`` per step; the share of the
                         prefill's assignments that capacity dropped;
 28. ``lm:olmoe_batcher``  ``ContinuousBatcher`` on olmoe as phase 9
-                        (16 slots, 48 requests);
+                        (16 slots, 32 requests);
 29. ``lm:olmoe_parity``  the olmoe weights cut to 2 layers, CPU against
                         card as phase 10: in float32 with equal routes
                         and logits within ``OLMOE_F32_TOL``, then in
@@ -273,7 +273,10 @@ no result:
 31. ``lm:jamba_batcher``  ``ContinuousBatcher`` on it as phase 13 (8
                         slots, 16 requests);
 32. ``lm:jamba_parity``  CPU (plain versions) against the card
-                        (kernels) sublayer by sublayer in float32, each
+                        (kernels) sublayer by sublayer in float32 on the
+                        first sublayer of each kind (l0 ssm + mlp, l1
+                        ssm + moe, l4 attn + mlp; the depth is cut to
+                        leave the training phases their time), each
                         sublayer fed the card's input to it and moved to
                         the CPU alone (at most ~11 GB), its output and
                         cache within ``SUBLAYER_F32_TOL`` with the MoE
@@ -293,7 +296,49 @@ no result:
                         (16 slots, 16 requests of 32 + 32 tokens);
 35. ``lm:vlm_parity``  its weights cut to 2 layers, CPU against card
                         as phase 10 with the patches before the text,
-                        within ``LM_TOL``.
+                        within ``LM_TOL``;
+36. ``train:lm``        the LM training driver ``repro_torch.launch.
+                        train.main`` on internlm2-1.8b at full width and
+                        depth (24 layers, bf16 weights drawn on the card
+                        from seed 0, AdamW with float32 moments, remat
+                        on): 12 steps of 4 x 2048 tokens, a checkpoint
+                        every 6 steps (~18.9 GB each, in a directory
+                        deleted at the end; the free disk printed
+                        first), a crash at step 8 and the resume from
+                        step 6: exactly one restart, the final loss
+                        below the first, finite gnorms, exactly 48
+                        ``flash_attention`` launches per executed step
+                        (24 forward, 24 in the remat recompute); step
+                        p50 / p99 (first step excluded), tokens/s, peak
+                        memory, save and restore seconds beside the
+                        step's bound (``train_bound``); then one step
+                        profiled (busy share, top kernels, the flash
+                        kernel's share; its launches checked apart and
+                        left out of the kernels line) and the plain
+                        attention backward's time at the step's shape
+                        and its share of the step;
+37. ``train:lm_parity``  internlm2-1.8b cut to 2 layers at full width in
+                        float32 (0.51 B parameters, remat on), 3 steps
+                        of ``make_train_step`` at 2 x 128 tokens from
+                        the same seed-0 weights and synthetic batches
+                        on the card (float32 flash kernel, plain
+                        backward) and on the CPU: losses within rtol
+                        1e-4, gnorms within 1e-3, every parameter within
+                        2 lr per update;
+38. ``train:lm_families``  3 steps each at full width, cut in depth, on
+                        2 x 512 positions in the configs' own dtypes:
+                        mamba2-2.7b (2 layers: ``ssd_chunk`` under
+                        autograd at N = 128), olmoe-1b-7b (2 layers: MoE
+                        dispatch and aux), whisper-tiny (whole: non-
+                        causal D 64 flash, cross-attention, encoder
+                        remat; 1500 stub frames) and internvl2-76b (2
+                        layers: 256 patches before 256 text tokens,
+                        masked out of the loss; 4 x 512 positions in
+                        the config's 4 microbatches): finite losses and
+                        gnorms, launch counts as the layer counts
+                        predict.  jamba-v0.1-52b is left out: one
+                        super-block is 13.3 B parameters, whose float32
+                        moments alone (106 GB) exceed the card.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -384,6 +429,9 @@ DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, LM_MID, torch.bfloat16),
                  (VL_B, 64, 8, LM_PAD, 128, LM_MID, torch.bfloat16),
                  (16, 64, 8, 512, 128, "batcher", torch.bfloat16)]
 LM_ARCH = "internlm2-1.8b"
+# the internlm2 and olmoe batchers: two waves of requests through 16
+# slots (depth cut to leave the training phases their time)
+BATCHER_REQUESTS = 32
 # card (kernels) against CPU (plain versions), bf16 weights and
 # activations: the tolerance of the port against JAX on the CPU
 # (tests/test_torch_lm.py), a few bf16 ulps of |logit| < 8 per logit
@@ -444,6 +492,18 @@ RL_FAIL_AT = 16
 # kernel's FMA chains against the CPU's GEMMs over 97 steps; the
 # engine's event times)
 TRAIN_TOL = dict(atol=1e-4, rtol=1e-4)
+# LM training (phases 36-38): internlm2-1.8b at full width and depth,
+# 12 steps of 4 x 2048 tokens, a checkpoint every 6 steps, a crash at 8;
+# its parity 3 steps at 2 x 128 on 2 layers in float32; the families 3
+# steps at 2 x 512 positions each ((arch, layers or None for all))
+TR_B, TR_S, TR_STEPS, TR_EVERY, TR_FAIL = 4, 2048, 12, 6, 8
+TR_ARGS = ["--arch", LM_ARCH, "--batch", str(TR_B), "--seq", str(TR_S),
+           "--steps", str(TR_STEPS), "--ckpt-every", str(TR_EVERY),
+           "--fail-at", str(TR_FAIL), "--log-every", "1", "--seed", "0"]
+TP_B, TP_S, TP_STEPS = 2, 128, 3
+TF_B, TF_S, TF_STEPS = 2, 512, 3
+TRAIN_FAMILIES = (("mamba2-2.7b", 2), ("olmoe-1b-7b", 2),
+                  ("whisper-tiny", None), ("internvl2-76b", 2))
 
 
 def card() -> str:
@@ -1181,8 +1241,9 @@ def lm_batcher_phase(model, CARD):
     _, dec_ops = lm_counts()
     cfg = model.cfg
     dec_ops.LAUNCHES = 0
-    done, steps, wall = serve_batcher(model, n=48, n_slots=16, smax=512,
-                                      prompt_len=32, max_new=64)
+    done, steps, wall = serve_batcher(model, n=BATCHER_REQUESTS,
+                                      n_slots=16, smax=512, prompt_len=32,
+                                      max_new=64)
     launches = dec_ops.LAUNCHES
     n_tok = sum(len(r.tokens_out) for r in done)
     if launches != cfg.n_layers * steps:
@@ -1706,8 +1767,9 @@ def olmoe_batcher_phase(model, CARD):
     _, dec_ops = lm_counts()
     cfg = model.cfg
     dec_ops.LAUNCHES = 0
-    done, steps, wall = serve_batcher(model, n=48, n_slots=16, smax=512,
-                                      prompt_len=32, max_new=64)
+    done, steps, wall = serve_batcher(model, n=BATCHER_REQUESTS,
+                                      n_slots=16, smax=512, prompt_len=32,
+                                      max_new=64)
     launches = dec_ops.LAUNCHES
     n_tok = sum(len(r.tokens_out) for r in done)
     if launches != cfg.n_layers * steps:
@@ -1905,6 +1967,43 @@ def prefill_bound(model, B, S) -> tuple[float, str, float]:
                                  else "bytes"), flops / 1e12
 
 
+def train_bound(model, B, S) -> tuple[float, str, float]:
+    """Least time of one train step of B x S tokens (dense, MoE, SSM,
+    VLM stacks): 6 x the matrix products of a forward of the stack and
+    the head (forward 2, backward 4 per multiply-add pair), one more
+    forward of the stack for remat, the causal attention products twice
+    forward (the kernel and its recompute) and once backward over the
+    causal triangle (scores recomputed, dP, dV, dQ, dK: 10 B H D S(S+1)/2;
+    the plain backward's work on the full S x S above that is its own
+    waste, not the function's), all over the bf16 peak; or each
+    parameter, gradient and moment read and written once; whichever is
+    larger.  Returns (ms, bound by, TFLOP)."""
+    from repro_torch.models import moe as MOE
+    cfg = model.cfg
+    d, D, T_ = cfg.d_model, cfg.head_dim, B * S
+    d_inner, H = cfg.ssm_expand * d, cfg.n_ssm_heads
+    proj = {"attn": 2 * T_ * d * D * (2 * cfg.n_heads + 2 * cfg.n_kv),
+            "ssm": 2 * T_ * d * (3 * d_inner + 2 * cfg.ssm_state + H)}
+    ffn = {"mlp": 2 * T_ * 3 * d * cfg.d_ff, "": 0}
+    if cfg.is_moe:
+        C = MOE.capacity(S, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        ffn["moe"] = (2 * B * cfg.n_experts * C * 3 * d * cfg.d_ff
+                      + 2 * T_ * d * cfg.n_experts)
+    kinds = layer_kinds(cfg)
+    stack = sum(proj[m] + ffn[f] for m, f in kinds)
+    head = 2 * T_ * d * cfg.vocab_padded
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    attn = n_attn * (2 * 4 + 10) * B * cfg.n_heads * D * S * (S + 1) / 2
+    flops = 3 * (stack + head) + stack + attn
+    n = model.param_count()
+    moment = 4 if cfg.moment_dtype == "float32" else 2
+    nbytes = n * 2 * (2 * 2 + 2 * moment)       # p, g, m, v: read + write
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops / 1e12
+
+
 def jamba_prefill_decode_phase(model, CARD):
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.models import make_decode_step, make_prefill_step
@@ -2063,11 +2162,13 @@ def jamba_parity_phase(model, CARD, B=1, S=128, steps=4):
     """The full-width super-block, CPU (plain versions) against the card
     (kernels), held in two ways, as a float32 copy of the whole
     super-block (~51 GB) would not fit the host beside the rest:
-    sublayer by sublayer in float32, each fed the card's bf16 input to
-    it, its weights cast up and copied to the CPU one sublayer at a time
-    (at most a MoE sublayer's ~11 GB) and freed after it, its output and
-    the cache it writes (after the prefill of B x S and after each of
-    ``steps`` decode steps) within ``SUBLAYER_F32_TOL``, with the MoE
+    sublayer by sublayer in float32, the first sublayer of each (mixer,
+    ffn) kind (the later ones repeat its code with other weights, and
+    each MoE sublayer costs ~8 s on the host), each fed the card's bf16
+    input to it, its weights cast up and copied to the CPU one sublayer
+    at a time (at most a MoE sublayer's ~11 GB) and freed after it, its
+    output and the cache it writes (after the prefill of B x S and after
+    each of ``steps`` decode steps) within ``SUBLAYER_F32_TOL``, with the MoE
     routes pinned to the CPU's and every flip a near-tie; then the
     whole super-block in bf16 (a ~27 GB copy) with the routes pinned,
     its logits within ``JAMBA_TOL``.  Fails, without running, on a host
@@ -2093,7 +2194,11 @@ def jamba_parity_phase(model, CARD, B=1, S=128, steps=4):
     layout = T.sb_layout(cfg)
     if len(x_fwd) != len(layout) * cfg.n_layers // cfg.attn_every:
         raise AssertionError(f"{label}: {len(x_fwd)} sublayer inputs")
-    for i, (mixer, ffn) in enumerate(layout):
+    firsts = {}
+    for i, kind in enumerate(layout):
+        firsts.setdefault(kind, i)
+    for i in sorted(firsts.values()):
+        mixer, ffn = layout[i]
         t0 = time.perf_counter()
         p_gpu = cast(T.layer_params(model.params["stack"][f"l{i}"], 0),
                      torch.float32)
@@ -3325,6 +3430,232 @@ def telemetry_train_phase(CARD):
         raise AssertionError("telemetry:train: the profiled run differs")
 
 
+def read_log(outdir: str) -> list[dict]:
+    with open(os.path.join(outdir, "log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_lm_phase(CARD) -> int:
+    """The LM training driver at full width with one injected failure
+    (phase 36).  Returns the driver run's ``flash_attention`` launches
+    (the profiled step after it is checked on its own, not counted)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch import train
+    from repro_torch.models import LM, make_train_step
+    cfg = get_arch(LM_ARCH)
+    outdir = os.path.join(ROOT, "runs", "chip_smoke_lm_train")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    du = shutil.disk_usage(outdir)
+    print(f"  train:lm disk free {du.free / 1e9:.1f} GB of "
+          f"{du.total / 1e9:.1f} GB at {outdir}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        res = train.main(TR_ARGS + ["--outdir", outdir])
+        torch.cuda.synchronize()
+        launches = fa_ops.LAUNCHES
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ckpt_gb = sum(os.path.getsize(os.path.join(outdir, "ckpt", f))
+                      for f in os.listdir(os.path.join(outdir, "ckpt"))
+                      ) / 1e9 / 2
+        logs = read_log(outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    steps = [r["step"] for r in logs]
+    want = list(range(TR_FAIL)) + list(range(TR_EVERY, TR_STEPS))
+    if steps != want:
+        raise AssertionError(f"train:lm: steps {steps}, expected {want} "
+                             f"(a resume at step {TR_EVERY})")
+    if res["restarts"] != 1 or len(res["restore_secs"]) != 1:
+        raise AssertionError(f"train:lm: {res['restarts']} restarts, "
+                             f"{len(res['restore_secs'])} restores")
+    if not res["final_loss"] < res["first_loss"]:
+        raise AssertionError(f"train:lm: final loss {res['final_loss']} "
+                             f"not below the first {res['first_loss']}")
+    if not all(np.isfinite([r["loss"], r["gnorm"]]).all() for r in logs):
+        raise AssertionError("train:lm: a non-finite loss or gnorm")
+    per_step = 2 * cfg.n_layers
+    if launches != per_step * len(steps):
+        raise AssertionError(f"train:lm: {launches} flash_attention "
+                             f"launches for {len(steps)} steps, expected "
+                             f"{per_step} a step")
+    secs = [r["secs"] for r in logs[1:]]
+    p50 = pct(secs, 50)
+    t1 = time.perf_counter()
+    model = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    bound_ms, by, tflop = train_bound(model, TR_B, TR_S)
+    print(f"  train:lm {cfg.name} [{CARD}]: {model.param_count() / 1e9:.3f} "
+          f"B parameters, {len(steps)} steps executed of {TR_STEPS} "
+          f"(restart 1, resumed at {TR_EVERY}) in {wall:.1f}s; loss "
+          f"{res['first_loss']:.4f} -> {res['final_loss']:.4f}; step "
+          f"p50={p50 * 1e3:.1f}ms p99={pct(secs, 99) * 1e3:.1f}ms "
+          f"(bound {bound_ms:.1f}ms by {by}, {tflop:.1f} TFLOP: "
+          f"{bound_ms / (p50 * 1e3):.3f} of p50) tokens/s="
+          f"{TR_B * TR_S / p50:.0f} peak_gb={peak:.2f} checkpoint "
+          f"{ckpt_gb:.2f} GB save_s=" + "/".join(
+              f"{x:.1f}" for x in res["save_secs"])
+          + f" restore_s={res['restore_secs'][0]:.1f} flash launches="
+          f"{launches} ({per_step} a step)", flush=True)
+
+    # one more step, profiled, from the same weights
+    step, opt = make_train_step(model, total_steps=TR_STEPS)
+    params, state = model.params, opt.init(model.params)
+    batch = {"tokens": torch.as_tensor(synthetic_batch(
+        0, 0, TR_B, TR_S, cfg.vocab)).cuda()}
+    fa_ops.LAUNCHES = 0
+
+    def one():
+        step(params, state, batch, 0)
+    one()
+    profile_window(one, "train:lm step", CARD, top=8,
+                   share="flash_attention")
+    if fa_ops.LAUNCHES != 2 * per_step:
+        raise AssertionError(f"train:lm: the profiled steps launched "
+                             f"{fa_ops.LAUNCHES} flash kernels")
+    del params, state
+    free(model)
+    # the plain backward of one attention layer at the step's shape
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, do = (torch.randn((TR_B, cfg.n_heads, TR_S, cfg.head_dim),
+                         generator=g, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((TR_B, cfg.n_kv, TR_S, cfg.head_dim), generator=g,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    bwd = cuda_ms(lambda: fa_ref.attention_chunked_vjp(q, k, v, do), 5, 1)
+    print(f"  train:lm plain attention backward [{CARD}]: "
+          f"{bwd:.3f} ms a layer at ({TR_B}, {cfg.n_heads}, {cfg.n_kv}, "
+          f"{TR_S}, {cfg.head_dim}) bf16, x{cfg.n_layers} = "
+          f"{bwd * cfg.n_layers:.1f} ms, share of the step p50 "
+          f"{bwd * cfg.n_layers / (p50 * 1e3):.4f}; the profiled step and "
+          f"this timing took {time.perf_counter() - t1:.1f}s", flush=True)
+    return launches
+
+
+def train_lm_parity_phase(CARD) -> None:
+    """internlm2-1.8b cut to 2 layers in float32, 3 train steps on the
+    card and on the CPU from the same weights and batches (phase 37)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import LM, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=2,
+                              param_dtype="float32")
+    gpu = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    cpu = LM(cfg, device="cpu")
+    cpu.params = to_cpu(gpu.params)
+    hist = {}
+    for side, model in (("cuda", gpu), ("cpu", cpu)):
+        step, opt = make_train_step(model, total_steps=100)
+        params, state = model.params, opt.init(model.params)
+        hist[side] = []
+        t0 = time.perf_counter()
+        for i in range(TP_STEPS):
+            batch = {"tokens": torch.as_tensor(synthetic_batch(
+                0, i, TP_B, TP_S, cfg.vocab)).to(model.device)}
+            params, state, m = step(params, state, batch, i)
+            hist[side].append(({k: float(v) for k, v in m.items()},
+                               snapshot(params)))
+        print(f"  train:lm_parity {side}: {TP_STEPS} steps in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    lrs, worst, pworst, pmean = 0.0, {}, 0.0, []
+    for i, ((mg, pg), (mc, pc)) in enumerate(zip(hist["cuda"],
+                                                 hist["cpu"])):
+        for k, rtol in (("loss", 1e-4), ("gnorm", 1e-3)):
+            err = abs(mg[k] - mc[k]) / abs(mc[k])
+            worst[k] = max(worst.get(k, 0.0), err)
+            if err > rtol:
+                raise AssertionError(f"train:lm_parity: step {i} {k} "
+                                     f"{mg[k]} on the card, {mc[k]} on "
+                                     f"the CPU (rtol {rtol})")
+        lrs += mc["lr"]
+        for c, g in zip(tree_leaves(pc), tree_leaves(pg)):
+            d = (c - g).abs()
+            lim = 2 * lrs + 1e-5 * c.abs().max().item()
+            pworst = max(pworst, d.max().item() / lim)
+            pmean.append(d.mean().item())
+            if d.max().item() > lim:
+                raise AssertionError(f"train:lm_parity: step {i} "
+                                     f"parameters {d.max().item():.3e} "
+                                     f"apart (limit {lim:.3e})")
+    print(f"  train:lm_parity {cfg.name} 2 layers float32, "
+          f"{gpu.param_count() / 1e9:.3f} B parameters, {TP_STEPS} steps "
+          f"of {TP_B} x {TP_S}, CPU vs [{CARD}]: loss "
+          + " ".join(f"{h[0]['loss']:.6f}" for h in hist["cuda"])
+          + f" (rel err max {worst['loss']:.2e}, rtol 1e-4) gnorm rel err "
+          f"max {worst['gnorm']:.2e} (rtol 1e-3) params worst/limit="
+          f"{pworst:.4f} mean |diff| {np.mean(pmean):.3e} (limit 2 lr "
+          f"per update)", flush=True)
+    free(gpu)
+
+
+def train_lm_families_phase(CARD) -> tuple[int, int]:
+    """3 train steps of four more families at full width (phase 38).
+    Returns their (flash_attention, ssd_chunk) launches."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.models import make_train_step
+    total = [0, 0]
+    for arch, n_layers in TRAIN_FAMILIES:
+        model = lm_from_seed(arch, n_layers)
+        cfg = model.cfg
+        kinds = [] if cfg.family == "encdec" else layer_kinds(cfg)
+        n_attn = (cfg.enc_layers + 2 * cfg.n_layers if cfg.family ==
+                  "encdec" else sum(m == "attn" for m, _ in kinds))
+        n_ssm = sum(m == "ssm" for m, _ in kinds)
+        S_txt = TF_S - (cfg.n_patches if cfg.family == "vlm" else 0)
+        B = max(TF_B, cfg.grad_accum)          # internvl2: 4 microbatches
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S_txt),
+                                         generator=gen, device="cuda")}
+        if cfg.family == "encdec":
+            batch["frames"] = whisper_frames(cfg, B, 8, "cuda")
+        if cfg.family == "vlm":
+            batch["patches"] = vlm_patches(cfg, B, 8, "cuda")
+        step, opt = make_train_step(model, total_steps=100)
+        params, state = model.params, opt.init(model.params)
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+        losses, gnorms, ms = [], [], []
+        for i in range(TF_STEPS):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch, i)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["gnorm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = (fa_ops.LAUNCHES, ssd_ops.LAUNCHES)
+        runs = 2 * cfg.grad_accum * TF_STEPS   # forward + remat, each mb
+        want = (n_attn * runs, n_ssm * runs)
+        if got != want:
+            raise AssertionError(f"train:lm_families {arch}: (flash, ssd) "
+                                 f"launches {got}, expected {want}")
+        if not np.isfinite(losses + gnorms).all():
+            raise AssertionError(f"train:lm_families {arch}: losses "
+                                 f"{losses}, gnorms {gnorms}")
+        print(f"  train:lm_families {cfg.name} ({cfg.n_layers} layers, "
+              f"{model.param_count() / 1e9:.3f} B parameters, "
+              f"{cfg.param_dtype}) [{CARD}]: {TF_STEPS} steps of {B} x "
+              f"{TF_S} positions in {cfg.grad_accum} microbatches: loss "
+              + " ".join(
+                  f"{x:.4f}" for x in losses) + " gnorm " + " ".join(
+                  f"{x:.3f}" for x in gnorms) + " ms " + " ".join(
+                  f"{x:.1f}" for x in ms) + f" peak_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} (flash, ssd) "
+              f"launches {got}", flush=True)
+        total[0] += got[0]
+        total[1] += got[1]
+        del params, state, batch
+        free(model)
+    return total[0], total[1]
+
+
 def free(model) -> None:
     """Drop the model's weights from the card before the next model:
     the phases' closures and profiler windows can hold it in reference
@@ -3441,6 +3772,12 @@ def main() -> int:
         serve_generalist_phase(serve_cli, ops, gen_ckpt, CARD)
     with phase("generalist:parity"):
         generalist_parity_phase(CARD)
+    with phase("train:lm"):
+        tr_launches = train_lm_phase(CARD)
+    with phase("train:lm_parity"):
+        train_lm_parity_phase(CARD)
+    with phase("train:lm_families"):
+        tf_launches = train_lm_families_phase(CARD)
 
     kernels = [
         dict(name="lstm_seq", route="cuda",
@@ -3452,7 +3789,8 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/"
                       "flash_attention.py:87",
              launches=lm_launches[0] + wh_launches[0] + moe_launches[0]
-             + jb_launches[0] + vl_launches[0], **fa_info),
+             + jb_launches[0] + vl_launches[0] + tr_launches
+             + tf_launches[0], **fa_info),
         dict(name="decode_gqa", route="cuda",
              source="src/repro_torch/csrc/decode_gqa.cu",
              replaces="src/repro/kernels/decode_gqa/decode_gqa.py:65",
@@ -3461,7 +3799,8 @@ def main() -> int:
         dict(name="ssd_chunk", route="cuda",
              source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:45",
-             launches=ssd_launches + jb_launches[2], **ssd_info),
+             launches=ssd_launches + jb_launches[2] + tf_launches[1],
+             **ssd_info),
         dict(name="lstm_cell", route="cuda",
              source="src/repro_torch/csrc/lstm_cell.cu",
              replaces="src/repro/kernels/lstm_cell/lstm_cell.py:51",

@@ -14,7 +14,11 @@ plus a JSON ``__meta__`` record:
 So checkpoints cross between the two packages both ways: this module
 reads what ``repro.ckpt`` writes and writes what its ``restore`` reads.
 Tensors are saved as host NumPy arrays; :func:`restore_checkpoint`
-returns NumPy leaves, and the caller moves them to its device.
+returns NumPy leaves, and the caller moves them to its device.  A
+bfloat16 tensor is saved as ``repro.ckpt`` saves a bfloat16 array: 2-byte
+``|V2`` records holding its raw bits.  Restored with a bfloat16 tensor
+as ``like``'s leaf, the records come back as a bfloat16 tensor, bit for
+bit; without ``like`` they stay ``|V2`` (nothing says they are bf16).
 
 - writes are atomic: ``<dir>/tmp.<step>.npz``, then ``os.replace``;
 - :class:`CheckpointManager` keeps the newest ``keep`` checkpoints.
@@ -54,9 +58,15 @@ def _shape(v) -> tuple:
     return tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
 
 
+BF16_RECORD = np.dtype("V2")     # how NumPy stores a bfloat16 leaf
+
+
 def _leaf(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            return v.view(torch.int16).numpy().view(BF16_RECORD)
+        return v.numpy()
     if _is_int(v):
         return np.asarray(v, np.int32)          # a step counter
     return np.asarray(v)
@@ -145,7 +155,8 @@ def restore_checkpoint(directory: str, like=None, step: int | None = None):
     With ``like`` (any tree :func:`save_checkpoint` takes), the result
     has its structure: every key ``like`` flattens to must be in the file
     (``KeyError`` otherwise) with ``like``'s shape (``ValueError``
-    otherwise); a Python int leaf comes back as an int.  Without it, the
+    otherwise); a Python int leaf comes back as an int, and a bfloat16
+    tensor leaf as a bfloat16 CPU tensor of the saved bits.  Without it, the
     result is nested dicts, with int keys for ``[<flat index i>]``
     parts.
     """
@@ -168,6 +179,13 @@ def restore_checkpoint(directory: str, like=None, step: int | None = None):
                                  f"{_shape(ref)}")
             if _is_int(ref):
                 return int(arr)
+            if isinstance(ref, torch.Tensor) and \
+                    ref.dtype == torch.bfloat16:
+                if arr.dtype.itemsize != 2:
+                    raise TypeError(f"{key}: checkpoint dtype {arr.dtype} "
+                                    f"is not a bfloat16 record")
+                return torch.from_numpy(np.ascontiguousarray(arr).view(
+                    np.int16)).view(torch.bfloat16)
             return arr
         tree = _rebuild(like, "", get)
     return tree, step, meta

@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import policy as P
 from repro_torch.core.replay import replay_sample
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = dict[str, Any]
 
@@ -56,20 +57,6 @@ class DDPGState:
     actor_opt: Params            # adam moments {"m": tree, "v": tree}
     critic_opt: Params
     step: int
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of equal structure."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
-def tree_leaves(tree) -> list:
-    """Leaves in the JAX package's order (dict keys sorted)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    return [tree]
 
 
 def _unflatten_like(tree, leaves):

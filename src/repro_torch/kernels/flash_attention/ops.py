@@ -5,6 +5,12 @@ only when its tensors lie on the CPU.  For CUDA tensors it launches the
 kernel or raises; there is no fallback.  The kernel is built at first
 use by :mod:`repro_torch.kernels._build`.
 
+It is differentiable (:class:`FlashAttention`): the forward is the
+kernel (or, on the CPU, the plain version), the backward plain PyTorch,
+``ref.attention_chunked_vjp``: the gradient of ``attention_chunked``,
+the function the reference differentiates, recomputed one query block
+at a time.  There is no backward kernel.
+
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
 """
@@ -15,7 +21,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_chunked
+from repro_torch.kernels.flash_attention.ref import (attention_chunked,
+                                                     attention_chunked_vjp)
 
 LAUNCHES = 0
 HEAD_DIMS = (64, 128)
@@ -83,20 +90,10 @@ def _check(q, k, v, causal):
     if Hq > 65535 or B > 65535:
         raise ValueError(f"flash_attention kernel takes Hq, B <= 65535, got "
                          f"Hq={Hq}, B={B}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError("flash_attention kernel has no backward; call it "
-                           "under torch.no_grad()")
     return B, Hq, Hkv, Sq, Sk, D
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D) -> (B,Hq,Sq,D) in q's dtype; Sk
-    may differ from Sq only when ``causal`` is false (cross-attention).
-
-    CPU tensors go through :func:`attention_chunked`; CUDA tensors
-    through the kernel, which takes contiguous float32 or bfloat16
-    inputs with ``D in {64, 128}``.
-    """
+def _forward(q, k, v, causal, window):
     global LAUNCHES
     if q.device.type == "cpu":
         _check_shapes(q, k, v, causal)
@@ -125,3 +122,35 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     _build.raise_on_error(lib, "flash_attention", err)
     LAUNCHES += 1
     return o
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the kernel (or plain) forward and the plain
+    backward :func:`attention_chunked_vjp`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_chunked_vjp(q, k, v, do, causal=ctx.causal,
+                                           window=ctx.window)
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D) -> (B,Hq,Sq,D) in q's dtype; Sk
+    may differ from Sq only when ``causal`` is false (cross-attention).
+    Differentiable in q, k and v.
+
+    CPU tensors go through :func:`attention_chunked`; CUDA tensors
+    through the kernel, which takes contiguous float32 or bfloat16
+    inputs with ``D in {64, 128}``.
+    """
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -7,6 +7,8 @@
   float32 scores and softmax over all keys, the output cast to
   ``q.dtype``.  It is what the CUDA kernel is held against, and what
   the model stack computes for CPU tensors.
+- ``attention_chunked_vjp``: its gradient (the backward of
+  ``ops.FlashAttention`` on either device).
 
 Masked scores are ``NEG_INF = -1e30`` (not ``-inf``), as in the
 reference.  GQA repeats the KV heads: query head h reads KV head
@@ -77,3 +79,42 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0):
         out[:, :, start:start + bq] = torch.einsum(
             "bhqk,bhkd->bhqd", p, vf).to(q.dtype)
     return out
+
+
+def attention_chunked_vjp(q, k, v, do, *, causal: bool = True,
+                          window: int = 0):
+    """The gradient of :func:`attention_chunked` at (q, k, v) against
+    the output's gradient ``do``: (dq, dk, dv) in the inputs' dtypes.
+
+    One query block of ``BLOCK_Q`` rows at a time, its float32 scores
+    and softmax recomputed under autograd: the transient is one block's
+    (B, Hq, BLOCK_Q, Sk) scores, never the whole score matrix.  The
+    blocks' dk and dv are summed in float32 over float32 copies of k
+    and v, so GQA's sum over the query heads that share a KV head, the
+    masks and the cast to ``q.dtype`` all follow from autograd.
+    """
+    B, Hq, S, D = q.shape
+    bq = min(BLOCK_Q, S)
+    dq = torch.empty_like(q)
+    kf = k.detach().float().requires_grad_()
+    vf = v.detach().float().requires_grad_()
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    for start in range(0, S, bq):
+        with torch.enable_grad():
+            qi = q[:, :, start:start + bq].detach().float().requires_grad_()
+            qpos = start + torch.arange(qi.shape[2], device=q.device)[:, None]
+            s = torch.einsum("bhqd,bhkd->bhqk", qi,
+                             _expand_kv(kf, Hq)) / (D ** 0.5)
+            s = torch.where(_mask(qpos, kpos, causal, window)[None, None], s,
+                            NEG_INF)
+            o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                             _expand_kv(vf, Hq))
+            gq, gk, gv = torch.autograd.grad(
+                o, (qi, kf, vf), do[:, :, start:start + bq].float())
+        dq[:, :, start:start + bq] = gq.to(q.dtype)
+        dk += gk
+        dv += gv
+        del s, o
+    return dq, dk.to(k.dtype), dv.to(v.dtype)

@@ -6,7 +6,10 @@ its tensors lie on the CPU.  For CUDA tensors it launches the kernel or
 raises; there is no fallback.  The kernel is built at first use by
 :mod:`repro_torch.kernels._build`.  ``LAUNCHES`` counts kernel launches
 (and nothing else), so a run can show that its main path went through
-the kernel.
+the kernel.  ``ssd_intra`` is differentiable (:class:`SSDIntra`): the
+forward is the kernel (or the plain version), the backward plain
+PyTorch, ``ref.ssd_intra_vjp``, the gradient of ``ssd_intra_ref``
+recomputed a batch of chunks at a time; there is no backward kernel.
 
 ``ssd_forward`` pads T to the chunk with dt = 0 (an identity state
 update), runs the intra-chunk term through ``ssd_intra`` on the
@@ -22,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd_chunk.ref import CLIP, ssd_intra_ref
+from repro_torch.kernels.ssd_chunk.ref import (CLIP, ssd_intra_ref,
+                                               ssd_intra_vjp)
 
 LAUNCHES = 0
 CHUNKS = (16, 32, 64, 128)
@@ -89,20 +93,10 @@ def _check(cm, bm, xdt, cum):
             raise ValueError(f"ssd_intra: {name} does not start on a "
                              f"16-byte boundary (the kernel reads 16-byte "
                              f"vectors)")
-    if torch.is_grad_enabled() and any(x.requires_grad
-                                       for x in (cm, bm, xdt, cum)):
-        raise RuntimeError("ssd_intra kernel has no backward; call it under "
-                           "torch.no_grad()")
     return BC, C, N, H, P
 
 
-def ssd_intra(cm, bm, xdt, cum):
-    """cm/bm (BC,C,N), xdt (BC,H,C,P), cum (BC,H,C) -> y (BC,H,C,P).
-
-    CPU tensors go through :func:`ssd_intra_ref`; CUDA tensors through
-    the kernel, which takes contiguous float32 inputs with C in
-    {16, 32, 64, 128}, P in {16, 32, 64} and N a multiple of 4 up to 128.
-    """
+def _forward(cm, bm, xdt, cum):
     global LAUNCHES
     if cm.device.type == "cpu":
         return ssd_intra_ref(cm, bm, xdt, cum)
@@ -123,6 +117,33 @@ def ssd_intra(cm, bm, xdt, cum):
     _build.raise_on_error(lib, "ssd_chunk", err)
     LAUNCHES += 1
     return y
+
+
+class SSDIntra(torch.autograd.Function):
+    """The intra-chunk term with the kernel (or plain) forward and the
+    plain backward :func:`ssd_intra_vjp`."""
+
+    @staticmethod
+    def forward(ctx, cm, bm, xdt, cum):
+        ctx.save_for_backward(cm, bm, xdt, cum)
+        return _forward(cm, bm, xdt, cum)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = ssd_intra_vjp(*ctx.saved_tensors, dy)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def ssd_intra(cm, bm, xdt, cum):
+    """cm/bm (BC,C,N), xdt (BC,H,C,P), cum (BC,H,C) -> y (BC,H,C,P),
+    differentiable in all four.
+
+    CPU tensors go through :func:`ssd_intra_ref`; CUDA tensors through
+    the kernel, which takes contiguous float32 inputs with C in
+    {16, 32, 64, 128}, P in {16, 32, 64} and N a multiple of 4 up to 128.
+    """
+    return SSDIntra.apply(cm, bm, xdt, cum)
 
 
 def ssd_forward(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):

@@ -10,6 +10,8 @@ of the intra-chunk kernel.
 - ``ssd_intra_ref``: exactly what the intra-chunk kernel computes over
   its grid (``_ssd_kernel`` of the TPU kernel): the CPU path of
   ``ops.ssd_intra`` and the kernel's oracle on the card;
+- ``ssd_intra_vjp``: the gradient of ``ssd_intra_ref`` (the backward
+  of ``ops.SSDIntra`` on either device);
 - ``ssd_err``: how closely the kernel must match ``ssd_intra_ref``;
 - ``ssd_intra_tf32``: ``ssd_intra_ref`` with both products taken as the
   tensor cores take them, in single-pass TF32 or in 3xTF32 (the
@@ -106,6 +108,27 @@ def ssd_intra_ref(cm, bm, xdt, cum):
     diff = torch.clamp(cum[:, :, :, None] - cum[:, :, None, :], -CLIP, 0.0)
     L = torch.where(causal, torch.exp(diff), 0.0)           # (BC,H,C,C)
     return torch.matmul(s[:, None] * L, xdt.float())
+
+
+# chunks (rows of BC) whose intra-chunk term the backward recomputes at
+# once: bounds the (rows, H, C, C) float32 decay matrix held at a time
+BLOCK_BC = 16
+
+
+def ssd_intra_vjp(cm, bm, xdt, cum, dy):
+    """The gradient of :func:`ssd_intra_ref` at (cm, bm, xdt, cum)
+    against ``dy`` (BC,H,C,P): (dcm, dbm, dxdt, dcum) in the inputs'
+    dtypes, recomputed ``BLOCK_BC`` chunks at a time under autograd."""
+    grads = [torch.empty_like(x) for x in (cm, bm, xdt, cum)]
+    for lo in range(0, cm.shape[0], BLOCK_BC):
+        part = [x[lo:lo + BLOCK_BC].detach().requires_grad_()
+                for x in (cm, bm, xdt, cum)]
+        with torch.enable_grad():
+            y = ssd_intra_ref(*part)
+            got = torch.autograd.grad(y, part, dy[lo:lo + BLOCK_BC])
+        for g, x in zip(grads, got):
+            g[lo:lo + BLOCK_BC] = x
+    return tuple(grads)
 
 
 # The kernel's tolerance against ssd_intra_ref: each element within

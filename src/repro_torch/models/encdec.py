@@ -15,7 +15,9 @@ The serving cache is ``{"self": {"k", "v"}, "cross": {"k", "v"}}``,
 each ``(L, B, H, S or Se, D)``: the decoder's self-attention keys and
 values, written in place one slot per decode step as the dense decode
 writes its cache, and the cross-attention keys and values of the
-encoder output, computed once at prefill.
+encoder output, computed once at prefill.  Under autograd with
+``cfg.remat`` every encoder and decoder layer is recomputed in the
+backward, as the reference's ``jax.checkpoint`` of its scan bodies.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer_params, stack_trees
+from repro_torch.models.transformer import (layer_params, remat,
+                                            stack_trees)
 
 # parameter keys of one encoder and one decoder layer
 ENC_LAYER_KEYS = {"attn", "mlp", "norm1", "norm2"}
@@ -94,12 +97,15 @@ def encode(params, frames, cfg: ArchConfig):
     x = frames + L.sinusoidal_positions(Se, d, device=frames.device
                                         )[None].to(frames.dtype)
     for i in range(cfg.enc_layers):
-        lp = layer_params(params["enc"], i)
-        a, _ = L.attention_fwd(lp["attn"], L.rmsnorm(lp["norm1"], x),
-                               causal=False, use_rope=False)
-        x = x + a
-        x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm2"], x))
+        x = remat(_enc_layer_fwd, cfg, layer_params(params["enc"], i), x)
     return L.rmsnorm(params["enc_norm"], x)
+
+
+def _enc_layer_fwd(lp, x):
+    a, _ = L.attention_fwd(lp["attn"], L.rmsnorm(lp["norm1"], x),
+                           causal=False, use_rope=False)
+    x = x + a
+    return x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm2"], x))
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +131,8 @@ def decode_fwd(params, x, enc_out, cfg: ArchConfig,
     x = x + L.sinusoidal_positions(S, d, device=x.device)[None].to(x.dtype)
     caches = []
     for i in range(cfg.n_layers):
-        x, cache = _dec_layer_fwd(layer_params(params["dec"], i), x, enc_out)
+        x, cache = remat(_dec_layer_fwd, cfg, layer_params(params["dec"], i),
+                         x, enc_out)
         if collect_cache:
             caches.append(cache)
     return x, (stack_trees(caches) if collect_cache else None)

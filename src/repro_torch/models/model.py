@@ -16,9 +16,12 @@ which are float32 as in the reference.
 
 API:
   LM(cfg, device).init(generator)   random weights drawn on the device
-  forward(batch, with_aux=False)    -> logits (B, S, Vp), or (logits,
-                                       aux) with the MoE load-balancing
-                                       loss (a float32 0 without MoE)
+  forward(batch, with_aux=False,    -> logits (B, S, Vp), or (logits,
+          params=None)                 aux) with the MoE load-balancing
+                                       loss (a float32 0 without MoE);
+                                       ``params`` (a trainer's tree of
+                                       this layout) in place of the
+                                       module's own
   prefill(batch, pad_to=)           -> (last logits (B, Vp), cache)
   decode_step(cache, batch)         -> (logits (B, Vp), cache), the cache
                                        updated in place
@@ -167,44 +170,51 @@ class LM(torch.nn.Module):
         return count(self.params)
 
     # ------------------------------------------------------------ pieces
-    def _embed(self, tokens):
-        return L.embedding(self.params["embed"], tokens.to(self.device))
+    def _embed(self, tokens, params=None):
+        params = self.params if params is None else params
+        return L.embedding(params["embed"], tokens.to(self.device))
 
-    def _head(self, x):
-        x = L.rmsnorm(self.params["final_norm"], x)
+    def _head(self, x, params=None):
+        params = self.params if params is None else params
+        x = L.rmsnorm(params["final_norm"], x)
         if self.cfg.tie_embeddings:
-            return x @ self.params["embed"].t()
-        return x @ self.params["lm_head"]
+            return x @ params["embed"].t()
+        return x @ params["lm_head"]
 
-    def _inputs(self, batch):
+    def _inputs(self, batch, params=None):
         """The decoder's input sequence: the token embeddings, after the
         projected patches for the VLM."""
-        x = self._embed(batch["tokens"])
+        params = self.params if params is None else params
+        x = self._embed(batch["tokens"], params)
         if self.cfg.family != "vlm":
             return x
         patches = batch["patches"].to(device=self.device, dtype=self.dtype)
-        return torch.cat([patches @ self.params["patch_proj"], x], dim=1)
+        return torch.cat([patches @ params["patch_proj"], x], dim=1)
 
-    def _encode(self, batch):
+    def _encode(self, batch, params=None):
+        params = self.params if params is None else params
         frames = batch["frames"].to(device=self.device, dtype=self.dtype)
-        return ED.encode(self.params, frames, self.cfg)
+        return ED.encode(params, frames, self.cfg)
 
     # --------------------------------------------------------------- forward
-    def forward(self, batch, *, with_aux: bool = False):
+    def forward(self, batch, *, with_aux: bool = False, params=None):
         """tokens (B, S) (and frames, encdec; patches, vlm) -> logits
         (B, S, Vp) (B, n_patches + S, Vp for the VLM); with
         ``with_aux`` also the MoE auxiliary loss, summed over layers
         and divided by ``n_layers`` (a float32 0 without MoE), as the
-        reference's ``forward`` returns it."""
-        x = self._inputs(batch)
+        reference's ``forward`` returns it.  ``params`` (a tree of the
+        module's layout, such as the trainer's leaves that autograd
+        tracks) replace the module's own weights for this call."""
+        params = self.params if params is None else params
+        x = self._inputs(batch, params)
         if self.cfg.family == "encdec":
-            x, _ = ED.decode_fwd(self.params, x, self._encode(batch),
+            x, _ = ED.decode_fwd(params, x, self._encode(batch, params),
                                  self.cfg)
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
         else:
-            x, _, aux = T.stack_fwd(self.params["stack"], x, self.cfg,
+            x, _, aux = T.stack_fwd(params["stack"], x, self.cfg,
                                     with_aux=with_aux)
-        logits = self._head(x)
+        logits = self._head(x, params)
         return (logits, aux) if with_aux else logits
 
     # --------------------------------------------------------------- prefill

@@ -14,10 +14,16 @@ Hkv, S, D)`` for the dense, MoE and VLM families, ``ssm`` ``(L, B, H,
 N, P)`` and ``conv`` ``(L, B, K-1, conv_dim)`` for the SSM family, and
 for the hybrid one such dict per sublayer, ``{"l{i}": ...}``, with the
 super-blocks as the leading dimension.
+
+Under autograd with ``cfg.remat`` (every FULL config), each layer, or
+each hybrid super-block, is recomputed in the backward
+(``torch.utils.checkpoint``), where the reference wraps the same unit
+in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -216,21 +222,49 @@ def _walk(params, cfg: ArchConfig, caches=None):
                    ffn)
 
 
+def remat(fn, cfg: ArchConfig, *args):
+    """``fn(*args)``, its activations recomputed in the backward (the
+    reference's ``jax.checkpoint``) when ``cfg.remat`` is set and
+    autograd records: serving under ``no_grad`` runs ``fn`` as it is."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _units(params, cfg: ArchConfig):
+    """The stack's layers grouped as the reference's remat units: one
+    layer of a homogeneous stack, one super-block of the hybrid."""
+    layers = list(_walk(params, cfg))
+    n = cfg.attn_every if cfg.family == "hybrid" else 1
+    return [layers[i:i + n] for i in range(0, len(layers), n)]
+
+
+def _unit_fwd(unit, x, aux, cfg: ArchConfig):
+    """The layers of one unit in order -> (x, [(cache key, cache)],
+    ``aux`` plus each MoE layer's aux loss; None stays None)."""
+    caches = []
+    for key, p, _, mixer, ffn in unit:
+        x, cache, a = _layer_fwd(p, x, cfg, mixer, ffn, aux is not None)
+        if a is not None:
+            aux = aux + a
+        caches.append((key, cache))
+    return x, caches, aux
+
+
 def stack_fwd(params, x, cfg: ArchConfig, collect_cache: bool = False,
               with_aux: bool = False):
     """x (B,S,d) -> (x, stacked cache or None, aux).  The cache is
     stacked over layers, or for the hybrid ``{"l{i}": sublayer i's cache
     stacked over super-blocks}``.  With ``with_aux`` aux is the sum of
     the MoE layers' auxiliary losses over ``n_layers`` (a float32 0
-    without MoE); else None, and no MoE layer computes it."""
+    without MoE); else None, and no MoE layer computes it.  Each layer
+    (each hybrid super-block) is a :func:`remat` unit."""
     caches = {}
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if with_aux else None)
-    for key, p, _, mixer, ffn in _walk(params, cfg):
-        x, cache, a = _layer_fwd(p, x, cfg, mixer, ffn, with_aux)
-        if a is not None:
-            aux = aux + a
-        if collect_cache:
+    for unit in _units(params, cfg):
+        x, unit_caches, aux = remat(_unit_fwd, cfg, unit, x, aux, cfg)
+        for key, cache in unit_caches if collect_cache else ():
             caches.setdefault(key, []).append(cache)
     if collect_cache:
         caches = {k: stack_trees(v) for k, v in caches.items()}

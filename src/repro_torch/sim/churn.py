@@ -53,6 +53,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.runtime.fault import failure_schedule
+
 # event codes (the `code` column of the fixed-shape event arrays)
 EV_NONE, EV_FAIL, EV_JOIN, EV_THROTTLE, EV_SLOWDOWN = 0, 1, 2, 3, 4
 
@@ -104,7 +106,8 @@ def _window(periods: int, window: tuple[float, float]) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# NumPy host path (copies of the JAX package's runtime draw helpers)
+# NumPy host path (the JAX package's runtime draw helpers; the fail-stop
+# one is ``runtime/fault.py::failure_schedule``)
 # ---------------------------------------------------------------------------
 def _draw(rng: np.random.Generator, n: int, periods: int, num_sas: int,
           window: tuple[float, float]) -> tuple[np.ndarray, np.ndarray]:
@@ -114,12 +117,6 @@ def _draw(rng: np.random.Generator, n: int, periods: int, num_sas: int,
     p = rng.integers(lo, hi, size=n)
     sa = rng.choice(num_sas, size=n, replace=False)
     return p.astype(np.int32), sa.astype(np.int32)
-
-
-def failure_schedule(rng, *, periods, num_sas, n=1, window=(0.25, 0.75)):
-    """Fail-stop events; ``n`` is clamped so at least one SA survives."""
-    return _draw(rng, max(0, min(int(n), num_sas - 1)), periods, num_sas,
-                 window)
 
 
 def join_schedule(rng, *, periods, num_sas, n=1, window=(0.25, 0.75)):

@@ -65,7 +65,11 @@ def test_every_module_imports_with_jax_blocked():
         "       'repro_torch.telemetry.runmeta',\n"
         "       'repro_torch.telemetry.schema',\n"
         "       'repro_torch.telemetry.sink',\n"
-        "       'repro_torch.models.encdec', 'repro_torch.models.moe'}\n"
+        "       'repro_torch.models.encdec', 'repro_torch.models.moe',\n"
+        "       'repro_torch.optim.optimizers',\n"
+        "       'repro_torch.optim.schedules', 'repro_torch.data.pipeline',\n"
+        "       'repro_torch.runtime.fault', 'repro_torch.runtime.compression',\n"
+        "       'repro_torch.launch.train', 'repro_torch.tree'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -82,7 +86,7 @@ def test_default_device_entry_points_raise_without_gpu():
     from repro_torch.configs import get_arch
     from repro_torch.core.policy import Actor, PolicyConfig
     from repro_torch.core import ddpg
-    from repro_torch.launch import rl_train, serve
+    from repro_torch.launch import rl_train, serve, train
     from repro_torch.models import LM
     from repro_torch.serving import ContinuousBatcher, MultiTenantService
     from repro_torch.sim.env import EnvConfig, SchedulingEnv
@@ -100,6 +104,8 @@ def test_default_device_entry_points_raise_without_gpu():
                lambda: LM(get_arch("olmoe-1b-7b", smoke=True)),
                lambda: ContinuousBatcher(LM(cfg)),
                lambda: rl_train.main(["--workload", "light"]),
+               lambda: train.main(["--arch", "internlm2-1.8b", "--smoke",
+                                   "--steps", "1"]),
                lambda: ddpg.init_ddpg(torch.Generator(), ddpg.DDPGConfig(
                    PolicyConfig(feat_dim=16, act_dim=7)))):
         with pytest.raises(RuntimeError, match="cuda"):

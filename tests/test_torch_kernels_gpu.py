@@ -238,6 +238,84 @@ def test_flash_attention_kernel_refuses_causal_with_other_key_counts(card):
     assert fa_ops.LAUNCHES == before
 
 
+def _grad_err(got, want):
+    """Max of |got - want| over its bound: the attention tolerance of
+    ``attn_tolerance`` on each gradient row (bf16: one ulp plus 1.5e-2
+    of the row's RMS), 1e-4 relative plus 1e-4 of the row's RMS in
+    float32."""
+    return attn_err(got, want)[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,dtype", [
+    # internlm2-1.8b's training shape (4 x 2048, 16 over 8 heads of 128),
+    # whisper-tiny's encoder (non-causal, D 64, 1500 frames) and its
+    # cross-attention, olmoe-1b-7b's group 1, and float32
+    (4, 16, 8, 2048, 2048, 128, True, torch.bfloat16),
+    (2, 6, 6, 1500, 1500, 64, False, torch.bfloat16),
+    (2, 6, 6, 512, 1500, 64, False, torch.bfloat16),
+    (2, 16, 16, 512, 512, 128, True, torch.bfloat16),
+    (2, 16, 8, 600, 600, 128, True, torch.float32)])
+def test_flash_attention_backward_on_the_card(card, B, Hq, Hkv, Sq, Sk, D,
+                                              causal, dtype):
+    """Under autograd the forward is the kernel (one launch) and the
+    backward the plain gradient of ``attention_chunked``: it matches
+    autograd through the plain version on the card."""
+    rng = np.random.default_rng(21)
+    q = _randn((B, Hq, Sq, D), dtype, rng).requires_grad_()
+    k, v = (_randn((B, Hkv, Sk, D), dtype, rng).requires_grad_()
+            for _ in range(2))
+    do = _randn((B, Hq, Sq, D), dtype, rng)
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(
+        fa_ref.attention_chunked(q, k, v, causal=causal), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1       # no launch in the backward
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _grad_err(g, w) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BC,C,N,H,P", [(16, 128, 128, 80, 64),
+                                        (8, 128, 16, 128, 64)])
+def test_ssd_chunk_backward_on_the_card(card, BC, C, N, H, P):
+    """mamba2-2.7b's SSD shape (and jamba's N = 16) under autograd: one
+    kernel launch forward, the plain gradient of ``ssd_intra_ref``
+    backward, within 1e-4 of autograd through the plain version."""
+    args = [a.requires_grad_() for a in _ssd_inputs(BC, C, N, H, P,
+                                                     "model")]
+    dy = torch.randn(BC, H, C, P, device="cuda")
+    before = ssd_ops.LAUNCHES
+    y = ssd_ops.ssd_intra(*args)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before + 1
+    got = torch.autograd.grad(y, args, dy)
+    want = torch.autograd.grad(ssd_ref.ssd_intra_ref(*args), args, dy)
+    for g, w in zip(got, want):
+        rms = w.pow(2).mean().sqrt()
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * rms)
+
+
+@pytest.mark.gpu
+def test_decode_kernels_still_raise_under_autograd(card):
+    rng = np.random.default_rng(22)
+    q = _randn((2, 4, 1, 64), torch.bfloat16, rng).requires_grad_()
+    k = _randn((2, 2, 32, 64), torch.bfloat16, rng)
+    lengths = torch.full((2,), 32, dtype=torch.int32, device="cuda")
+    before = dec_ops.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        dec_ops.decode_attention(q, k, k, lengths)
+    assert dec_ops.LAUNCHES == before
+    xs, mask, wx, wh, b = _args(4, 2, 16, 64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.lstm_seq(xs, mask, wx.requires_grad_(), wh, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,causal", [
     (2, 8, 4, 1000, 128, True), (1, 4, 2, 1000, 64, False),
@@ -495,8 +573,10 @@ def test_ssd_chunk_kernel_rejects_what_it_does_not_take(card):
         assert view.is_contiguous() and view.data_ptr() % 16
         with pytest.raises(ValueError, match="16-byte"):
             ssd_ops.ssd_intra(view, bm, xdt, cum)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd_ops.ssd_intra(cm.clone().requires_grad_(), bm, xdt, cum)
+    # under autograd the kernel refuses the same inputs, before a launch
+    with pytest.raises(ValueError, match="C=48"):
+        a = _ssd_inputs(2, 48, 16, 3, 16, "kernels")
+        ssd_ops.ssd_intra(a[0].requires_grad_(), *a[1:])
     torch.cuda.synchronize()
     assert ssd_ops.LAUNCHES == before
 
