@@ -135,8 +135,10 @@ no result:
                         at the rollout shape (B, F, H) = (8, 16, 256),
                         the update shapes (32, 16, 256) and (32, 23, 256),
                         the generalist's (8, 84, 256), (32, 84, 256) and
-                        (32, 93, 256), the JAX kernel tests' shapes and
-                        H = 8 and 16, in
+                        (32, 93, 256), the sharded rounds' rollouts
+                        (phases 39-40: (4, 16, 256) and (4, 84, 256) a
+                        rank of 2, (2, 16, 256) a shard of 4), the JAX
+                        kernel tests' shapes and H = 8 and 16, in
                         float32 (within 1e-5) and bfloat16 (3e-2); the
                         autograd Function's gradient against autograd of
                         the plain version (1e-5); kernel, plain and
@@ -174,7 +176,8 @@ no result:
                         profiled fitness call;
 19. ``train:churn``     ``rl_train`` under ``--churn mixed`` at
                         hidden 256 (light, paper6, 96 RQ slots, 64 jobs,
-                        episodes cut to 30 periods, 8 episodes a
+                        episodes cut to 15 periods (30 before phases
+                        39-42 came), 8 episodes a
                         round): two rounds, an eval on 2
                         seeds, the fcfs, herald and magma (24 x 12)
                         baselines (on the static fleet, as the
@@ -214,7 +217,8 @@ no result:
                         (equal in all four), printed by size and
                         deleted;
 24. ``telemetry:train`` (run after phase 17) ``rl_train`` at hidden 256
-                        with episodes cut to 10 periods: a warm-up
+                        with episodes cut to 5 periods (10 before phases
+                        39-42 came): a warm-up
                         round of 8 episodes and a tail round of 2 with
                         2 updates, an eval on 1 seed, off / on / on /
                         off with ``--log-jsonl``: a valid stream whose
@@ -339,6 +343,46 @@ no result:
                         predict.  jamba-v0.1-52b is left out: one
                         super-block is 13.3 B parameters, whose float32
                         moments alone (106 GB) exceed the card.
+39. ``train:sharded``   (run after phase 22) the sharded rounds' in-
+                        process oracle (``sharded_rounds_reference``) at
+                        D = 4, hidden 256, paper6: a warm-up round and an
+                        update round (4 updates, each on the batch of 32
+                        gathered from the four shards' read rings), 8
+                        episodes x 12 periods a round, on the card
+                        (kernels) and on the CPU (plain versions) from
+                        the same state and draws: ``counted`` and
+                        ``hits`` equal, masks and the rings' ``ptr``,
+                        ``size`` and ``pending_n`` equal, ring values
+                        within ``TRAIN_TOL``, losses within rtol 1e-4,
+                        parameters within 2 lr per update, exact
+                        ``lstm_cell`` launches;
+40. ``train:sharded_ranks``  the unsharded rounds at that size, timed;
+                        then 2 ranks sharing the card over gloo
+                        (``spawn_ranks`` of ``sharded_rounds_rank``:
+                        ``make_sharded_train_rounds`` on a
+                        ``DeviceMesh`` of 2), the same rounds and then
+                        the generalist's over paper6 and 4simba_4eyeriss
+                        (m_max 8, F = 84; 10 periods; each round's fleet
+                        from the shared seed, the ``fleet`` column in
+                        the ring pairs), each against the oracle at
+                        D = 2 on the card from the same seeds: the
+                        replicas' learner states bit-equal to each other
+                        and to the oracle's, each rank's ring pair and
+                        metrics the oracle's, each rank's ``lstm_cell``
+                        launches what its 4 episodes and 4 updates
+                        imply, no JAX or test module in a rank; wall
+                        time and episodes/s of the ranks, the oracle and
+                        the unsharded rounds;
+41. ``train:sharded_nccl``  with two or more cards, phase 40's
+                        specialist rounds on 2 NCCL ranks, one a card,
+                        against the oracle on the first card; with one
+                        card a line that says so;
+42. ``train:sharded_driver``  ``rl_train --devices 2``: with one card the
+                        device-count error naming
+                        ``torch.cuda.device_count()`` (no rank starts,
+                        no outdir); with two or more, two NCCL ranks
+                        crash at ``--fail-at 8`` and the run resumes at
+                        ``--devices 1``; it prints which of the two ran.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -472,14 +516,18 @@ KERNEL_SHAPES = [(97, 32, 16, 256), (97, 1, 16, 256), (97, 32, 16, 64),
 GEN_SEQ_SHAPE = (97, 32, 84, 256)
 # (B, F, H) of the lstm_cell check: the rollout step (8 episodes), the
 # update steps (batch 32; actor F = 16, critic F + G = 23), the JAX
-# kernel tests' shapes (tests/test_kernels.py), and H = 8 and 16
+# kernel tests' shapes (tests/test_kernels.py), H = 8 and 16, the
+# generalist's below, and the sharded rounds' rollouts (phases 39-40): a
+# rank's 4 episodes of 8 over 2 ranks, a shard's 2 of 8 in the oracle at
+# D = 4 (their updates take the gathered batch of 32)
 CELL_SHAPES = [(8, 16, 256), (32, 16, 256), (32, 23, 256), (4, 16, 64),
                (97, 16, 256), (32, 20, 128), (1, 7, 32), (129, 16, 64),
                (8, 16, 8), (32, 23, 16), (8, 84, 256), (32, 84, 256),
-               (32, 93, 256)]
-# the generalist's steps: rollout (8 episodes) and update (batch 32;
-# actor F = 84, critic F + G = 93)
-GEN_CELL_SHAPES = [(8, 84, 256), (32, 84, 256), (32, 93, 256)]
+               (32, 93, 256), (4, 16, 256), (2, 16, 256), (4, 84, 256)]
+# the generalist's steps: rollout (8 episodes; 4 on a rank of 2) and
+# update (batch 32; actor F = 84, critic F + G = 93)
+GEN_CELL_SHAPES = [(8, 84, 256), (32, 84, 256), (32, 93, 256),
+                   (4, 84, 256)]
 CELL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 RL_T = 97                       # LSTM steps: 1 primer + 96 RQ slots
 RL_ARGS = ["--workload", "light", "--fleet", "paper6", "--hidden", "256",
@@ -2585,12 +2633,13 @@ def rl_train_phase(CARD):
 
 
 def check_round_parity(label, res, mets, dcfg, U, what, CARD,
-                       ring_fields=("mask", "mask2")) -> None:
+                       ring_fields=("mask", "mask2"),
+                       loss_rtol=1e-3) -> None:
     """One round's CPU (plain versions) and card (kernels) results from
     the same state, buffer and draws: equal ``counted`` and ``hits``,
     ring fields ``ring_fields`` equal and transitions within
-    ``TRAIN_TOL``, losses within rtol 1e-3, parameters within 2 lr per
-    update."""
+    ``TRAIN_TOL``, losses within ``loss_rtol``, parameters within 2 lr
+    per update."""
     for k in ("counted", "hits"):
         c, g = mets["cpu"][k].tolist(), mets["cuda"][k].cpu().tolist()
         if c != g:
@@ -2609,7 +2658,7 @@ def check_round_parity(label, res, mets, dcfg, U, what, CARD,
     from repro_torch.core import ddpg as D
     from repro_torch.core.train import INFO_KEYS
     for k in INFO_KEYS + ("sla", "reward", "energy_uj"):
-        if not np.isclose(mg[k], mc[k], atol=1e-5, rtol=1e-3):
+        if not np.isclose(mg[k], mc[k], atol=1e-5, rtol=loss_rtol):
             raise AssertionError(f"{label}: {k} {mg[k]} on the card, "
                                  f"{mc[k]} on the CPU")
     pworst = 0.0
@@ -2717,7 +2766,8 @@ def train_parity_phase(CARD):
 # depth cuts that keep the new phases within ~3 minutes: every MAGMA
 # engine call is ~130 ms of host-bound event loop at any row count
 MAGMA_STREAMS, MAGMA_PERIODS = 8, 3
-CHURN_PERIODS = 30
+# cut from 30 to 15 to make room for the sharded phases (39-42)
+CHURN_PERIODS = 15
 RLC_ARGS = ["--workload", "light", "--hidden", "256", "--max-rq", "96",
             "--max-jobs", "64", "--periods", "60", "--batch-episodes", "8",
             "--batch-size", "32", "--episodes", "16",
@@ -2930,7 +2980,8 @@ def train_churn_phase(CARD):
                              f"{res['state'].step}, baselines "
                              f"{res['baselines']}")
     print(f"  train:churn light/paper6 --churn mixed hidden=256 8 episodes "
-          f"x {CHURN_PERIODS} periods a round [{CARD}]: round_ms="
+          f"x {CHURN_PERIODS} periods (cut from 30) a round [{CARD}]: "
+          f"round_ms="
           f"{'/'.join(f'{us / 1e3:.1f}' for us in spans.each['round'])} "
           f"(a warm-up round, then one of 8 updates) baseline_s fcfs/herald/"
           f"magma(24x12)="
@@ -3097,12 +3148,329 @@ def generalist_parity_phase(CARD):
 
 
 # ---------------------------------------------------------------------------
+# RELMAS training sharded over devices (phases 39-42)
+# ---------------------------------------------------------------------------
+# the rounds of the sharded phases: a warm-up round then one of
+# SHARD_UPDATES updates, 8 episodes a round over the devices; the
+# oracle at D = 4 on the card and the CPU, 2 ranks sharing the card over
+# gloo against the oracle at D = 2
+SHARD_D, SHARD_RANKS, SHARD_UPDATES = 4, 2, 4
+# 12 periods: cut from 20 to hold the sharded phases to 90 s
+SHARD_PERIODS, SHARD_GEN_PERIODS = 12, 10
+SHARD_FLAGS = [False, True]
+SHARD_GEN_FLEETS = "paper6,4simba_4eyeriss"     # m_max 8: F = 84
+# the ranks' own limit: past it they are killed and the phase fails
+RANK_TIMEOUT_S = 300
+
+
+def shard_cfg(periods: int, fleet: str = "paper6", device: str = "cuda"):
+    from repro_torch.launch import rl_train
+    return rl_train.TrainConfig(
+        workload="light", fleet=fleet, hidden=256, periods=periods,
+        max_rq=96, max_jobs=64, batch_episodes=8, batch_size=32,
+        replay_capacity=4000, device=device)
+
+
+def shard_kw(cfg) -> dict:
+    return dict(batch_episodes=cfg.batch_episodes, num_updates=SHARD_UPDATES,
+                batch_size=cfg.batch_size, sigma_min=cfg.sigma_min,
+                sigma_decay=cfg.sigma_decay)
+
+
+def shard_run(cfg, kind: str, num_devices: int):
+    """The run's env(s), dcfg and a fresh learner (seed 0) and the
+    ``num_devices`` shards' fresh ring pairs, on ``cfg.device``."""
+    from repro_torch.core import ddpg as D
+    from repro_torch.core import train as TR
+    from repro_torch.core.replay import replay_pair_init
+    from repro_torch.launch import rl_train
+    run = rl_train._build_run(cfg, kind, cfg.fleet.split(","), None)
+    envs = run.envs if kind == "generalist" else run.env
+    state = D.init_ddpg(torch.Generator().manual_seed(0), run.dcfg,
+                        cfg.device)
+    pairs = TR.replicate(replay_pair_init(
+        run.replay_init(cfg.replay_capacity // num_devices),
+        cfg.batch_episodes // num_devices * cfg.periods), num_devices)
+    return run, envs, state, pairs
+
+
+def shard_oracle(cfg, kind, num_devices, draws_fn=None):
+    """The in-process oracle over SHARD_FLAGS's rounds (seeds
+    ``round_keys(1, 0, 2)``).  Returns (state, pairs, metrics, wall s,
+    ``lstm_cell`` launches)."""
+    from repro_torch.core import generalist as G
+    from repro_torch.core import train as TR
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    run, envs, state, pairs = shard_run(cfg, kind, num_devices)
+    kw = shard_kw(cfg)
+    if draws_fn is not None:
+        kw["draws_fn"] = draws_fn
+    keys = TR.round_keys(1, 0, len(SHARD_FLAGS))
+    dkeys = TR.shard_round_keys(keys, num_devices)
+    if kind == "generalist":
+        fn = G.sharded_generalist_rounds_reference(
+            envs, run.dcfg, num_devices=num_devices, **kw)
+        call = lambda: fn(state, pairs, dkeys, keys, 0.4, SHARD_FLAGS)
+    else:
+        fn = TR.sharded_rounds_reference(envs, run.dcfg,
+                                         num_devices=num_devices, **kw)
+        call = lambda: fn(state, pairs, dkeys, 0.4, SHARD_FLAGS)
+    cell_ops.LAUNCHES = 0
+    if cfg.device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, pairs, _, mets = call()
+    if cfg.device == "cuda":
+        torch.cuda.synchronize()
+    return state, pairs, mets, time.perf_counter() - t0, cell_ops.LAUNCHES
+
+
+def shard_launches(shard_episodes: int, periods: int) -> int:
+    """``lstm_cell`` launches of SHARD_FLAGS's rounds holding
+    ``shard_episodes`` shards' episodes: T a period for each shard
+    collected, 5 T an update."""
+    return RL_T * (shard_episodes * periods * len(SHARD_FLAGS)
+                   + 5 * SHARD_UPDATES)
+
+
+def train_sharded_phase(CARD):
+    """``sharded_rounds_reference`` at D = 4 on the card (kernels) and on
+    the CPU (plain versions) from the same state and draws (made on the
+    CPU from the same seeds), held as train:parity holds one round."""
+    from repro_torch.core import train as TR
+    from repro_torch.core import rollout
+    cfgs = {d: shard_cfg(SHARD_PERIODS, device=d) for d in ("cpu", "cuda")}
+    run, cpu_env = shard_run(cfgs["cpu"], "specialist", 1)[:2]
+    draws_fn = lambda env, seed, shared, **kw: TR.round_draws(cpu_env, seed,
+                                                              **kw)
+    res, mets, inner = {}, {}, rollout.collect_episodes
+
+    def capture(*a, **k):
+        out = inner(*a, **k)
+        mets.setdefault(dev, []).append({k: out[3][k].cpu()
+                                         for k in ("counted", "hits")})
+        return out
+    rollout.collect_episodes = capture
+    try:
+        for dev in ("cpu", "cuda"):
+            res[dev] = shard_oracle(cfgs[dev], "specialist", SHARD_D,
+                                    draws_fn)
+            print(f"  train:sharded oracle D={SHARD_D} on {dev} [{CARD}]: "
+                  f"{res[dev][3]:.2f}s for {len(SHARD_FLAGS)} rounds "
+                  f"lstm_cell launches={res[dev][4]}", flush=True)
+    finally:
+        rollout.collect_episodes = inner
+    want = shard_launches(SHARD_D, SHARD_PERIODS)
+    if res["cuda"][4] != want:
+        raise AssertionError(f"train:sharded: {res['cuda'][4]} lstm_cell "
+                             f"launches on the card, expected {want}")
+    (sc, pc, mc, _, _), (sg, pg, mg, _, _) = res["cpu"], res["cuda"]
+    for pcpu, pgpu in zip(pc, pg):
+        for ring in ("read", "write"):
+            for k in ("ptr", "size"):
+                if pcpu[ring][k] != pgpu[ring][k]:
+                    raise AssertionError(f"train:sharded: {ring} {k} "
+                                         f"differs")
+        if pcpu["pending_n"] != pgpu["pending_n"]:
+            raise AssertionError("train:sharded: pending_n differs")
+    ring = lambda pairs: {k: torch.cat([p[r][k].cpu() for p in pairs
+                                        for r in ("read", "write")])
+                          for k in ("s", "mask", "a", "r", "s2", "mask2")}
+    cat = lambda ms: {k: torch.cat([m[k] for m in ms])
+                      for k in ("counted", "hits")}
+    last = lambda m: {k: float(v[-1]) for k, v in m.items()}
+    check_round_parity(
+        "train:sharded", {"cpu": (sc, ring(pc), None, last(mc)),
+                          "cuda": (sg, ring(pg), None, last(mg))},
+        {d: cat(mets[d]) for d in mets}, run.dcfg, SHARD_UPDATES,
+        f"D={SHARD_D} hidden={cfgs['cpu'].hidden} "
+        f"{cfgs['cpu'].batch_episodes} episodes x "
+        f"{SHARD_PERIODS} periods, 2 rounds", CARD, loss_rtol=1e-4)
+
+
+def rank_job(cfg, kind: str) -> dict:
+    from repro_torch.core import train as TR
+    from repro_torch.launch import rl_train
+    _, _, state, _ = shard_run(cfg, kind, 1)
+    return dict(cfg=cfg, kind=kind, state=rl_train._state_to_numpy(state),
+                keys=TR.round_keys(1, 0, len(SHARD_FLAGS)), sigma=0.4,
+                flags=SHARD_FLAGS, kw=shard_kw(cfg))
+
+
+def spawn_shard_ranks(jobs, backend: str):
+    """SHARD_RANKS ranks (``spawn_ranks`` of ``sharded_rounds_rank``)
+    running ``jobs`` in turn: sharing the card over gloo, or a card each
+    over NCCL.  Returns (per rank, its results a job; spawn-to-join
+    seconds)."""
+    from repro_torch.launch import rl_train
+    t0 = time.perf_counter()
+    ranks = rl_train.spawn_ranks(rl_train.sharded_rounds_rank, SHARD_RANKS,
+                                 jobs, device="cuda", backend=backend,
+                                 timeout=RANK_TIMEOUT_S)
+    return ranks, time.perf_counter() - t0
+
+
+def check_ranks(label, cfg, kind, ranks, CARD, where) -> tuple[int, float]:
+    """The ranks' results of one job against the oracle at D =
+    SHARD_RANKS on the card (the same seeds, drawn on the card):
+    replicas bit-equal to each other and to the oracle, each rank's ring
+    pair the oracle's shard, each rank's ``lstm_cell`` launches what its
+    episodes and updates imply.  Returns (launches of all ranks, their
+    rounds' wall seconds)."""
+    from repro_torch.launch import rl_train
+    state, pairs, mets, oracle_s, _ = shard_oracle(cfg, kind, SHARD_RANKS)
+    want_state = rl_train._state_to_numpy(state)
+    want = shard_launches(1, cfg.periods)
+    same = lambda a, b: (a.keys() == b.keys() and all(
+        same(a[k], b[k]) for k in a) if isinstance(a, dict)
+        else np.array_equal(np.asarray(a), np.asarray(b)))
+    for r, out in enumerate(ranks):
+        if out["launches"] != want:
+            raise AssertionError(f"{label}: rank {r} launched lstm_cell "
+                                 f"{out['launches']} times, expected {want}")
+        if out["loaded"]:
+            raise AssertionError(f"{label}: rank {r} imported "
+                                 f"{out['loaded']}")
+        if not same(out["state"], ranks[0]["state"]):
+            raise AssertionError(f"{label}: rank {r}'s learner state "
+                                 f"differs from rank 0's")
+        for ring in ("read", "write"):
+            host = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+                    for k, v in pairs[r][ring].items()}
+            if not same(out["pair"][ring], host):
+                raise AssertionError(f"{label}: rank {r}'s {ring} ring "
+                                     f"differs from the oracle's shard")
+        if not same(out["metrics"], mets):
+            raise AssertionError(f"{label}: rank {r}'s metrics differ")
+    if not same(ranks[0]["state"], want_state):
+        raise AssertionError(f"{label}: the ranks' learner state differs "
+                             f"from the oracle's at D={SHARD_RANKS}")
+    secs = max(out["secs"] for out in ranks)
+    eps = cfg.batch_episodes * len(SHARD_FLAGS)
+    each = lambda k: "/".join(f"{o[k]:.2f}" for o in ranks)
+    print(f"  {label} {kind} on {SHARD_RANKS} ranks {where} [{CARD}], "
+          f"hidden={cfg.hidden} {cfg.batch_episodes} episodes x "
+          f"{cfg.periods} periods, {len(SHARD_FLAGS)} rounds: replicas "
+          f"bit-equal to each other and to the oracle at D={SHARD_RANKS} "
+          f"(state, ring pairs, metrics); lstm_cell launches a rank="
+          f"{[o['launches'] for o in ranks]} (expected {want}); rounds "
+          f"wall s a rank={each('secs')} (round_ms="
+          f"{secs / len(SHARD_FLAGS) * 1e3:.1f}, episodes/s="
+          f"{eps / secs:.2f}), set-up s a rank={each('setup_s')}; oracle "
+          f"D={SHARD_RANKS} {oracle_s:.2f}s (episodes/s="
+          f"{eps / oracle_s:.2f}); sla={mets['sla'].tolist()}", flush=True)
+    return sum(o["launches"] for o in ranks), secs
+
+
+def train_sharded_ranks_phase(CARD) -> int:
+    """The unsharded rounds for their wall time, then 2 ranks sharing
+    the card over gloo, specialist then generalist (2 fleets, F = 84) in
+    one spawn, each against the oracle at D = 2 on the card.  Returns
+    the ranks' ``lstm_cell`` launches."""
+    from repro_torch.core import train as TR
+    cfg = shard_cfg(SHARD_PERIODS)
+    gcfg = shard_cfg(SHARD_GEN_PERIODS, fleet=SHARD_GEN_FLEETS)
+    run, env, state, _ = shard_run(cfg, "specialist", 1)
+    buf = run.replay_init(cfg.replay_capacity)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TR.make_train_rounds(env, run.dcfg, **shard_kw(cfg))(
+        state, buf, TR.round_keys(1, 0, len(SHARD_FLAGS)), 0.4, SHARD_FLAGS)
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    ranks, spawn_s = spawn_shard_ranks(
+        [rank_job(cfg, "specialist"), rank_job(gcfg, "generalist")], "gloo")
+    print(f"  train:sharded_ranks spawn to join {spawn_s:.1f}s for both "
+          f"jobs", flush=True)
+    where = "sharing the card over gloo"
+    launches, secs = check_ranks("train:sharded_ranks", cfg, "specialist",
+                                 [r[0] for r in ranks], CARD, where)
+    launches += check_ranks("train:sharded_ranks", gcfg, "generalist",
+                            [r[1] for r in ranks], CARD, where)[0]
+    eps = cfg.batch_episodes * len(SHARD_FLAGS)
+    print(f"  train:sharded_ranks the unsharded rounds at the same size "
+          f"[{CARD}]: {plain:.2f}s (round_ms="
+          f"{plain / len(SHARD_FLAGS) * 1e3:.1f}, episodes/s="
+          f"{eps / plain:.2f}); 2 ranks on one card {secs:.2f}s "
+          f"({plain / secs:.2f}x)", flush=True)
+    return launches
+
+
+def train_sharded_nccl_phase(CARD) -> int:
+    """With two or more cards, phase 40's specialist rounds on 2 NCCL
+    ranks, one a card, against the oracle at D = 2 on the first card;
+    with one card, a line that says so (``python chip_smoke.py`` needs one)."""
+    n = torch.cuda.device_count()
+    if n < SHARD_RANKS:
+        print(f"  train:sharded_nccl [{CARD}]: {n} card, too few for "
+              f"{SHARD_RANKS} NCCL ranks: not run", flush=True)
+        return 0
+    cfg = shard_cfg(SHARD_PERIODS)
+    ranks, spawn_s = spawn_shard_ranks([rank_job(cfg, "specialist")],
+                                       "nccl")
+    print(f"  train:sharded_nccl spawn to join {spawn_s:.1f}s", flush=True)
+    return check_ranks("train:sharded_nccl", cfg, "specialist",
+                       [r[0] for r in ranks], CARD,
+                       "on a card each over NCCL")[0]
+
+
+def train_sharded_driver_phase(CARD) -> None:
+    """``rl_train --devices 2``: on one card the device-count error (no
+    rank starts, nothing is written); with two or more, two NCCL ranks
+    with a crash at ``--fail-at 8`` and the resume at ``--devices 1``.
+    Prints which of the two ran."""
+    from repro_torch.launch import rl_train
+    n = torch.cuda.device_count()
+    out = os.path.join(ROOT, "runs", "chip_smoke_sharded_driver")
+    shutil.rmtree(out, ignore_errors=True)
+    args = ["--workload", "light", "--fleet", "paper6", "--hidden", "256",
+            "--max-rq", "96", "--max-jobs", "64", "--periods",
+            str(SHARD_GEN_PERIODS), "--batch-episodes", "8",
+            "--batch-size", "32", "--episodes", "16",
+            "--updates-per-episode", "1", "--warmup-episodes", "8",
+            "--ckpt-every", "8", "--eval-every", "16", "--eval-seeds", "1",
+            "--outdir", out]
+    if n < 2:
+        try:
+            rl_train.main(args + ["--devices", "2"])
+        except ValueError as e:
+            if f"torch.cuda.device_count() = {n}" not in str(e) \
+                    or os.path.exists(out):
+                raise
+            print(f"  train:sharded_driver [{CARD}]: {n} card, so the "
+                  f"device-count check ran (NCCL across cards did not): "
+                  f"--devices 2 raised {e}", flush=True)
+            return
+        raise AssertionError("train:sharded_driver: --devices 2 ran on "
+                             f"{n} card")
+    try:
+        rl_train.main(args + ["--devices", "2", "--fail-at", "8"])
+    except RuntimeError as e:
+        if "injected failure at episode 8" not in str(e):
+            raise
+    else:
+        raise AssertionError("train:sharded_driver: --fail-at did not "
+                             "crash the ranks")
+    res = rl_train.main(args + ["--devices", "1"])
+    hist = res["history"]
+    if [h["episode"] for h in hist] != [15] or res["state"].step != 8:
+        raise AssertionError(f"train:sharded_driver: history {hist}")
+    print(f"  train:sharded_driver [{CARD}]: {n} cards, so 2 NCCL ranks "
+          f"ran: a crash at --fail-at 8 and the resume at --devices 1 "
+          f"from episode 7: {hist}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # telemetry: the JSONL stream, the device blocks, the profiler trace
 # ---------------------------------------------------------------------------
 SERVE_PROF_PERIODS = 12         # the profiled serving runs' depth (of 60)
+# telemetry:train's episodes, cut from 10 periods to 5 to make room for
+# the sharded phases (39-42)
+TELE_PERIODS = 5
 TELE_TRAIN_ARGS = ["--workload", "light", "--fleet", "paper6",
                    "--hidden", "256", "--max-rq", "96", "--max-jobs", "64",
-                   "--periods", "10", "--batch-episodes", "8",
+                   "--periods", str(TELE_PERIODS), "--batch-episodes", "8",
                    "--batch-size", "32", "--episodes", "10",
                    "--updates-per-episode", "1", "--warmup-episodes", "8",
                    "--eval-every", "16", "--ckpt-every", "100",
@@ -3341,9 +3709,10 @@ def train_trace_numbers(args, label, CARD) -> dict:
 
 
 def telemetry_train_phase(CARD):
-    """``rl_train`` at hidden 256, 10 periods an episode (depth cut from
-    60 to keep the traces small), two rounds (8 episodes of warm-up,
-    then the tail round: 2 episodes, 2 updates), an eval on 1 seed:
+    """``rl_train`` at hidden 256, TELE_PERIODS periods an episode (depth
+    cut from 60 to keep the traces small, then from 10 to make room for
+    the sharded phases), two rounds (8 episodes of warm-up, then the
+    tail round: 2 episodes, 2 updates), an eval on 1 seed:
     with ``--log-jsonl`` a valid stream whose rounds carry the device
     block, round metrics and final actor and critic weights equal to
     the runs without the flag, exact ``lstm_cell`` launches; then
@@ -3367,7 +3736,7 @@ def telemetry_train_phase(CARD):
         runs = [off, on, run("on2", "--log-jsonl", stream + "2"),
                 run("off2")]
     want = rl_expected_launches(rounds=2, eval_runs=1, updates=2,
-                                periods=10)
+                                periods=TELE_PERIODS)
     if launches != want:
         raise AssertionError(f"telemetry:train: lstm_cell launched "
                              f"{launches} times, expected {want}")
@@ -3377,7 +3746,8 @@ def telemetry_train_phase(CARD):
     rounds = [r for r in recs if r["kind"] == "train_round"]
     for r in rounds:        # one SLA a episode, one reward a period
         n = r["batch_episodes"]
-        if sum(r["sla_hist"]) != n or sum(r["reward_hist"]) != n * 10 \
+        if sum(r["sla_hist"]) != n \
+                or sum(r["reward_hist"]) != n * TELE_PERIODS \
                 or not 0 < r["replay_fill"] <= 1 or r["committed"] <= 0:
             raise AssertionError(f"telemetry:train: round record {r}")
     if [r["batch_episodes"] for r in rounds] != [8, 2]:
@@ -3398,7 +3768,8 @@ def telemetry_train_phase(CARD):
                                          f"weights differ")
     each = spans.each["rounds"]           # two chunks of one round a run
     ms = [(a + b) / 1e3 for a, b in zip(each[::2], each[1::2])]
-    print(f"  telemetry:train light/paper6 hidden=256 10 periods, rounds "
+    print(f"  telemetry:train light/paper6 hidden=256 {TELE_PERIODS} "
+          f"periods (cut from 10), rounds "
           f"of 8 and 2 episodes (2 updates) [{CARD}]: {len(recs)} valid "
           f"records; round metrics and actor/critic weights equal to the "
           f"run without --log-jsonl; lstm_cell launches={launches}; "
@@ -3772,6 +4143,14 @@ def main() -> int:
         serve_generalist_phase(serve_cli, ops, gen_ckpt, CARD)
     with phase("generalist:parity"):
         generalist_parity_phase(CARD)
+    with phase("train:sharded"):
+        train_sharded_phase(CARD)
+    with phase("train:sharded_ranks"):
+        shard_launches_ = train_sharded_ranks_phase(CARD)
+    with phase("train:sharded_nccl"):
+        shard_launches_ += train_sharded_nccl_phase(CARD)
+    with phase("train:sharded_driver"):
+        train_sharded_driver_phase(CARD)
     with phase("train:lm"):
         tr_launches = train_lm_phase(CARD)
     with phase("train:lm_parity"):
@@ -3804,7 +4183,7 @@ def main() -> int:
         dict(name="lstm_cell", route="cuda",
              source="src/repro_torch/csrc/lstm_cell.cu",
              replaces="src/repro/kernels/lstm_cell/lstm_cell.py:51",
-             launches=cell_launches, **cell_info)]
+             launches=cell_launches + shard_launches_, **cell_info)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {

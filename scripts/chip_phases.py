@@ -1,0 +1,67 @@
+"""Run chosen RELMAS training phases of ``chip_smoke.py`` on one GPU,
+each timed, without the rest of the script.
+
+    python scripts/chip_phases.py PHASE [PHASE ...]
+
+PHASE is one of ``kernel:lstm_cell``, ``train:parity``,
+``telemetry:train``, ``train:churn``, ``train:sharded``,
+``train:sharded_ranks``, ``train:sharded_nccl`` (two or more cards)
+and ``train:sharded_driver``.  The ``lstm_seq`` and ``lstm_cell`` kernels
+are built first (one ``nvcc`` each, together).  Each phase prints what
+``chip_smoke.py`` prints for it; the last line is a JSON object with
+the card and each phase's seconds.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+sys.path[:0] = [os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src"), os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))]
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main(argv=None) -> int:
+    names = list(sys.argv[1:] if argv is None else argv)
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.kernels.lstm_cell import ref as cell_ref
+    phases = {"kernel:lstm_cell": lambda c: cs.check_cell(cell_ops, cell_ref,
+                                                          c),
+              "train:parity": cs.train_parity_phase,
+              "telemetry:train": cs.telemetry_train_phase,
+              "train:churn": cs.train_churn_phase,
+              "train:sharded": cs.train_sharded_phase,
+              "train:sharded_ranks": cs.train_sharded_ranks_phase,
+              "train:sharded_nccl": cs.train_sharded_nccl_phase,
+              "train:sharded_driver": cs.train_sharded_driver_phase}
+    unknown = [n for n in names if n not in phases]
+    if unknown or not names:
+        print(f"unknown phases {unknown}; pick from {sorted(phases)}",
+              file=sys.stderr)
+        return 2
+    if not cs.torch.cuda.is_available():
+        print("chip_phases: no GPU", file=sys.stderr)
+        return 1
+    card = cs.card()
+    cs.torch.backends.cuda.matmul.allow_tf32 = False
+    cs.torch.backends.cudnn.allow_tf32 = False
+    secs = {}
+    with cs.phase("build"):
+        t0 = time.perf_counter()
+        cs.build_all(["lstm_seq", "lstm_cell"])
+        secs["build"] = time.perf_counter() - t0
+    for name in names:
+        with cs.phase(name):
+            t0 = time.perf_counter()
+            phases[name](card)
+            secs[name] = time.perf_counter() - t0
+    print(json.dumps({"card": card, "seconds": secs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,8 @@ for module: ``costmodel`` and ``workloads`` build the tables,
 periodic environment, ``core`` the actor, heuristics and the serving
 tick, ``serving`` the request queue and service, ``launch.serve`` the
 driver; ``core.ddpg``/``replay``/``rollout``/``train``, ``ckpt`` and
-``launch.rl_train`` DDPG training on one device; ``configs``,
+``launch.rl_train`` DDPG training on one device or sharded over
+several (one process a device); ``configs``,
 ``models`` and ``serving.batcher`` the LM data plane (dense and Mamba-2
 families).  Every kernel of those paths
 (``kernels.*``) is a hand-written CUDA kernel whenever its tensors are

@@ -11,7 +11,9 @@ updates, replay) with the paper's adaptations:
 - actions are the full continuous (R, G) tanh outputs; exploration is
   additive clipped Gaussian noise.
 
-The counterpart of the JAX package's ``core/ddpg.py``, on one device.
+The counterpart of the JAX package's ``core/ddpg.py``.  Over several
+devices each replica runs :func:`ddpg_update_rounds` unchanged on the
+batch gathered from every device's ring (its ``comm`` mode).
 Parameters are the pytree layout as dicts of tensors; the learner state
 is a dataclass whose seven fields flatten in the JAX ``DDPGState``'s
 order, so checkpoints cross between the packages.  The optimizer is the
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import policy as P
-from repro_torch.core.replay import replay_sample
+from repro_torch.core.replay import replay_sample, replay_sample_global
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -218,16 +220,25 @@ def ddpg_update(state: DDPGState, cfg: DDPGConfig,
     return new_state, info
 
 
-def ddpg_update_rounds(state: DDPGState, cfg: DDPGConfig, buf: dict,
-                       idx, transform=None) -> tuple[DDPGState, dict]:
+def ddpg_update_rounds(state: DDPGState, cfg: DDPGConfig, buf, idx,
+                       transform=None, comm=None) -> tuple[DDPGState, dict]:
     """``len(idx)`` updates, update ``u`` on the replay rows ``idx[u]``
     (idx: (num_updates, batch_size), drawn with
     :func:`repro_torch.core.replay.sample_indices` or passed in), each
     sampled batch mapped by ``transform`` when given.  Returns
-    (new_state, infos stacked over the (num_updates,) axis)."""
+    (new_state, infos stacked over the (num_updates,) axis).
+
+    With ``comm`` (the sharded rounds' gathered-batch mode, the
+    reference's ``gather_axis``): ``buf`` and ``idx`` are lists, the
+    local read rings this process holds and their (num_updates,
+    per_device) indices, and update ``u`` runs on
+    ``replay_sample_global(buf, [i[u] for i in idx], comm)``, the same
+    global batch on every replica, which so stay bit-equal with no
+    gradient collective; ``transform`` maps the gathered batch."""
     infos = []
-    for u in range(len(idx)):
-        batch = replay_sample(buf, idx=idx[u])
+    for u in range(len(idx[0]) if comm is not None else len(idx)):
+        batch = (replay_sample_global(buf, [i[u] for i in idx], comm)
+                 if comm is not None else replay_sample(buf, idx=idx[u]))
         state, info = ddpg_update(state, cfg, transform(batch) if transform
                                   else batch)
         infos.append(info)

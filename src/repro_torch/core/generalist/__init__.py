@@ -2,7 +2,7 @@
 
 The specialist RELMAS nets bake the platform into their shapes
 (``F = 4 + 2M``) and weights; this subpackage removes both couplings
-(the JAX package's ``core/generalist``, single device):
+(the JAX package's ``core/generalist``):
 
 - ``repro_torch.costmodel.descriptors`` — normalized per-SA hardware
   descriptors;
@@ -14,7 +14,8 @@ The specialist RELMAS nets bake the platform into their shapes
 - :mod:`.rollout` — batched eval / collection runners, the per-period
   step, and the checkpoint loader;
 - :mod:`.train` — multi-fleet training rounds: each round samples a
-  fleet and trains through ``repro_torch.core.train``'s round.
+  fleet and trains through ``repro_torch.core.train``'s round, on one
+  device or sharded over several.
 """
 from repro_torch.core.generalist.env import (PAD_LAT_US, PaddedEnv,
                                              build_padded_envs,
@@ -31,7 +32,9 @@ from repro_torch.core.generalist.rollout import (
 from repro_torch.core.generalist.train import (
     expand_batch, generalist_replay_init, generalist_round_draws,
     generalist_rounds_host, generalist_update_rounds,
-    make_generalist_round, make_generalist_rounds)
+    make_generalist_round, make_generalist_rounds,
+    make_sharded_generalist_rounds, sharded_generalist_draws,
+    sharded_generalist_rounds_reference)
 
 __all__ = [
     "PAD_LAT_US", "PaddedEnv", "build_padded_envs", "stack_fleet_tables",
@@ -44,4 +47,6 @@ __all__ = [
     "expand_batch", "generalist_replay_init", "generalist_round_draws",
     "generalist_rounds_host", "generalist_update_rounds",
     "make_generalist_round", "make_generalist_rounds",
+    "make_sharded_generalist_rounds", "sharded_generalist_draws",
+    "sharded_generalist_rounds_reference",
 ]

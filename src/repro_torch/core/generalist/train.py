@@ -1,7 +1,7 @@
-"""Multi-fleet training rounds for the generalist policy, on one device.
+"""Multi-fleet training rounds for the generalist policy.
 
-The counterpart of the JAX package's ``core/generalist/train.py``
-(single device).  A round is ``repro_torch.core.train``'s round with
+The counterpart of the JAX package's ``core/generalist/train.py``.  A
+round is ``repro_torch.core.train``'s round with
 one more draw: each round **samples a fleet** for its episode batch and
 collects on that fleet's padded env, conditioned on its descriptors.
 The round loop, the ring write, the updates and the sigma decay are
@@ -23,6 +23,15 @@ so the tests feed in what the JAX round draws from its key.  A
 ``telemetry=True`` keyword reaches ``core.train._round_body`` through
 ``**kw``: the generalist round then carries the round's telemetry block
 beside its ``fleet``, as the JAX generalist round does.
+
+Sharded over devices (:func:`make_sharded_generalist_rounds`, the
+oracle :func:`sharded_generalist_rounds_reference`), a round is
+``core.train``'s sharded round with the same parts: the round's fleet
+is drawn from the **shared** (unsharded) round seed, so every device
+collects on the same fleet; each device's traces, noise and replay
+indices come from its own seed; the ``fleet`` column rides the ring
+pair like any field; and the descriptors are re-attached to the
+gathered batch, after the gather.
 """
 from __future__ import annotations
 
@@ -87,11 +96,12 @@ def generalist_round_draws(envs: list[PaddedEnv], seed: int,
     return dict(fleet=fleet, **TR.round_draws(envs[fleet], seed, **kw))
 
 
-def _generalist_round_body(envs: list[PaddedEnv], dcfg: D.DDPGConfig, *,
-                           churn=None, **kw):
-    """``core.train``'s round body (``kw`` as there) collecting on fleet
-    ``draws["fleet"]`` with its descriptors, writing the ``fleet``
-    column and re-attaching descriptors to every update's batch."""
+def _generalist_parts(envs: list[PaddedEnv], dcfg: D.DDPGConfig,
+                      churn=None) -> dict:
+    """The generalist's ``episodes`` (collect on fleet
+    ``draws["fleet"]`` with its descriptors, add the ``fleet`` ring
+    column) and ``transform`` (re-attach the descriptors to a sampled
+    batch) for ``core.train``'s round bodies."""
     stack = stack_fleet_tables(envs)
     pcfg = dcfg.policy
 
@@ -107,10 +117,18 @@ def _generalist_round_body(envs: list[PaddedEnv], dcfg: D.DDPGConfig, *,
                                     device=env.device)
         return trans, einfos, mets
 
-    return TR._round_body(
-        envs, dcfg, churn=churn, episodes=episodes,
-        transform=lambda batch: expand_batch(batch, stack["desc"],
-                                             stack["sa_mask"]), **kw)
+    return dict(episodes=episodes,
+                transform=lambda batch: expand_batch(batch, stack["desc"],
+                                                     stack["sa_mask"]))
+
+
+def _generalist_round_body(envs: list[PaddedEnv], dcfg: D.DDPGConfig, *,
+                           churn=None, **kw):
+    """``core.train``'s round body (``kw`` as there) collecting on fleet
+    ``draws["fleet"]`` with its descriptors, writing the ``fleet``
+    column and re-attaching descriptors to every update's batch."""
+    return TR._round_body(envs, dcfg, churn=churn,
+                          **_generalist_parts(envs, dcfg, churn), **kw)
 
 
 def make_generalist_round(envs: list[PaddedEnv], dcfg: D.DDPGConfig, **kw):
@@ -138,3 +156,47 @@ def make_generalist_rounds(envs: list[PaddedEnv], dcfg: D.DDPGConfig,
     sigma, do_update)`` (:func:`generalist_rounds_host`)."""
     return TR.make_train_rounds(envs, dcfg, make_round=make_generalist_round,
                                 **kw)
+
+
+# ---------------------------------------------------------------------------
+# sharded over devices
+# ---------------------------------------------------------------------------
+def sharded_generalist_draws(envs: list[PaddedEnv], seed: int,
+                             shared_seed: int, **kw) -> dict:
+    """One device's draws of a sharded round: the ``fleet`` from the
+    shared round seed (as :func:`generalist_round_draws` draws it, so
+    every device takes the same), then ``core.train.round_draws`` on
+    that fleet's env from the device's own ``seed``."""
+    fleet = int(torch.randint(
+        len(envs), (), generator=torch.Generator().manual_seed(shared_seed)))
+    return dict(fleet=fleet, **TR.round_draws(envs[fleet], seed, **kw))
+
+
+def make_sharded_generalist_rounds(envs: list[PaddedEnv],
+                                   dcfg: D.DDPGConfig, *, mesh, **kw):
+    """This rank's part of a chunk of fleet-sampling rounds sharded over
+    ``mesh``: ``rounds_fn(state, pair, keys, shared_keys, sigma,
+    do_update)`` (``core.train.make_sharded_train_rounds``'s contract,
+    plus ``shared_keys``, the R unsharded round seeds of ``round_keys``
+    that draw each round's fleet); ``pair`` is built over
+    :func:`generalist_replay_init`; ``metrics`` gain ``fleet``."""
+    fn = TR.make_sharded_train_rounds(
+        envs, dcfg, mesh=mesh, draws_fn=sharded_generalist_draws,
+        **_generalist_parts(envs, dcfg), **kw)
+    return lambda state, pair, keys, shared_keys, sigma, do_update: fn(
+        state, pair, keys, sigma, do_update, shared_keys)
+
+
+def sharded_generalist_rounds_reference(envs: list[PaddedEnv],
+                                        dcfg: D.DDPGConfig, *,
+                                        num_devices: int, **kw):
+    """The in-process oracle of :func:`make_sharded_generalist_rounds`:
+    ``rounds_fn(state, pairs, keys, shared_keys, sigma, do_update)`` with
+    the ``num_devices`` shards' pairs and all ``(D, R)`` seeds
+    (``core.train.sharded_rounds_reference``'s contract)."""
+    fn = TR.sharded_rounds_reference(
+        envs, dcfg, num_devices=num_devices,
+        draws_fn=sharded_generalist_draws,
+        **_generalist_parts(envs, dcfg), **kw)
+    return lambda state, pairs, keys, shared_keys, sigma, do_update: fn(
+        state, pairs, keys, sigma, do_update, shared_keys)

@@ -17,6 +17,20 @@ scalars; here the host knows them without a sync):
 (Sec. 4.2); sequences have the fixed padded length T = 1 primer +
 max_rq sub-jobs.
 
+For the rounds sharded over devices (``repro_torch.core.train``'s
+``make_sharded_train_rounds``) each device holds a **double-buffered
+pair** of rings (:func:`replay_pair_init` / :func:`replay_pair_step`): a
+``read`` ring (every transition through round ``t - 1``, what round
+``t``'s updates sample) and a ``write`` ring that takes round ``t``'s
+transitions, so the updates and the collection's write touch different
+buffers.  After any number of steps the read ring is bit-equal to a
+single ring fed the same per-round batches in order.  Every update
+samples each device's read ring and gathers the rows of all devices in
+device order (:func:`replay_sample_global`), every field in **one**
+collective: the sampled rows packed into one byte buffer
+(:func:`pack_rows` / :func:`unpack_rows`), so a bool mask crosses any
+backend as the bytes it is.
+
 :class:`DeviceReplay` is a thin stateful wrapper over the functional
 ops; :class:`ReplayBuffer` is a copy of the JAX package's host-side
 NumPy ring (shared ground truth for the ring semantics).
@@ -61,6 +75,49 @@ def replay_add(buf: dict, batch: dict) -> dict:
     return buf
 
 
+def replay_add_masked(buf: dict, batch: dict, n: int) -> dict:
+    """Ring-write only the first ``n`` rows of a stacked batch into
+    ``buf`` in place (rows from ``n`` on are dropped; ``n`` may be 0);
+    returns ``buf``.  ``n`` must not exceed the capacity."""
+    rows = batch["r"].shape[0]
+    if not 0 <= n <= rows:
+        raise ValueError(f"replay_add_masked: n={n} outside [0, {rows}]")
+    return replay_add(buf, {k: batch[k][:n] for k in replay_fields(buf)})
+
+
+def replay_pair_init(buf: dict, round_size: int) -> dict:
+    """Wrap a fresh ring into a double-buffered pair: ``read`` (``buf``
+    itself), ``write`` (a copy), ``pending`` (room for the
+    ``round_size`` transitions one round writes) and ``pending_n`` (0:
+    nothing pending before the first round).  ``buf`` may carry extra
+    per-transition fields (the generalist's ``fleet``)."""
+    pending = {k: buf[k].new_zeros((round_size,) + tuple(buf[k].shape[1:]))
+               for k in replay_fields(buf)}
+    write = {k: (v.clone() if torch.is_tensor(v) else v)
+             for k, v in buf.items()}
+    return dict(read=buf, write=write, pending=pending, pending_n=0)
+
+
+def replay_pair_step(pair: dict, flat: dict) -> dict:
+    """Advance the pair one round, in place; returns ``pair``.
+
+    The write ring takes the pending batch (the previous round's, which
+    brings it level with the read ring) and then ``flat``, this round's
+    batch; the rings swap roles and ``flat`` becomes the pending batch.
+    Each ring so takes every round's batch once, in round order, and the
+    read ring is bit-equal to a single :func:`replay_add` ring fed the
+    same batches.  The caller samples ``pair["read"]`` before the step.
+    """
+    write = replay_add_masked(pair["write"], pair["pending"],
+                              pair["pending_n"])
+    replay_add(write, flat)
+    pair["read"], pair["write"] = write, pair["read"]
+    pair["pending"] = {k: flat[k].to(write[k].dtype, copy=True)
+                       for k in replay_fields(write)}
+    pair["pending_n"] = flat["r"].shape[0]
+    return pair
+
+
 def sample_indices(buf: dict, batch_size: int,
                    gen: torch.Generator) -> torch.Tensor:
     """Uniform indices in ``[0, max(size, 1))`` from ``gen`` (on the
@@ -77,6 +134,62 @@ def replay_sample(buf: dict, batch_size: int | None = None,
         idx = sample_indices(buf, batch_size, gen)
     idx = torch.as_tensor(idx, device=buf["r"].device)
     return {k: buf[k][idx] for k in replay_fields(buf)}
+
+
+def pack_rows(rows: list) -> torch.Tensor:
+    """Tensors (any dtypes, one device) as one flat ``uint8`` buffer:
+    the tensors in the order given, whose element sizes must not grow
+    (so each lies at an offset its type can be viewed at), padded to a
+    multiple of 8 bytes (so the rows of a gathered ``(D, nbytes)``
+    buffer stay aligned).  :func:`unpack_rows` reads it back."""
+    sizes = [t.element_size() for t in rows]
+    if sizes != sorted(sizes, reverse=True):
+        raise ValueError(f"pack_rows: element sizes {sizes} must not grow")
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in rows])
+    pad = -flat.numel() % 8
+    return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+
+def unpack_rows(buf: torch.Tensor, like: list) -> list:
+    """Views of ``buf`` (a :func:`pack_rows` buffer, or a row of a
+    gathered ``(D, nbytes)`` one) shaped and typed as the tensors of
+    ``like``."""
+    out, at = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(buf[at:at + n].view(t.dtype).reshape(t.shape))
+        at += n
+    return out
+
+
+def _field_order(buf: dict) -> list:
+    """The stored fields, widest element first (the packing order)."""
+    return sorted(replay_fields(buf), key=lambda k: -buf[k].element_size())
+
+
+def replay_sample_global(bufs: list, idxs: list, comm) -> dict:
+    """A global minibatch: each local ring of ``bufs`` sampled at its
+    indices of ``idxs``, packed into one byte buffer, gathered over the
+    device axis by ``comm.all_gather`` (one collective) and concatenated
+    in device order.  Every device returns the same ``(D * per_device,
+    ...)`` batch, a sample of the union of the devices' pools.
+
+    ``bufs`` / ``idxs`` are the shards this process holds: one (a rank
+    of a process group) or all ``D`` in device order (the in-process
+    oracle, whose ``all_gather`` stacks them).  With local capacity a
+    multiple of the per-round write ``n``, local slot ``s`` of device
+    ``d`` holds the row a ``D * capacity`` ring, fed every device's round
+    batches in device-major round order, holds at ``(s // n * D + d) * n
+    + s % n``: the gathered batch is a sample of that ring."""
+    keys = _field_order(bufs[0])
+    local = [replay_sample(b, idx=i) for b, i in zip(bufs, idxs)]
+    packed = comm.all_gather([pack_rows([x[k] for k in keys])
+                              for x in local])
+    like = [local[0][k] for k in keys]
+    shards = [unpack_rows(row, like) for row in packed]
+    return {k: torch.cat([s[j] for s in shards])
+            for j, k in enumerate(keys)}
 
 
 class DeviceReplay:

@@ -1,4 +1,4 @@
-"""RELMAS DDPG training driver (paper Sec. 4.2 / Sec. 5), on one device.
+"""RELMAS DDPG training driver (paper Sec. 4.2 / Sec. 5).
 
 The counterpart of the JAX package's ``launch/rl_train.py``, with the
 same flags plus ``--device``.  Each round (``core.train``): device-side
@@ -40,20 +40,44 @@ riding the round's one metrics transfer); ``--profile-dir DIR``
 captures a ``torch.profiler`` trace of the training loop, its phases
 marked by the ``relmas.*`` ranges of ``core.train``.
 
-Not ported: ``--devices > 1`` (ROADMAP A11) raises
-``NotImplementedError`` naming its ROADMAP item.
+``--devices N`` shards the rounds over N devices, one process per
+device (``core.train.make_sharded_train_rounds``): collection splits
+the episode batch, each rank owns a double-buffered replay ring pair of
+``--replay-capacity / N``, and every update gathers the rows each rank
+sampled, so the learner state stays bit-equal on every rank.  The
+driver checks the flags first (no churn; ``--batch-episodes``,
+``--batch-size`` and ``--replay-capacity`` divisible by N;
+``--episodes`` a multiple of ``--batch-episodes``; on ``cuda`` at most
+``torch.cuda.device_count()`` devices), then spawns N ranks
+(``torch.multiprocessing``, ``spawn``) that meet at a fresh ``file://``
+rendezvous, deleted after the run: rank ``r`` on ``cuda:r`` under
+NCCL, or on the CPU under gloo with ``--device cpu``.  Rank 0 alone
+writes the log, the console (relayed through the parent's ``log_fn``),
+the JSONL stream, the evaluations and the checkpoints; checkpoints are
+single-device, so a run restores at any ``--devices``.  ``--fail-at``
+fails every rank at the same chunk boundary, before any collective,
+and the parent raises the same ``RuntimeError``.  ``--devices 1`` is
+the plain path, the parity oracle.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.rl_train --workload light \\
       --episodes 150 --hidden 64 --batch-episodes 8 --outdir runs/light_med
+  PYTHONPATH=src python -m repro_torch.launch.rl_train --device cpu \\
+      --devices 2 --episodes 8 --batch-episodes 4 --outdir runs/cpu2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import os
+import pickle
+import queue as queue_mod
+import shutil
+import tempfile
 import time
+import traceback
 from typing import Callable
 
 import numpy as np
@@ -66,10 +90,13 @@ from repro_torch.core import policy as P
 from repro_torch.core.generalist import (GeneralistSpec, build_padded_envs,
                                          evaluate_generalist_batch,
                                          generalist_replay_init,
-                                         generalist_rounds_host)
-from repro_torch.core.replay import replay_init
+                                         generalist_rounds_host,
+                                         make_sharded_generalist_rounds)
+from repro_torch.core.replay import replay_init, replay_pair_init
 from repro_torch.core.rollout import evaluate_batch, evaluate_batch_baseline
-from repro_torch.core.train import INFO_KEYS, round_keys, train_rounds_host
+from repro_torch.core.train import (INFO_KEYS, MESH_AXIS, make_device_mesh,
+                                    make_sharded_train_rounds, round_keys,
+                                    shard_round_keys, train_rounds_host)
 from repro_torch.sim.arrivals import ArrivalConfig
 from repro_torch.sim.churn import CHURN_SCENARIOS, churn_preset
 from repro_torch.sim.env import EnvConfig, SchedulingEnv
@@ -102,7 +129,7 @@ class TrainConfig:
     hidden: int = 64
     episodes: int = 150
     batch_episodes: int = 8
-    devices: int = 1           # 1 only (ROADMAP A11)
+    devices: int = 1           # >1: sharded rounds, one process a device
     # in-episode fleet-churn preset drawn fresh per round (sim.churn);
     # "none" keeps the static fleet
     churn: str = "none"
@@ -191,10 +218,36 @@ def _baseline_fns(cfg: TrainConfig) -> dict:
     return out
 
 
-def _unported(cfg: TrainConfig) -> None:
-    if cfg.devices > 1:
-        raise NotImplementedError("--devices > 1 (sharded rounds) is not "
-                                  "ported yet: ROADMAP A11")
+def _check_devices(cfg: TrainConfig, churn_cfg) -> None:
+    """``--devices``'s checks, the reference's, before any rank is
+    spawned."""
+    if cfg.devices < 1:
+        raise ValueError(f"--devices must be >= 1, got {cfg.devices}")
+    if cfg.devices == 1:
+        return
+    if churn_cfg is not None:
+        raise ValueError("--churn is a single-device feature: the sharded "
+                         "round bodies do not thread churn schedules; use "
+                         "--devices 1")
+    if torch.device(cfg.device).type == "cuda":
+        n = torch.cuda.device_count()
+        if cfg.devices > n:
+            raise ValueError(
+                f"--devices {cfg.devices} exceeds torch.cuda.device_count()"
+                f" = {n}; use --devices {n} or fewer (--device cpu runs the "
+                f"ranks on the CPU over gloo)")
+    for knob, val in (("batch-episodes", cfg.batch_episodes),
+                      ("batch-size", cfg.batch_size),
+                      ("replay-capacity", cfg.replay_capacity)):
+        if val % cfg.devices:
+            raise ValueError(f"--{knob} {val} must be divisible by "
+                             f"--devices {cfg.devices} (equal shards)")
+    if cfg.episodes % cfg.batch_episodes:
+        raise ValueError(
+            f"--episodes {cfg.episodes} must be a multiple of "
+            f"--batch-episodes {cfg.batch_episodes} when sharding (a "
+            f"smaller tail round cannot split evenly over --devices "
+            f"{cfg.devices})")
 
 
 def _plan_chunks(cfg: TrainConfig, start_ep: int) -> list[dict]:
@@ -283,6 +336,7 @@ class Run:
     """What a specialist or a generalist run trains with
     (:func:`_build_run`)."""
     env: SchedulingEnv            # the (first) training env
+    envs: list                    # the training envs (a generalist's fleets)
     spec: GeneralistSpec | None   # None for a specialist
     dcfg: D.DDPGConfig
     fleets: list[str]
@@ -290,8 +344,8 @@ class Run:
     meta: dict                    # checkpoint meta
     baseline_envs: list           # unpadded envs the baselines score on
     evaluate: Callable            # (params, seeds) -> mean metrics
-    rounds: Callable              # train_rounds_host minus (env, dcfg)
-    replay_init: Callable         # capacity -> replay ring
+    rounds: Callable              # (state, buf, keys, sigma, flags, **kw)
+    replay_init: Callable         # capacity -> replay ring (or ring pair)
 
     @property
     def pcfg(self) -> P.PolicyConfig:
@@ -299,10 +353,14 @@ class Run:
 
 
 def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
-                mgr: CheckpointManager, logf, tele):
+                mgr: CheckpointManager, logf, tele, mesh=None):
     """The chunks of rounds with their eval and checkpoint boundaries,
-    reported through the telemetry session ``tele``.  Returns (state,
-    best eval, history)."""
+    reported through the telemetry session ``tele``.  Sharded (``mesh``
+    given), rank 0 alone evaluates and checkpoints (its replica is the
+    learner state) and every rank waits at a boundary with either, so
+    a failure injected at the next chunk finds the checkpoint written.
+    Returns (state, best eval, history)."""
+    lead = mesh is None or mesh.get_rank() == 0
     eval_seeds = range(7000, 7000 + cfg.eval_seeds)
     buf = run.replay_init(cfg.replay_capacity)
     best = {"sla_rate": -1.0}
@@ -311,7 +369,7 @@ def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
                                  cfg.sigma0 * cfg.sigma_decay ** start_ep)))
 
     for chunk in _plan_chunks(cfg, start_ep):
-        if chunk["fail"]:
+        if chunk["fail"]:       # every rank, before any collective
             raise RuntimeError(f"injected failure at episode {cfg.fail_at}")
         rounds = chunk["rounds"]
         n = rounds[0][1]
@@ -360,7 +418,7 @@ def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
         # chunk boundary: eval / best checkpoint / periodic checkpoint
         rs, rn = rounds[-1]
         ep = rs + rn - 1
-        if chunk["eval"]:
+        if chunk["eval"] and lead:
             with tele.span("eval"):
                 ev = run.evaluate(state.actor, eval_seeds)
             history[-1]["eval_sla"] = round(ev["sla_rate"], 4)
@@ -379,16 +437,22 @@ def _train_loop(cfg: TrainConfig, run: Run, state, start_ep: int,
                                   keep=1).save(
                     ep, state.actor,
                     dict(episode=ep, sla=ev["sla_rate"], **run.meta))
-        if chunk["ckpt"]:
+        if chunk["ckpt"] and lead:
+            # single-device tensors: a run restores at any --devices
             with tele.span("ckpt"):
                 mgr.save(ep, state, dict(episode=ep, **run.meta))
+        if mesh is not None and (chunk["eval"] or chunk["ckpt"]):
+            import torch.distributed as dist
+            dist.barrier(group=mesh.get_group(MESH_AXIS))
     return state, best, history
 
 
 def _build_run(cfg: TrainConfig, kind: str, fleets: list[str],
-               churn_cfg) -> Run:
+               churn_cfg, mesh=None) -> Run:
     """The run's env(s), policy config, replay, round and eval functions
-    and checkpoint meta, for a specialist or a generalist run."""
+    and checkpoint meta, for a specialist or a generalist run; sharded
+    over ``mesh`` when given (rounds of ``make_sharded_*_rounds``, a
+    ring pair of ``replay_capacity / D`` a rank)."""
     ecfg, arr = _env_cfgs(cfg)
     if kind == "generalist":
         envs = build_padded_envs(cfg.workload, fleets, ecfg, arr,
@@ -403,16 +467,37 @@ def _build_run(cfg: TrainConfig, kind: str, fleets: list[str],
     meta = dict(fleet=cfg.fleet, policy_kind=kind, hidden=cfg.hidden,
                 feat_dim=pcfg.feat_dim, act_dim=pcfg.act_dim,
                 churn=cfg.churn)
-    common = dict(env=env, spec=spec, dcfg=dcfg, fleets=fleets,
-                  churn=churn_cfg)
+    if spec is None:
+        ring = lambda cap: replay_init(cap, env.seq_len, env.feat_dim,
+                                       env.act_dim, env.device)
+        rounds = lambda *a, **kw: train_rounds_host(env, dcfg, *a, **kw)
+    else:
+        ring = lambda cap: generalist_replay_init(cap, env.seq_len, spec,
+                                                  env.device)
+        rounds = lambda *a, **kw: generalist_rounds_host(envs, dcfg, *a,
+                                                         **kw)
+    if mesh is not None:
+        ndev = mesh.size()
+        plain_ring = ring
+        ring = lambda cap: replay_pair_init(
+            plain_ring(cap // ndev), (cfg.batch_episodes // ndev)
+            * cfg.periods)
+        if spec is None:
+            rounds = lambda state, pair, keys, sigma, flags, **kw: \
+                make_sharded_train_rounds(env, dcfg, mesh=mesh, **kw)(
+                    state, pair, shard_round_keys(keys, ndev), sigma, flags)
+        else:
+            rounds = lambda state, pair, keys, sigma, flags, **kw: \
+                make_sharded_generalist_rounds(envs, dcfg, mesh=mesh, **kw)(
+                    state, pair, shard_round_keys(keys, ndev), keys, sigma,
+                    flags)
+    common = dict(env=env, envs=envs, spec=spec, dcfg=dcfg, fleets=fleets,
+                  churn=churn_cfg, rounds=rounds, replay_init=ring)
     if spec is None:
         return Run(
             **common, meta=meta, baseline_envs=envs,
             evaluate=lambda params, seeds: evaluate_batch(env, pcfg, params,
-                                                          seeds),
-            rounds=lambda *a, **kw: train_rounds_host(env, dcfg, *a, **kw),
-            replay_init=lambda cap: replay_init(
-                cap, env.seq_len, env.feat_dim, env.act_dim, env.device))
+                                                          seeds))
 
     def evaluate(params, seeds):
         """Mean metrics across every training fleet (+ per fleet)."""
@@ -429,15 +514,12 @@ def _build_run(cfg: TrainConfig, kind: str, fleets: list[str],
         **common, meta=dict(meta, m_max=spec.m_max, desc_dim=spec.desc_dim,
                             fleets=fleets),
         baseline_envs=[build_env(cfg, f) for f in fleets],
-        evaluate=evaluate,
-        rounds=lambda *a, **kw: generalist_rounds_host(envs, dcfg, *a, **kw),
-        replay_init=lambda cap: generalist_replay_init(cap, env.seq_len,
-                                                       spec, env.device))
+        evaluate=evaluate)
 
 
-def train(cfg: TrainConfig, log_fn=console_line) -> dict:
-    """Train as ``cfg`` says.  ``log_fn`` writes the console lines (the
-    console sink's writer; a test passes a capture)."""
+def _checked(cfg: TrainConfig):
+    """Every flag check, before anything is built or spawned.  Returns
+    (churn config or None, baseline functions, policy kind, fleets)."""
     if cfg.batch_episodes < 1:
         raise ValueError(f"--batch-episodes must be >= 1, "
                          f"got {cfg.batch_episodes}")
@@ -447,24 +529,48 @@ def train(cfg: TrainConfig, log_fn=console_line) -> dict:
             f"a collection round writes batch_episodes * periods = "
             f"{cfg.batch_episodes * cfg.periods} transitions, which must "
             f"fit --replay-capacity ({cfg.replay_capacity})")
-    if cfg.devices < 1:
-        raise ValueError(f"--devices must be >= 1, got {cfg.devices}")
-    _unported(cfg)
     if cfg.churn not in CHURN_SCENARIOS:
         raise ValueError(f"--churn must be one of "
                          f"{'|'.join(CHURN_SCENARIOS)}, got {cfg.churn!r}")
     churn_cfg = None if cfg.churn == "none" else churn_preset(cfg.churn)
+    _check_devices(cfg, churn_cfg)
     baselines = _baseline_fns(cfg)
     kind, fleets = _resolve_kind(cfg)
-    run = _build_run(cfg, kind, fleets, churn_cfg)
+    return churn_cfg, baselines, kind, fleets
+
+
+def train(cfg: TrainConfig, log_fn=console_line) -> dict:
+    """Train as ``cfg`` says.  ``log_fn`` writes the console lines (the
+    console sink's writer; a test passes a capture).  With ``--devices
+    N > 1`` the rounds run on N spawned ranks (:func:`spawn_ranks`) and
+    this returns rank 0's result."""
+    checked = _checked(cfg)
+    if cfg.devices > 1:
+        return _train_sharded(cfg, log_fn, checked)
+    return _train(cfg, log_fn, checked)
+
+
+def _train(cfg: TrainConfig, log_fn, checked, mesh=None) -> dict:
+    """The run on this process: the whole of it, or this rank's part of
+    a sharded one (``mesh`` given; rank 0 alone writes and logs)."""
+    churn_cfg, baselines, kind, fleets = checked
+    lead = mesh is None or mesh.get_rank() == 0
+    run = _build_run(cfg, kind, fleets, churn_cfg, mesh)
     # the telemetry session: console always (through log_fn), the JSONL
-    # stream when --log-jsonl was given
-    tele = make_telemetry(log_fn=log_fn, jsonl_path=cfg.log_jsonl or None)
+    # stream when --log-jsonl was given; rank 0's alone when sharded
+    tele = make_telemetry(log_fn=log_fn if lead else (lambda line: None),
+                          jsonl_path=(cfg.log_jsonl or None) if lead
+                          else None)
     tele.run_header("train", dataclasses.asdict(cfg), device=cfg.device)
     if run.spec is not None:
         tele.note(f"[generalist] fleets={','.join(fleets)} "
                   f"m_max={run.spec.m_max} desc_dim={run.spec.desc_dim} "
                   f"feat_dim={run.pcfg.feat_dim}")
+    seen = (torch.cuda.device_count()
+            if torch.device(cfg.device).type == "cuda" else 0)
+    if cfg.devices < seen:
+        tele.note(f"[note] {seen} local devices; pass --devices N to shard "
+                  f"the rounds over them")
     state = D.init_ddpg(torch.Generator().manual_seed(cfg.seed), run.dcfg,
                         device=cfg.device)
     mgr = CheckpointManager(os.path.join(cfg.outdir, "ckpt"))
@@ -474,7 +580,7 @@ def train(cfg: TrainConfig, log_fn=console_line) -> dict:
 
     eval_seeds = range(7000, 7000 + cfg.eval_seeds)
     baseline_scores: dict[str, dict] = {}
-    for name, fn in baselines.items():
+    for name, fn in (baselines if lead else {}).items():
         ms = [evaluate_batch_baseline(e, fn, eval_seeds)
               for e in run.baseline_envs]
         m = {k: float(np.mean([x[k] for x in ms])) for k in ms[0]}
@@ -482,18 +588,231 @@ def train(cfg: TrainConfig, log_fn=console_line) -> dict:
         tele.emit("baseline", name=name, sla_rate=round(m["sla_rate"], 4))
 
     os.makedirs(cfg.outdir, exist_ok=True)
-    with open(os.path.join(cfg.outdir, "log.jsonl"), "a") as logf, \
-            profile_trace(cfg.profile_dir, cfg.device):
+    log_path = os.path.join(cfg.outdir, "log.jsonl") if lead else os.devnull
+    with open(log_path, "a") as logf, \
+            profile_trace(cfg.profile_dir if lead else "", cfg.device):
         if baseline_scores:
             logf.write(json.dumps({"baselines": baseline_scores}) + "\n")
             logf.flush()
         state, best, history = _train_loop(cfg, run, state, start_ep, mgr,
-                                           logf, tele)
+                                           logf, tele, mesh)
     tele.emit("run_end", best_sla=round(float(best.get("sla_rate", -1.0)), 4))
     tele.close()
     return dict(best=best, history=history, env=run.env, pcfg=run.pcfg,
                 state=state, baselines=baseline_scores, policy_kind=kind,
                 fleets=fleets, spec=run.spec)
+
+
+# ---------------------------------------------------------------------------
+# --devices N: one spawned process a device
+# ---------------------------------------------------------------------------
+# a rank waits this long in a collective for a slower peer before the
+# process group gives up (a round at full size is seconds)
+PG_TIMEOUT_S = 900
+# after one rank has failed, the others get this long to reach their own
+# end (rank 0 finishing a checkpoint) before they are killed
+FAIL_GRACE_S = 120
+
+
+def _state_to_numpy(state: D.DDPGState) -> dict:
+    """The learner state as NumPy leaves by field name (what
+    ``ddpg_state_from_numpy`` reads back), to cross a process
+    boundary."""
+    return {f.name: (D.tree_map(lambda t: t.detach().cpu().numpy(),
+                                getattr(state, f.name))
+                     if f.name != "step" else state.step)
+            for f in dataclasses.fields(state)}
+
+
+def _rank_entry(rank: int, nprocs: int, init_method: str, backend: str,
+                device: str, threads: int, entry, args, out) -> None:
+    """A spawned rank: join the process group, run
+    ``entry(rank, relay, *args)`` (``relay(line)`` sends a console line
+    to the parent), send its return value (or its exception) to the
+    parent through ``out``."""
+    try:
+        torch.set_num_threads(threads)
+        bind = {}
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+            if backend == "nccl":       # the rank's card for its barriers
+                bind["device_id"] = torch.device(
+                    "cuda", torch.cuda.current_device())
+        import torch.distributed as dist
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=nprocs,
+            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S), **bind)
+        try:
+            res = entry(rank, lambda line: out.put(("log", rank, line)),
+                        *args)
+        finally:
+            dist.destroy_process_group()
+        out.put(("result", rank, pickle.dumps(res)))
+    except BaseException as e:
+        try:
+            blob = pickle.dumps(e)
+        except Exception:
+            blob = pickle.dumps(RuntimeError(f"{type(e).__name__}: {e}"))
+        out.put(("error", rank, (blob, traceback.format_exc())))
+        raise SystemExit(1)
+
+
+def spawn_ranks(entry, nprocs: int, *args, device: str = "cuda",
+                backend: str | None = None, timeout: float | None = None,
+                log_fn=console_line) -> list:
+    """Run ``entry(rank, relay, *args)`` on ``nprocs`` spawned ranks
+    (``torch.multiprocessing``, ``spawn``) joined in one process group
+    at a fresh ``file://`` rendezvous (deleted after the run); returns
+    every rank's return value, in rank order.
+
+    ``entry`` must be a module-level function of this package (a
+    spawned rank imports it, and so neither a test nor JAX).  The
+    backend is NCCL for ``cuda`` and gloo for ``cpu`` unless ``backend``
+    says otherwise (gloo on ``cuda`` lets ranks share a card, each on
+    ``cuda:(rank % device_count)``).  Console lines a rank sends through
+    its ``relay`` reach ``log_fn`` as they come.  A rank's exception is
+    raised here (the lowest failed rank's, with its traceback as a
+    note) once every rank has ended, or ``FAIL_GRACE_S`` after the first
+    failure; past ``timeout`` seconds every rank is killed and
+    ``TimeoutError`` raised."""
+    import torch.multiprocessing as mp
+    backend = backend or ("nccl" if torch.device(device).type == "cuda"
+                          else "gloo")
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="rendezvous-")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=_rank_entry, daemon=True,
+                         args=(r, nprocs, init, backend, device,
+                               torch.get_num_threads(), entry, args, out))
+             for r in range(nprocs)]
+    results, errors = {}, {}
+    t0, failed = time.monotonic(), None
+
+    def drain(wait: float) -> None:
+        try:
+            kind, rank, val = out.get(timeout=wait)
+        except queue_mod.Empty:
+            return
+        if kind == "log":
+            log_fn(val)
+        elif kind == "result":
+            results[rank] = pickle.loads(val)
+        else:
+            errors[rank] = val
+
+    try:
+        for p in procs:
+            p.start()
+        while any(p.is_alive() for p in procs):
+            drain(0.1)
+            now = time.monotonic()
+            if failed is None and (errors or any(
+                    p.exitcode not in (None, 0) for p in procs)):
+                failed = now
+            if timeout is not None and now - t0 > timeout:
+                raise TimeoutError(f"{nprocs} ranks still running after "
+                                   f"{timeout} s: killed")
+            if failed is not None and now - failed > FAIL_GRACE_S:
+                break
+        # what the ranks sent before they ended is in the queue's pipe
+        end = time.monotonic() + 10
+        while len(results) + len(errors) < nprocs \
+                and time.monotonic() < end:
+            drain(0.1)
+    finally:
+        for p in procs:
+            if p.pid is None:           # never started
+                continue
+            if p.is_alive():
+                p.kill()
+            p.join()
+        out.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        rank = min(errors)
+        blob, tb = errors[rank]
+        exc = pickle.loads(blob)
+        exc.add_note(f"(rank {rank} of {nprocs})\n{tb}")
+        raise exc
+    if len(results) != nprocs:
+        codes = [p.exitcode for p in procs]
+        raise RuntimeError(f"ranks ended with exit codes {codes} and "
+                           f"{len(results)} results")
+    return [results[r] for r in range(nprocs)]
+
+
+def _train_rank(rank: int, relay, cfg: TrainConfig):
+    """One rank of a sharded ``train``: this rank's part on a mesh over
+    the process group; rank 0 returns its result (the state as NumPy)."""
+    res = _train(cfg, relay, _checked(cfg), make_device_mesh())
+    if rank:
+        return None
+    keep = ("best", "history", "baselines", "policy_kind", "fleets")
+    return dict({k: res[k] for k in keep},
+                state=_state_to_numpy(res["state"]))
+
+
+def _train_sharded(cfg: TrainConfig, log_fn, checked) -> dict:
+    """``train`` at ``--devices N > 1``: N ranks, rank 0's result with
+    the env, policy config and spec built here."""
+    (out,) = spawn_ranks(_train_rank, cfg.devices, cfg, device=cfg.device,
+                         log_fn=log_fn)[:1]
+    churn_cfg, _, kind, fleets = checked
+    run = _build_run(cfg, kind, fleets, churn_cfg)
+    return dict(out, state=D.ddpg_state_from_numpy(out["state"], run.dcfg,
+                                                   device=cfg.device),
+                env=run.env, pcfg=run.pcfg, spec=run.spec)
+
+
+def sharded_rounds_rank(rank: int, relay, jobs: list) -> list:
+    """One rank of chunks of sharded rounds from given inputs (the
+    tests' and ``chip_smoke.py``'s harness of
+    ``make_sharded_train_rounds``), one chunk a job, in turn on the same
+    process group.  A job holds ``cfg`` (a :class:`TrainConfig`: envs,
+    widths, ``device``), ``kind``, ``state`` (NumPy,
+    :func:`_state_to_numpy`), ``keys`` (the R round seeds), ``sigma``,
+    ``flags`` and ``kw`` (the rounds' keywords).  Returns, a job each,
+    this rank's learner state and ring pair (NumPy), its metrics, its
+    ``lstm_cell`` launches, the seconds of its set-up and of its rounds,
+    and the modules of JAX, ``repro`` or a test it has loaded (none)."""
+    import sys
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    mesh = make_device_mesh()
+    np_tree = lambda t: {k: (np_tree(v) if isinstance(v, dict) else
+                             v.cpu().numpy() if torch.is_tensor(v) else v)
+                         for k, v in t.items()}
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        cfg = job["cfg"]
+        run = _build_run(cfg, job["kind"], cfg.fleet.split(","), None, mesh)
+        state = D.ddpg_state_from_numpy(job["state"], run.dcfg,
+                                        device=cfg.device)
+        pair = run.replay_init(cfg.replay_capacity)
+        cell_ops.LAUNCHES = 0
+        if run.env.device.type == "cuda":
+            torch.cuda.synchronize()
+        # the ranks start their rounds together: a rank's wall time then
+        # leaves out its peers' start-up
+        dist.barrier(group=mesh.get_group(MESH_AXIS))
+        t1 = time.perf_counter()
+        state, pair, sigma, mets = run.rounds(state, pair, job["keys"],
+                                              job["sigma"], job["flags"],
+                                              **job["kw"])
+        if run.env.device.type == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "repro", "tests") or m.split(".")[-1].startswith("test_"))
+        out.append(dict(state=_state_to_numpy(state), pair=np_tree(pair),
+                        sigma=sigma, metrics=mets,
+                        launches=cell_ops.LAUNCHES, setup_s=t1 - t0,
+                        secs=t2 - t1, loaded=loaded))
+    return out
 
 
 _HELP = {
@@ -512,7 +831,14 @@ _HELP = {
     "scenario": "arrival preset: default | steady | burst | diurnal | "
                 "heavy_tail (sim.arrivals)",
     "batch_episodes": "episodes collected per training round",
-    "devices": "1 (sharded rounds over N devices: ROADMAP A11)",
+    "devices": "shard each round over N devices, one spawned process a "
+               "device (collection splits, each update gathers a global "
+               "minibatch from every rank's ring, per-rank double-"
+               "buffered replay rings); batch-episodes, batch-size and "
+               "replay-capacity divisible by N, episodes a multiple of "
+               "batch-episodes, no --churn, and on cuda N <= "
+               "torch.cuda.device_count() (NCCL; --device cpu: gloo); "
+               "1 = the single-device path (parity oracle)",
     "churn": "in-episode fleet-churn preset drawn fresh per round: none | "
              "fail | throttle | slowdown | join | mixed (sim.churn)",
     "eval_baselines": 'comma list scored on the eval seeds before '
@@ -530,7 +856,7 @@ _HELP = {
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
-        description="RELMAS DDPG training driver (PyTorch, one device)",
+        description="RELMAS DDPG training driver (PyTorch)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     for f in dataclasses.fields(TrainConfig):
         ap.add_argument(f"--{f.name.replace('_', '-')}", type=type(f.default),

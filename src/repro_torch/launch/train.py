@@ -20,8 +20,8 @@ Each step writes the update into the state's own tensors, as the
 reference's ``jax.jit(..., donate_argnums=(0, 1))`` donates them: one
 copy of the parameters and moments is held, not two.
 
-The mesh and the sharding rules of the reference have no counterpart on
-one device (ROADMAP A11).  Weights are drawn on the device by a
+The mesh and the sharding rules of the reference are not ported yet
+(ROADMAP A11b).  Weights are drawn on the device by a
 ``torch.Generator`` seeded from ``--seed``; each step's batch is drawn
 by NumPy and moved to the device.
 

@@ -1,7 +1,7 @@
-"""Runtime substrate of LM training: failure injection and restart
-supervision, gradient compression.  ``repro.runtime``'s elastic
-resharding and straggler budget need more than one device and are not
-ported here."""
+"""Runtime substrate of training: failure injection and restart
+supervision, gradient compression, straggler budgets and the churn
+schedule's degradation draws.  ``repro.runtime``'s elastic resharding
+(the LM mesh) is not ported here."""
 from repro_torch.runtime.compression import (CompressionState,
                                              compress_grads,
                                              compression_ratio,
@@ -10,10 +10,13 @@ from repro_torch.runtime.compression import (CompressionState,
                                              topk_sparsify)
 from repro_torch.runtime.fault import (FailureInjector, SimulatedFailure,
                                        failure_schedule, run_with_restarts)
+from repro_torch.runtime.straggler import (TimeBudget, slowdown_schedule,
+                                           throttle_schedule)
 
 __all__ = [
     "SimulatedFailure", "FailureInjector", "failure_schedule",
     "run_with_restarts", "quantize_int8", "dequantize_int8",
     "CompressionState", "compress_grads", "decompress_grads",
     "topk_sparsify", "compression_ratio",
+    "TimeBudget", "slowdown_schedule", "throttle_schedule",
 ]

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.fault import failure_schedule
+from repro_torch.runtime.straggler import slowdown_schedule, throttle_schedule
 
 # event codes (the `code` column of the fixed-shape event arrays)
 EV_NONE, EV_FAIL, EV_JOIN, EV_THROTTLE, EV_SLOWDOWN = 0, 1, 2, 3, 4
@@ -106,8 +107,9 @@ def _window(periods: int, window: tuple[float, float]) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# NumPy host path (the JAX package's runtime draw helpers; the fail-stop
-# one is ``runtime/fault.py::failure_schedule``)
+# NumPy host path (the JAX package's runtime draw helpers: the fail-stop
+# one is ``runtime/fault.py::failure_schedule``, the degradations
+# ``runtime/straggler.py``'s, the join's below)
 # ---------------------------------------------------------------------------
 def _draw(rng: np.random.Generator, n: int, periods: int, num_sas: int,
           window: tuple[float, float]) -> tuple[np.ndarray, np.ndarray]:
@@ -122,14 +124,6 @@ def _draw(rng: np.random.Generator, n: int, periods: int, num_sas: int,
 def join_schedule(rng, *, periods, num_sas, n=1, window=(0.25, 0.75)):
     """Elastic-join events."""
     return _draw(rng, max(0, min(int(n), num_sas)), periods, num_sas, window)
-
-
-def degradation_schedule(rng, *, periods, num_sas, n=1, window=(0.25, 0.75),
-                         magnitude=4.0):
-    """Slowdown / throttle events: (period, sa, mag)."""
-    p, sa = _draw(rng, max(0, min(int(n), num_sas)), periods, num_sas,
-                  window)
-    return p, sa, np.full(len(p), magnitude, np.float32)
 
 
 def no_op_events(max_events: int = 4) -> dict[str, np.ndarray]:
@@ -158,9 +152,12 @@ def churn_events(cfg: ChurnConfig, periods: int, num_sas: int,
         elif code == EV_JOIN:
             p, sa = join_schedule(rng, n=n, **kw)
             mag = np.ones(len(p), np.float32)
+        elif code == EV_THROTTLE:
+            p, sa, mag = throttle_schedule(rng, n=n,
+                                           magnitude=cfg.magnitude, **kw)
         else:
-            p, sa, mag = degradation_schedule(rng, n=n,
-                                              magnitude=cfg.magnitude, **kw)
+            p, sa, mag = slowdown_schedule(rng, n=n,
+                                           magnitude=cfg.magnitude, **kw)
         rows += [(int(pi), int(si), code, float(gi))
                  for pi, si, gi in zip(p, sa, mag)]
     for i, (p, s, c, g) in enumerate(rows[:cfg.max_events]):

@@ -69,7 +69,8 @@ def test_every_module_imports_with_jax_blocked():
         "       'repro_torch.optim.optimizers',\n"
         "       'repro_torch.optim.schedules', 'repro_torch.data.pipeline',\n"
         "       'repro_torch.runtime.fault', 'repro_torch.runtime.compression',\n"
-        "       'repro_torch.launch.train', 'repro_torch.tree'}\n"
+        "       'repro_torch.launch.train', 'repro_torch.tree',\n"
+        "       'repro_torch.runtime.straggler'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -2,7 +2,9 @@
 the token pipeline (``repro_torch.data``, bit-equal), failure injection
 and restart supervision (``runtime.fault``; the reference's
 ``tests/test_runtime.py`` cases, ported), gradient compression
-(``runtime.compression``) and bfloat16 leaves in checkpoints.
+(``runtime.compression``), the straggler helpers (``runtime.straggler``:
+the degradation draws bit-equal on the same NumPy generator, the time
+budget's cut) and bfloat16 leaves in checkpoints.
 
 Tolerances: the pipeline, ``failure_schedule``, int8 codes and top-k
 masks are compared bit for bit (the same NumPy draws; ``torch.round``
@@ -22,6 +24,7 @@ from repro.ckpt import restore_checkpoint as jax_restore
 from repro.data import TokenPipeline as JTokenPipeline
 from repro.data import synthetic_batch as jax_synthetic_batch
 from repro.runtime.compression import compression_ratio as jax_ratio
+from repro.runtime import straggler as JST
 from repro.runtime.fault import failure_schedule as jax_failure_schedule
 from repro_torch import runtime as RT
 from repro_torch.ckpt import CheckpointManager, restore_checkpoint
@@ -296,3 +299,47 @@ def test_jax_bf16_leaf_restores_in_the_port(tmp_path):
     assert got["w"].dtype == torch.bfloat16
     assert got["w"].view(torch.int16).numpy().tobytes() == \
         np.asarray(jw).tobytes()
+
+
+# ------------------------------------------------------------ straggler
+@pytest.mark.parametrize("name", ["slowdown_schedule", "throttle_schedule"])
+@pytest.mark.parametrize("seed,periods,num_sas,n,window,magnitude", [
+    (0, 60, 6, 1, (0.25, 0.75), 4.0), (3, 12, 8, 3, (0.1, 0.9), 2.5),
+    (5, 30, 4, 9, (0.5, 0.5), 8.0), (7, 10, 6, 0, (0.25, 0.75), 4.0)])
+def test_degradation_draws_equal_the_reference(name, seed, periods, num_sas,
+                                               n, window, magnitude):
+    """The same NumPy generator, the same (period, sa, mag) bit for bit,
+    ``n`` clamped to the fleet, distinct SAs; and the generator left in
+    the same state (the churn draws that follow agree too)."""
+    kw = dict(periods=periods, num_sas=num_sas, n=n, window=window,
+              magnitude=magnitude)
+    rng, jrng = np.random.default_rng(seed), np.random.default_rng(seed)
+    got = getattr(RT, name)(rng, **kw)
+    want = getattr(JST, name)(jrng, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert len(set(got[1].tolist())) == len(got[1]) == min(n, num_sas)
+    assert rng.random() == jrng.random()
+
+
+def test_churn_degradations_come_from_the_straggler_module():
+    assert churn.slowdown_schedule is RT.slowdown_schedule
+    assert churn.throttle_schedule is RT.throttle_schedule
+
+
+@pytest.mark.parametrize("seconds,min_items,want", [(1e9, 1, 5), (0.0, 1, 1),
+                                                    (0.0, 3, 3)])
+def test_time_budget_cuts_like_the_reference(seconds, min_items, want):
+    """An ample budget runs every producer; a spent one stops after
+    ``min_items``, as the reference's does."""
+    calls = []
+    mk = lambda i: (lambda: calls.append(i) or i)
+    got = RT.TimeBudget(seconds).collect([mk(i) for i in range(5)],
+                                         min_items=min_items)
+    ref = JST.TimeBudget(seconds).collect([mk(i) for i in range(5)],
+                                          min_items=min_items)
+    assert got == ref == list(range(want))
+    budget = RT.TimeBudget(1e9)
+    budget.reset()
+    assert not budget.exhausted

@@ -248,11 +248,17 @@ def test_evaluate_batch_matches_jax(envs):
 # one training round
 # ---------------------------------------------------------------------------
 def _jax_round_draws(jenv, key, batch_episodes, num_updates, batch_size,
-                     size_after):
-    """What the JAX round takes from its key (train.py:137)."""
+                     size_after, device=None, min_lat=None):
+    """What the JAX round takes from its key (train.py:137); with
+    ``device``, what device ``device`` of a sharded round takes from
+    ``fold_in(key, device)`` (train.py:370), ``size_after`` then being
+    its read ring's size and the counts its shares; ``min_lat`` a
+    generalist fleet's table."""
+    if device is not None:
+        key = jax.random.fold_in(key, device)
     ktrace, kroll, kup = jax.random.split(key, 3)
-    tr = generate_traces_jax(jenv.min_lat, jenv.arrivals, ktrace,
-                             batch_episodes)
+    tr = generate_traces_jax(jenv.min_lat if min_lat is None else min_lat,
+                             jenv.arrivals, ktrace, batch_episodes)
     z = jax.random.normal(kroll, (batch_episodes, KW["periods"],
                                   KW["max_rq"], jenv.act_dim))
     idx = [jax.random.randint(k, (batch_size,), 0, max(size_after, 1))
@@ -346,13 +352,17 @@ def test_driver_crash_resume_continues_the_stream(tmp_path, capsys):
 
 
 def test_driver_rejects_what_is_not_ported(tmp_path):
-    """Only multi-device rounds (A11) still raise; telemetry (A9) runs
-    and writes a valid stream and a trace, and churn, MAGMA and the
-    generalist run (tests/test_torch_churn.py, test_torch_magma.py,
-    test_torch_generalist.py, test_torch_telemetry_paths.py)."""
+    """Every path of the reference's driver runs: multi-device rounds
+    (A11a) on two gloo ranks (tests/test_torch_sharded_driver.py),
+    telemetry (A9) with a valid stream and a trace, churn, MAGMA and the
+    generalist (tests/test_torch_churn.py, test_torch_magma.py,
+    test_torch_generalist.py, test_torch_telemetry_paths.py); bad flag
+    values raise."""
     base = SMOKE + ["--outdir", str(tmp_path / "x")]
-    with pytest.raises(NotImplementedError, match="A11"):
-        rl_train.main(base + ["--devices", "2"])
+    res = rl_train.main(SMOKE + ["--outdir", str(tmp_path / "d2"),
+                                 "--devices", "2"])
+    assert [h["episode"] for h in res["history"]] == [1, 3]
+    assert res["state"].step == 4
     stream, trace = tmp_path / "m.jsonl", tmp_path / "p"
     for extra in (["--log-jsonl", str(stream)],
                   ["--profile-dir", str(trace)]):
