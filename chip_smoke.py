@@ -94,7 +94,7 @@ no result:
                         prefill gives ``flash_attention``'s share of its
                         kernel time;
 9. ``lm:batcher``       ``ContinuousBatcher`` at full width, 16 slots,
-                        smax 512, 32 requests of 32 prompt and 64 new
+                        smax 512, 16 requests of 32 prompt and 64 new
                         tokens; all served, 24 ``decode_gqa`` launches
                         per batched decode step;
 10. ``lm:parity``       the same weights cut to 2 layers, on the CPU
@@ -147,7 +147,7 @@ no result:
                         the bound;
 16. ``train:rl_train``  the training driver ``repro_torch.launch.rl_train.
                         main`` at the paper's policy width (hidden 256,
-                        light workload, paper6, 96 RQ slots, 64 jobs, 60
+                        light workload, paper6, 96 RQ slots, 64 jobs, 30
                         periods, 8 episodes a round, batch 32): three
                         rounds, the first a warm-up round, one update per
                         episode, a crash at ``--fail-at 16`` and a rerun
@@ -169,7 +169,7 @@ no result:
                         ``evaluate_batch_baseline`` on mixed / paper6,
                         96 RQ slots, 64 jobs, 8 streams, the arrivals
                         of a 60-period episode with its depth cut to
-                        3 periods: 101 engine calls a period (each
+                        2 periods: 101 engine calls a period (each
                         over 800 rows), the elite non-decreasing and at
                         or above the Herald individual in every period;
                         seconds a period and the SLA beside Herald's; a
@@ -190,8 +190,8 @@ no result:
 20. ``train:generalist``  ``rl_train`` over paper6, 4simba_4eyeriss and
                         2simba_2eyeriss as one generalist (m_max 8,
                         F = 84) under ``--churn mixed``, ``--best-metric
-                        min_fleet``: two rounds, a per-fleet eval, the
-                        same exact launch counts;
+                        min_fleet``: two rounds of 30-period episodes,
+                        a per-fleet eval, the same exact launch counts;
 21. ``serve:generalist``  ``launch/serve.py`` with that checkpoint on
                         big_little, a fleet it never trained on, 32
                         streams x 60 periods: ``lstm_seq`` exactly once a
@@ -253,7 +253,7 @@ no result:
                         ``decode_gqa`` per step; the share of the
                         prefill's assignments that capacity dropped;
 28. ``lm:olmoe_batcher``  ``ContinuousBatcher`` on olmoe as phase 9
-                        (16 slots, 32 requests);
+                        (16 slots, 16 requests);
 29. ``lm:olmoe_parity``  the olmoe weights cut to 2 layers, CPU against
                         card as phase 10: in float32 with equal routes
                         and logits within ``OLMOE_F32_TOL``, then in
@@ -355,7 +355,10 @@ no result:
                         ``size`` and ``pending_n`` equal, ring values
                         within ``TRAIN_TOL``, losses within rtol 1e-4,
                         parameters within 2 lr per update, exact
-                        ``lstm_cell`` launches;
+                        ``lstm_cell`` launches; then the same in the
+                        local-sample topology (``update_gather=False``:
+                        each shard's update on its own 8 rows, the
+                        gradients and losses averaged over the 4);
 40. ``train:sharded_ranks``  the unsharded rounds at that size, timed;
                         then 2 ranks sharing the card over gloo
                         (``spawn_ranks`` of ``sharded_rounds_rank``:
@@ -383,6 +386,35 @@ no result:
                         no outdir); with two or more, two NCCL ranks
                         crash at ``--fail-at 8`` and the run resumes at
                         ``--devices 1``; it prints which of the two ran.
+43. ``train:lm_mesh``   (after phase 38) internlm2-1.8b at full width
+                        (d 2048, 16 / 8 heads of 128, d_ff 8192, vocab
+                        92,544) cut to 2 layers in float32: the
+                        one-process run on the card (3 train steps of
+                        4 x 512 from seed 0, then a prefill of 4 x 512
+                        and 16 greedy decode steps), and each kernel at
+                        every head-shard shape a (data, model) mesh gives
+                        it (replicated kv heads too) against its plain
+                        version; then one spawn of 2 ranks sharing the
+                        card over gloo (``spawn_ranks`` of
+                        ``launch.train.mesh_steps_rank``, a ``cuda``
+                        ``DeviceMesh``): the 3 train steps on a (2, 1)
+                        and on a (1, 2) mesh (DTensor parameters, moments
+                        and batch; ``flash_attention`` on each rank's
+                        head shard), loss and gnorm within rtol 1e-4 of
+                        the one-process run and every parameter within 2
+                        lr per step; the (2, 1) parameters saved and
+                        ``reshard_restore``d onto (1, 2), every leaf's
+                        block bit-equal; on (1, 2) the prefill and the
+                        16 greedy steps (``decode_gqa`` on each rank's
+                        kv heads, the cache written in the block that
+                        owns the slot): tokens equal, logits within
+                        ``LM_F32_TOL``; each leaf's local shape and
+                        placements, each rank's launches (added to the
+                        kernels line), peak memory and seconds, the
+                        spawn's seconds;
+44. ``train:lm_mesh_nccl``  with four or more cards, the same on a
+                        (2, 2) mesh (restored onto (4, 1)) over NCCL, a
+                        card a rank; with fewer a line that says so.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -399,6 +431,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -473,9 +506,10 @@ DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, LM_MID, torch.bfloat16),
                  (VL_B, 64, 8, LM_PAD, 128, LM_MID, torch.bfloat16),
                  (16, 64, 8, 512, 128, "batcher", torch.bfloat16)]
 LM_ARCH = "internlm2-1.8b"
-# the internlm2 and olmoe batchers: two waves of requests through 16
-# slots (depth cut to leave the training phases their time)
-BATCHER_REQUESTS = 32
+# the internlm2 and olmoe batchers: one wave of requests through 16
+# slots (depth cut to leave the training phases their time: two waves
+# until the LM mesh phases came)
+BATCHER_REQUESTS = 16
 # card (kernels) against CPU (plain versions), bf16 weights and
 # activations: the tolerance of the port against JAX on the CPU
 # (tests/test_torch_lm.py), a few bf16 ulps of |logit| < 8 per logit
@@ -530,8 +564,11 @@ GEN_CELL_SHAPES = [(8, 84, 256), (32, 84, 256), (32, 93, 256),
                    (4, 84, 256)]
 CELL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 RL_T = 97                       # LSTM steps: 1 primer + 96 RQ slots
+# train:rl_train's and train:generalist's episodes, cut from 60 to 30
+# periods to make room for the LM mesh phases
+RL_PERIODS = 30
 RL_ARGS = ["--workload", "light", "--fleet", "paper6", "--hidden", "256",
-           "--max-rq", "96", "--max-jobs", "64", "--periods", "60",
+           "--max-rq", "96", "--max-jobs", "64", "--periods", str(RL_PERIODS),
            "--batch-episodes", "8", "--batch-size", "32", "--episodes", "24",
            "--updates-per-episode", "1", "--warmup-episodes", "8",
            "--ckpt-every", "8", "--eval-every", "24", "--eval-seeds", "2"]
@@ -552,6 +589,15 @@ TP_B, TP_S, TP_STEPS = 2, 128, 3
 TF_B, TF_S, TF_STEPS = 2, 512, 3
 TRAIN_FAMILIES = (("mamba2-2.7b", 2), ("olmoe-1b-7b", 2),
                   ("whisper-tiny", None), ("internvl2-76b", 2))
+# the LM on a (data, model) mesh (phases 43-44): internlm2-1.8b at full
+# width cut to 2 layers in float32, 3 train steps of 4 x 512 on each
+# mesh, a prefill of 4 x 512 and 16 greedy steps on the head-split one;
+# logits held to the float32 tolerance of the LM parity phases
+LMM_LAYERS, LMM_B, LMM_S, LMM_STEPS, LMM_DEC = 2, 4, 512, 3, 16
+LMM_PAD = LMM_S + LMM_DEC
+LMM_MESHES = ((2, 1), (1, 2))
+LMM_NCCL_MESH = (2, 2)
+LM_F32_TOL = OLMOE_F32_TOL
 
 
 def card() -> str:
@@ -2600,7 +2646,8 @@ def rl_train_phase(CARD):
         raise AssertionError("train:rl_train: the rerun did not resume")
     # 3 rounds rolled out (2 before the crash, 1 after), one eval at the
     # end, 8 updates in each of the two rounds past the warm-up
-    want = rl_expected_launches(rounds=3, eval_runs=1, updates=16)
+    want = rl_expected_launches(rounds=3, eval_runs=1, updates=16,
+                                periods=RL_PERIODS)
     if launches != want:
         raise AssertionError(f"train:rl_train: lstm_cell launched "
                              f"{launches} times, expected {want}")
@@ -2617,11 +2664,12 @@ def rl_train_phase(CARD):
         raise AssertionError(f"train:rl_train: spans {n}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  train:rl_train light/paper6 hidden=256 T={RL_T} 8 episodes x "
-          f"60 periods a round, batch 32 [{CARD}]: rounds=3 (1 warm-up) "
+          f"{RL_PERIODS} periods a round, batch 32 [{CARD}]: rounds=3 (1 "
+          f"warm-up) "
           f"updates=16 round_ms="
           f"{'/'.join(f'{us / 1e3:.1f}' for us in spans.each['round'])} "
           f"(a warm-up round, then two of 8 updates) rollout_period_ms="
-          f"{spans.us['rollout'] / 180e3:.2f} update_ms p50="
+          f"{spans.us['rollout'] / (3e3 * RL_PERIODS):.2f} update_ms p50="
           f"{pct(spans.each['update'], 50) / 1e3:.1f} mean="
           f"{spans.us['update'] / 16e3:.1f} "
           f"peak_mem_gb={peak_gb:.3f} lstm_cell launches={launches} "
@@ -2764,8 +2812,9 @@ def train_parity_phase(CARD):
 # RELMAS on a changing fleet: MAGMA, churn, the generalist
 # ---------------------------------------------------------------------------
 # depth cuts that keep the new phases within ~3 minutes: every MAGMA
-# engine call is ~130 ms of host-bound event loop at any row count
-MAGMA_STREAMS, MAGMA_PERIODS = 8, 3
+# engine call is ~130 ms of host-bound event loop at any row count (3
+# periods until the LM mesh phases came)
+MAGMA_STREAMS, MAGMA_PERIODS = 8, 2
 # cut from 30 to 15 to make room for the sharded phases (39-42)
 CHURN_PERIODS = 15
 RLC_ARGS = ["--workload", "light", "--hidden", "256", "--max-rq", "96",
@@ -3008,10 +3057,12 @@ def train_generalist_phase(CARD) -> str:
     with spans:
         res = rl_train.main(RLC_ARGS + [
             "--fleet", GEN_FLEETS, "--policy-kind", "generalist",
-            "--best-metric", "min_fleet", "--outdir", out])
+            "--best-metric", "min_fleet", "--outdir", out,
+            "--periods", str(RL_PERIODS)])
     launches = cell_ops.LAUNCHES
     fleets = GEN_FLEETS.split(",")
-    want = rl_expected_launches(rounds=2, eval_runs=len(fleets), updates=8)
+    want = rl_expected_launches(rounds=2, eval_runs=len(fleets), updates=8,
+                                periods=RL_PERIODS)
     if launches != want:
         raise AssertionError(f"train:generalist: lstm_cell launched "
                              f"{launches} times, expected {want}")
@@ -3194,15 +3245,18 @@ def shard_run(cfg, kind: str, num_devices: int):
     return run, envs, state, pairs
 
 
-def shard_oracle(cfg, kind, num_devices, draws_fn=None):
+def shard_oracle(cfg, kind, num_devices, draws_fn=None,
+                 update_gather: bool = True):
     """The in-process oracle over SHARD_FLAGS's rounds (seeds
-    ``round_keys(1, 0, 2)``).  Returns (state, pairs, metrics, wall s,
+    ``round_keys(1, 0, 2)``), its updates on the gathered batch or, with
+    ``update_gather=False``, on each shard's own samples with the
+    gradients averaged.  Returns (state, pairs, metrics, wall s,
     ``lstm_cell`` launches)."""
     from repro_torch.core import generalist as G
     from repro_torch.core import train as TR
     from repro_torch.kernels.lstm_cell import ops as cell_ops
     run, envs, state, pairs = shard_run(cfg, kind, num_devices)
-    kw = shard_kw(cfg)
+    kw = dict(shard_kw(cfg), update_gather=update_gather)
     if draws_fn is not None:
         kw["draws_fn"] = draws_fn
     keys = TR.round_keys(1, 0, len(SHARD_FLAGS))
@@ -3225,67 +3279,77 @@ def shard_oracle(cfg, kind, num_devices, draws_fn=None):
     return state, pairs, mets, time.perf_counter() - t0, cell_ops.LAUNCHES
 
 
-def shard_launches(shard_episodes: int, periods: int) -> int:
+def shard_launches(shard_episodes: int, periods: int,
+                   update_shards: int = 1) -> int:
     """``lstm_cell`` launches of SHARD_FLAGS's rounds holding
     ``shard_episodes`` shards' episodes: T a period for each shard
-    collected, 5 T an update."""
+    collected, 5 T an update for each of ``update_shards`` batches (one
+    gathered batch, or every shard's own in the local-sample
+    topology)."""
     return RL_T * (shard_episodes * periods * len(SHARD_FLAGS)
-                   + 5 * SHARD_UPDATES)
+                   + 5 * SHARD_UPDATES * update_shards)
 
 
 def train_sharded_phase(CARD):
     """``sharded_rounds_reference`` at D = 4 on the card (kernels) and on
     the CPU (plain versions) from the same state and draws (made on the
-    CPU from the same seeds), held as train:parity holds one round."""
+    CPU from the same seeds), held as train:parity holds one round; in
+    the gathered-batch topology, then in the local-sample one (each
+    shard's update on its own rows, the gradients averaged)."""
     from repro_torch.core import train as TR
     from repro_torch.core import rollout
     cfgs = {d: shard_cfg(SHARD_PERIODS, device=d) for d in ("cpu", "cuda")}
     run, cpu_env = shard_run(cfgs["cpu"], "specialist", 1)[:2]
     draws_fn = lambda env, seed, shared, **kw: TR.round_draws(cpu_env, seed,
                                                               **kw)
-    res, mets, inner = {}, {}, rollout.collect_episodes
+    inner = rollout.collect_episodes
+    for gather in (True, False):
+        res, mets = {}, {}
+        label = "train:sharded" + ("" if gather else " local-sample")
 
-    def capture(*a, **k):
-        out = inner(*a, **k)
-        mets.setdefault(dev, []).append({k: out[3][k].cpu()
-                                         for k in ("counted", "hits")})
-        return out
-    rollout.collect_episodes = capture
-    try:
-        for dev in ("cpu", "cuda"):
-            res[dev] = shard_oracle(cfgs[dev], "specialist", SHARD_D,
-                                    draws_fn)
-            print(f"  train:sharded oracle D={SHARD_D} on {dev} [{CARD}]: "
-                  f"{res[dev][3]:.2f}s for {len(SHARD_FLAGS)} rounds "
-                  f"lstm_cell launches={res[dev][4]}", flush=True)
-    finally:
-        rollout.collect_episodes = inner
-    want = shard_launches(SHARD_D, SHARD_PERIODS)
-    if res["cuda"][4] != want:
-        raise AssertionError(f"train:sharded: {res['cuda'][4]} lstm_cell "
-                             f"launches on the card, expected {want}")
-    (sc, pc, mc, _, _), (sg, pg, mg, _, _) = res["cpu"], res["cuda"]
-    for pcpu, pgpu in zip(pc, pg):
-        for ring in ("read", "write"):
-            for k in ("ptr", "size"):
-                if pcpu[ring][k] != pgpu[ring][k]:
-                    raise AssertionError(f"train:sharded: {ring} {k} "
-                                         f"differs")
-        if pcpu["pending_n"] != pgpu["pending_n"]:
-            raise AssertionError("train:sharded: pending_n differs")
-    ring = lambda pairs: {k: torch.cat([p[r][k].cpu() for p in pairs
-                                        for r in ("read", "write")])
-                          for k in ("s", "mask", "a", "r", "s2", "mask2")}
-    cat = lambda ms: {k: torch.cat([m[k] for m in ms])
-                      for k in ("counted", "hits")}
-    last = lambda m: {k: float(v[-1]) for k, v in m.items()}
-    check_round_parity(
-        "train:sharded", {"cpu": (sc, ring(pc), None, last(mc)),
-                          "cuda": (sg, ring(pg), None, last(mg))},
-        {d: cat(mets[d]) for d in mets}, run.dcfg, SHARD_UPDATES,
-        f"D={SHARD_D} hidden={cfgs['cpu'].hidden} "
-        f"{cfgs['cpu'].batch_episodes} episodes x "
-        f"{SHARD_PERIODS} periods, 2 rounds", CARD, loss_rtol=1e-4)
+        def capture(*a, **k):
+            out = inner(*a, **k)
+            mets.setdefault(dev, []).append({k: out[3][k].cpu()
+                                             for k in ("counted", "hits")})
+            return out
+        rollout.collect_episodes = capture
+        try:
+            for dev in ("cpu", "cuda"):
+                res[dev] = shard_oracle(cfgs[dev], "specialist", SHARD_D,
+                                        draws_fn, update_gather=gather)
+                print(f"  {label} oracle D={SHARD_D} on {dev} [{CARD}]: "
+                      f"{res[dev][3]:.2f}s for {len(SHARD_FLAGS)} rounds "
+                      f"lstm_cell launches={res[dev][4]}", flush=True)
+        finally:
+            rollout.collect_episodes = inner
+        want = shard_launches(SHARD_D, SHARD_PERIODS,
+                              1 if gather else SHARD_D)
+        if res["cuda"][4] != want:
+            raise AssertionError(f"{label}: {res['cuda'][4]} lstm_cell "
+                                 f"launches on the card, expected {want}")
+        (sc, pc, mc, _, _), (sg, pg, mg, _, _) = res["cpu"], res["cuda"]
+        for pcpu, pgpu in zip(pc, pg):
+            for ring in ("read", "write"):
+                for k in ("ptr", "size"):
+                    if pcpu[ring][k] != pgpu[ring][k]:
+                        raise AssertionError(f"{label}: {ring} {k} "
+                                             f"differs")
+            if pcpu["pending_n"] != pgpu["pending_n"]:
+                raise AssertionError(f"{label}: pending_n differs")
+        ring = lambda pairs: {k: torch.cat([p[r][k].cpu() for p in pairs
+                                            for r in ("read", "write")])
+                              for k in ("s", "mask", "a", "r", "s2",
+                                        "mask2")}
+        cat = lambda ms: {k: torch.cat([m[k] for m in ms])
+                          for k in ("counted", "hits")}
+        last = lambda m: {k: float(v[-1]) for k, v in m.items()}
+        check_round_parity(
+            label, {"cpu": (sc, ring(pc), None, last(mc)),
+                    "cuda": (sg, ring(pg), None, last(mg))},
+            {d: cat(mets[d]) for d in mets}, run.dcfg, SHARD_UPDATES,
+            f"D={SHARD_D} hidden={cfgs['cpu'].hidden} "
+            f"{cfgs['cpu'].batch_episodes} episodes x "
+            f"{SHARD_PERIODS} periods, 2 rounds", CARD, loss_rtol=1e-4)
 
 
 def rank_job(cfg, kind: str) -> dict:
@@ -4027,6 +4091,259 @@ def train_lm_families_phase(CARD) -> tuple[int, int]:
     return total[0], total[1]
 
 
+def lm_mesh_reference(cfg, ref_dir: str) -> dict:
+    """The one-process run on the card that the mesh ranks are held to:
+    the train steps from seed 0 (their parameters saved to ``ref_dir``),
+    then the prefill and greedy decode steps with the trained weights.
+    Also holds ``flash_attention`` and ``decode_gqa`` against their
+    plain versions at every head-shard shape the meshes give them."""
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.launch import train
+    from repro_torch.models import (LM, make_decode_step, make_prefill_step,
+                                    make_train_step)
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    step, opt = make_train_step(model, total_steps=100)
+    params, state = model.params, opt.init(model.params)
+    hist = []
+    for i in range(LMM_STEPS):
+        params, state, m = step(params, state, train.train_batch(
+            cfg, 0, i, LMM_B, LMM_S, "cuda"), i)
+        hist.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LMM_STEPS
+    del state
+    save_checkpoint(ref_dir, 0, {"params": params})
+    model.params = params
+    tokens = train.train_batch(cfg, 1, 0, LMM_B, LMM_S, "cuda")["tokens"]
+    serve = train.greedy_decode(make_prefill_step(model, pad_to=LMM_PAD),
+                                make_decode_step(model), tokens, LMM_DEC)
+    serve.pop("cache")
+    shard_errs = lm_mesh_kernel_checks(model, cfg)
+    free(model)
+    return dict(hist=hist, serve=serve, step_s=step_s,
+                secs=time.perf_counter() - t0, kernels=shard_errs)
+
+
+def lm_mesh_kernel_checks(model, cfg) -> list:
+    """Each kernel at every (data, model) split of LMM_MESHES and
+    LMM_NCCL_MESH: a rank's q heads against its kv heads (handed over by
+    ``head_shards.kv_heads_for``, replicated kv too) on its batch rows,
+    against the plain version on the same inputs."""
+    from repro_torch.kernels import head_shards as HS
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.decode_gqa import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    g = torch.Generator(device="cuda").manual_seed(9)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    out = []
+    before = (fa_ops.LAUNCHES, dec_ops.LAUNCHES)
+    for dp, tp in sorted(set(LMM_MESHES + (LMM_NCCL_MESH, (1, 16)))):
+        B, hq = LMM_B // dp, Hq // tp
+        hkv = Hkv // tp if Hkv % tp == 0 else Hkv
+        for r in range(0, tp, max(1, tp // 2)):
+            j0, k0 = r * hq, (r * hkv if Hkv % tp == 0 else 0)
+            q = torch.randn((B, hq, LMM_S, D), generator=g, device="cuda")
+            k, v = (torch.randn((B, hkv, LMM_S, D), generator=g,
+                                device="cuda") for _ in range(2))
+            ks, grp = HS.kv_heads_for(k, j0, hq, Hq // Hkv, k0)
+            vs, _ = HS.kv_heads_for(v, j0, hq, Hq // Hkv, k0)
+            got = fa_ops.flash_attention(q, ks, vs, causal=True)
+            idx = (torch.arange(j0, j0 + hq, device="cuda")
+                   // (Hq // Hkv)) - k0
+            want = fa_ref.attention_chunked(q, k[:, idx], v[:, idx],
+                                            causal=True)
+            err = (got - want).abs().max().item()
+            qd = torch.randn((B, hq, 1, D), generator=g, device="cuda")
+            length = torch.full((B,), LMM_PAD - 3, dtype=torch.int32,
+                                device="cuda")
+            kc, vc = (torch.randn((B, hkv, LMM_PAD, D), generator=g,
+                                  device="cuda") for _ in range(2))
+            kcs, _ = HS.kv_heads_for(kc, j0, hq, Hq // Hkv, k0)
+            vcs, _ = HS.kv_heads_for(vc, j0, hq, Hq // Hkv, k0)
+            dgot = dec_ops.decode_attention(qd, kcs, vcs, length)
+            dwant = dec_ref.decode_attention_ref(qd, kc[:, idx], vc[:, idx],
+                                                 length)
+            derr = (dgot - dwant).abs().max().item()
+            out.append(dict(mesh=(dp, tp), rank=r, q=(B, hq), kv=hkv,
+                            group=grp, flash_err=err, decode_err=derr))
+            if (dp, tp) == LMM_MESHES[-1] and r == 0:
+                # the head-split mesh's shard shapes, timed (the kernels'
+                # own float32 route), beside the plain versions
+                out[-1]["ms"] = {
+                    "flash": cuda_ms(lambda: fa_ops.flash_attention(
+                        q, ks, vs, causal=True), 10),
+                    "flash_plain": cuda_ms(lambda: fa_ref.attention_chunked(
+                        q, k[:, idx], v[:, idx], causal=True), 3),
+                    "decode": cuda_ms(lambda: dec_ops.decode_attention(
+                        qd, kcs, vcs, length), 20),
+                    "decode_plain": cuda_ms(
+                        lambda: dec_ref.decode_attention_ref(
+                            qd, kc[:, idx], vc[:, idx], length), 5)}
+            if err > TOL or derr > TOL:
+                raise AssertionError(f"train:lm_mesh: a shard's kernel "
+                                     f"differs from its plain version: "
+                                     f"{out[-1]}")
+    # these checks are comparisons, not the main path's launches
+    fa_ops.LAUNCHES, dec_ops.LAUNCHES = before
+    return out
+
+
+def lm_mesh_jobs(ref_dir: str, meshes, tmp: str) -> list:
+    """The rank jobs: the train steps on each mesh against the
+    reference; the first mesh's state saved and restored onto the
+    second (elastic); the prefill and decode on the last mesh."""
+    base = dict(arch=LM_ARCH, n_layers=LMM_LAYERS, param_dtype="float32",
+                seed=0, device="cuda")
+    train_ = dict(steps=LMM_STEPS, batch=LMM_B, seq=LMM_S, total_steps=100,
+                  ref=ref_dir)
+    jobs = [dict(base, mesh=m, train=train_) for m in meshes]
+    jobs[0]["elastic"] = dict(dir=os.path.join(tmp, "elastic"),
+                              meshes=[meshes[-1]], state=False)
+    jobs[-1]["serve"] = dict(batch=LMM_B, seq=LMM_S, steps=LMM_DEC,
+                             pad_to=LMM_PAD)
+    return jobs
+
+
+def check_lm_mesh(label, ref, ranks, CARD) -> dict:
+    """The ranks' jobs against the one-process run: loss and gnorm within
+    rtol 1e-4 a step, every parameter within 2 lr per step taken (plus
+    1e-5 of its largest value), the elastic restore bit-equal, the
+    greedy tokens equal and the logits within LM_F32_TOL.  Prints each
+    leaf's local shape against its placements.  Returns the launches of
+    all ranks by kernel."""
+    lrs = sum(h["lr"] for h in ref["hist"])
+    launches = {"flash_attention": 0, "decode_gqa": 0}
+    for j, job in enumerate(ranks[0]):
+        mesh = job["mesh"]
+        for r, rk in enumerate(ranks):
+            res = rk[j]
+            if res["loaded"]:
+                raise AssertionError(f"{label}: rank {r} imported "
+                                     f"{res['loaded']}")
+            for i, (h, w) in enumerate(zip(res["train"], ref["hist"])):
+                for k in ("loss", "gnorm"):
+                    if abs(h[k] - w[k]) > 1e-4 * abs(w[k]):
+                        raise AssertionError(
+                            f"{label} {mesh}: rank {r} step {i} {k} "
+                            f"{h[k]} against {w[k]} (rtol 1e-4)")
+            worst = max(v["max_diff"] / (2 * lrs + 1e-5 * v["max_ref"])
+                        for v in res["params"].values())
+            if worst > 1:
+                raise AssertionError(f"{label} {mesh}: rank {r}'s "
+                                     f"parameters {worst:.3f} of the limit")
+            for kind, n in res["launches"].items():
+                for k in launches:
+                    launches[k] += n[k]
+            print(f"  {label} {mesh} rank {r} [{CARD}]: loss "
+                  + " ".join(f"{h['loss']:.6f}" for h in res["train"])
+                  + " gnorm " + " ".join(f"{h['gnorm']:.4f}"
+                                          for h in res["train"])
+                  + f" params worst/limit={worst:.4f} launches="
+                  f"{res['launches']} peak_gb={res['peak_gb']:.2f} job "
+                  f"{res['secs']:.1f}s (" + " ".join(
+                      f"{k} {v:.1f}" for k, v in res["laps"].items())
+                  + ")", flush=True)
+        leaves = ranks[0][j]["params"]
+        print(f"  {label} {mesh} local shapes [{CARD}]: " + "; ".join(
+            f"{k} {v['shape']}->{v['local']} {v['placements']}"
+            for k, v in leaves.items()), flush=True)
+        for r, rk in enumerate(ranks):
+            for el in rk[j].get("elastic") or ():
+                if not el["equal"]:
+                    raise AssertionError(f"{label}: rank {r}'s restore "
+                                         f"onto {el['mesh']} differs")
+        for el in ranks[0][j].get("elastic") or ():
+            print(f"  {label} elastic [{CARD}]: parameters saved on "
+                  f"{mesh}, reshard_restore onto {el['mesh']}: "
+                  f"{el['leaves']} "
+                  f"leaves bit-equal on every rank", flush=True)
+        got = ranks[0][j].get("serve")
+        if got is not None:
+            want = ref["serve"]
+            if not np.array_equal(got["tokens"], want["tokens"]):
+                raise AssertionError(f"{label} {mesh}: greedy tokens "
+                                     f"differ from the one-process run")
+            diff = np.abs(got["logits"] - want["logits"])
+            lim = LM_F32_TOL["atol"] + LM_F32_TOL["rtol"] * np.abs(
+                want["logits"])
+            if (diff > lim).any() or diff.mean() > LM_F32_TOL["mean"]:
+                raise AssertionError(f"{label} {mesh}: logits "
+                                     f"{diff.max():.3e} apart (mean "
+                                     f"{diff.mean():.3e})")
+            cache = ranks[0][j]["cache"]
+            print(f"  {label} {mesh} prefill {LMM_B} x {LMM_S} + {LMM_DEC} "
+                  f"greedy steps [{CARD}]: tokens equal to the one-process "
+                  f"run, logits max_abs_err {diff.max():.3e} mean "
+                  f"{diff.mean():.3e} (tol {LM_F32_TOL}); cache " + "; ".join(
+                      f"{k} {v['shape']}->{v['local']} {v['placements']}"
+                      for k, v in cache.items()), flush=True)
+    return launches
+
+
+def lm_mesh_run(label: str, meshes, backend: str, CARD) -> dict:
+    """The one-process reference, then one spawn of ranks (gloo sharing
+    the card, or NCCL a card each) running the jobs of ``meshes``, held
+    to it.  Returns the ranks' launches by kernel."""
+    from repro_torch.launch import rl_train
+    from repro_torch.launch import train
+    cfg = train.mesh_config(LM_ARCH, n_layers=LMM_LAYERS,
+                            param_dtype="float32")
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm_mesh-", dir=os.path.join(ROOT, "runs"))
+    ref_dir = os.path.join(tmp, "ref")
+    try:
+        ref = lm_mesh_reference(cfg, ref_dir)
+        print(f"  {label} one process [{CARD}]: {cfg.name} "
+              f"{cfg.n_layers} layers float32, {LMM_STEPS} steps of {LMM_B} "
+              f"x {LMM_S}: loss " + " ".join(
+                  f"{h['loss']:.6f}" for h in ref["hist"])
+              + f"; step {ref['step_s'] * 1e3:.1f} ms; with the serve "
+              f"steps and the saves {ref['secs']:.1f}s; shard kernels: "
+              + "; ".join(f"{k['mesh']} r{k['rank']} q{k['q']} kv{k['kv']} "
+                          f"g{k['group']} flash {k['flash_err']:.2e} decode "
+                          f"{k['decode_err']:.2e}" + "".join(
+                              f" {n}_ms {v:.4f}" for n, v in
+                              k.get("ms", {}).items())
+                          for k in ref["kernels"]), flush=True)
+        n = meshes[0][0] * meshes[0][1]
+        t0 = time.perf_counter()
+        ranks = rl_train.spawn_ranks(train.mesh_steps_rank, n,
+                                     lm_mesh_jobs(ref_dir, meshes, tmp),
+                                     device="cuda", backend=backend,
+                                     timeout=RANK_TIMEOUT_S)
+        print(f"  {label} {n} ranks over {backend}: spawn to join "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        return check_lm_mesh(label, ref, ranks, CARD)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_lm_mesh_phase(CARD) -> dict:
+    """internlm2-1.8b (full width, 2 layers, float32) on 2 ranks sharing
+    the card over gloo (phase 43): train steps on a (2, 1) and a (1, 2)
+    mesh, the elastic restore between them, prefill and decode on (1, 2),
+    against the one-process run on the card.  Returns the ranks'
+    launches by kernel."""
+    return lm_mesh_run("train:lm_mesh", LMM_MESHES, "gloo", CARD)
+
+
+def train_lm_mesh_nccl_phase(CARD) -> dict:
+    """With four cards, the same on a (2, 2) mesh over NCCL, a card a
+    rank, restored onto (4, 1) (phase 44); with fewer, a line that says
+    so."""
+    n = torch.cuda.device_count()
+    need = LMM_NCCL_MESH[0] * LMM_NCCL_MESH[1]
+    if n < need:
+        print(f"  train:lm_mesh_nccl [{CARD}]: {n} card, too few for "
+              f"{need} NCCL ranks: not run", flush=True)
+        return {"flash_attention": 0, "decode_gqa": 0}
+    return lm_mesh_run("train:lm_mesh_nccl", (LMM_NCCL_MESH, (need, 1)),
+                       "nccl", CARD)
+
+
 def free(model) -> None:
     """Drop the model's weights from the card before the next model:
     the phases' closures and profiler windows can hold it in reference
@@ -4157,6 +4474,11 @@ def main() -> int:
         train_lm_parity_phase(CARD)
     with phase("train:lm_families"):
         tf_launches = train_lm_families_phase(CARD)
+    with phase("train:lm_mesh"):
+        mesh_launches = train_lm_mesh_phase(CARD)
+    with phase("train:lm_mesh_nccl"):
+        for k, n in train_lm_mesh_nccl_phase(CARD).items():
+            mesh_launches[k] += n
 
     kernels = [
         dict(name="lstm_seq", route="cuda",
@@ -4169,12 +4491,13 @@ def main() -> int:
                       "flash_attention.py:87",
              launches=lm_launches[0] + wh_launches[0] + moe_launches[0]
              + jb_launches[0] + vl_launches[0] + tr_launches
-             + tf_launches[0], **fa_info),
+             + tf_launches[0] + mesh_launches["flash_attention"], **fa_info),
         dict(name="decode_gqa", route="cuda",
              source="src/repro_torch/csrc/decode_gqa.cu",
              replaces="src/repro/kernels/decode_gqa/decode_gqa.py:65",
              launches=lm_launches[1] + wh_launches[1] + moe_launches[1]
-             + jb_launches[1] + vl_launches[1], **dec_info),
+             + jb_launches[1] + vl_launches[1]
+             + mesh_launches["decode_gqa"], **dec_info),
         dict(name="ssd_chunk", route="cuda",
              source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:45",

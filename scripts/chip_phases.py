@@ -1,12 +1,13 @@
-"""Run chosen RELMAS training phases of ``chip_smoke.py`` on one GPU,
-each timed, without the rest of the script.
+"""Run chosen training phases of ``chip_smoke.py`` on one GPU, each
+timed, without the rest of the script.
 
     python scripts/chip_phases.py PHASE [PHASE ...]
 
 PHASE is one of ``kernel:lstm_cell``, ``train:parity``,
 ``telemetry:train``, ``train:churn``, ``train:sharded``,
-``train:sharded_ranks``, ``train:sharded_nccl`` (two or more cards)
-and ``train:sharded_driver``.  The ``lstm_seq`` and ``lstm_cell`` kernels
+``train:sharded_ranks``, ``train:sharded_nccl`` (two or more cards),
+``train:sharded_driver``, ``train:lm``, ``train:lm_mesh`` and
+``train:lm_mesh_nccl`` (four or more cards).  The five kernel libraries
 are built first (one ``nvcc`` each, together).  Each phase prints what
 ``chip_smoke.py`` prints for it; the last line is a JSON object with
 the card and each phase's seconds.
@@ -37,7 +38,10 @@ def main(argv=None) -> int:
               "train:sharded": cs.train_sharded_phase,
               "train:sharded_ranks": cs.train_sharded_ranks_phase,
               "train:sharded_nccl": cs.train_sharded_nccl_phase,
-              "train:sharded_driver": cs.train_sharded_driver_phase}
+              "train:sharded_driver": cs.train_sharded_driver_phase,
+              "train:lm": cs.train_lm_phase,
+              "train:lm_mesh": cs.train_lm_mesh_phase,
+              "train:lm_mesh_nccl": cs.train_lm_mesh_nccl_phase}
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"unknown phases {unknown}; pick from {sorted(phases)}",
@@ -52,7 +56,8 @@ def main(argv=None) -> int:
     secs = {}
     with cs.phase("build"):
         t0 = time.perf_counter()
-        cs.build_all(["lstm_seq", "lstm_cell"])
+        cs.build_all(["lstm_seq", "flash_attention", "decode_gqa",
+                      "ssd_chunk", "lstm_cell"])
         secs["build"] = time.perf_counter() - t0
     for name in names:
         with cs.phase(name):

@@ -8,8 +8,10 @@ tick, ``serving`` the request queue and service, ``launch.serve`` the
 driver; ``core.ddpg``/``replay``/``rollout``/``train``, ``ckpt`` and
 ``launch.rl_train`` DDPG training on one device or sharded over
 several (one process a device); ``configs``,
-``models`` and ``serving.batcher`` the LM data plane (dense and Mamba-2
-families).  Every kernel of those paths
+``models`` and ``serving.batcher`` the LM data plane (every family),
+``models.steps`` and ``launch.train`` LM training, ``models.sharding``
+/ ``partition``, ``launch.mesh`` and ``runtime.elastic`` the LM on a
+(data, model) mesh of DTensors.  Every kernel of those paths
 (``kernels.*``) is a hand-written CUDA kernel whenever its tensors are
 on the card.
 

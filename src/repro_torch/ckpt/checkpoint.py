@@ -21,7 +21,11 @@ as ``like``'s leaf, the records come back as a bfloat16 tensor, bit for
 bit; without ``like`` they stay ``|V2`` (nothing says they are bf16).
 
 - writes are atomic: ``<dir>/tmp.<step>.npz``, then ``os.replace``;
-- :class:`CheckpointManager` keeps the newest ``keep`` checkpoints.
+- :class:`CheckpointManager` keeps the newest ``keep`` checkpoints;
+- a tree of DTensors (the LM state on a mesh) is saved by every rank:
+  each leaf is gathered (``full_tensor``, a collective) and rank 0
+  writes; the ranks then meet at a barrier, so any of them may read the
+  file next.  The format stays mesh-agnostic.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import re
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 _PART = re.compile(r"\['([^']*)'\]|\[<flat index (\d+)>\]")
 
@@ -62,6 +67,8 @@ BF16_RECORD = np.dtype("V2")     # how NumPy stores a bfloat16 leaf
 
 
 def _leaf(v) -> np.ndarray:
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         v = v.detach().cpu()
         if v.dtype == torch.bfloat16:
@@ -101,10 +108,15 @@ def save_checkpoint(directory: str, step: int, tree,
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}.npz")
     final = _path(directory, step)
-    arrays = {k: _leaf(v) for k, v in flatten(tree).items()}
-    with open(tmp, "wb") as f:
-        np.savez(f, __meta__=json.dumps(meta or {}), **arrays)
-    os.replace(tmp, final)
+    flat = flatten(tree)
+    arrays = {k: _leaf(v) for k, v in flat.items()}
+    sharded = any(isinstance(v, DTensor) for v in flat.values())
+    if not sharded or torch.distributed.get_rank() == 0:
+        with open(tmp, "wb") as f:
+            np.savez(f, __meta__=json.dumps(meta or {}), **arrays)
+        os.replace(tmp, final)
+    if sharded:
+        torch.distributed.barrier()
     return final
 
 
@@ -201,7 +213,9 @@ class CheckpointManager:
 
     def save(self, step: int, tree, meta: dict | None = None) -> str:
         path = save_checkpoint(self.directory, step, tree, meta)
-        self._gc()
+        if not torch.distributed.is_initialized() \
+                or torch.distributed.get_rank() == 0:
+            self._gc()
         return path
 
     def restore(self, like, step: int | None = None):

@@ -13,7 +13,9 @@ updates, replay) with the paper's adaptations:
 
 The counterpart of the JAX package's ``core/ddpg.py``.  Over several
 devices each replica runs :func:`ddpg_update_rounds` unchanged on the
-batch gathered from every device's ring (its ``comm`` mode).
+batch gathered from every device's ring (its ``comm`` mode), or, in the
+local-sample topology, each shard's gradients are averaged
+(:func:`ddpg_update_shards`).
 Parameters are the pytree layout as dicts of tensors; the learner state
 is a dataclass whose seven fields flatten in the JAX ``DDPGState``'s
 order, so checkpoints cross between the packages.  The optimizer is the
@@ -176,36 +178,58 @@ def ddpg_update(state: DDPGState, cfg: DDPGConfig,
     new state (fresh tensors; ``state`` is left as it was) and the info
     dict ``critic_loss``, ``actor_loss``, ``q_mean``, ``target_mean``.
     """
+    return ddpg_update_shards(state, cfg, [batch], lambda xs: xs[0])
+
+
+def ddpg_update_shards(state: DDPGState, cfg: DDPGConfig, batches: list,
+                       mean) -> tuple[DDPGState, dict]:
+    """:func:`ddpg_update` with the batch in shards (the reference's
+    ``axis_name`` mode): each shard's critic gradients, actor gradients
+    and info are averaged over the shards by ``mean`` (a list of
+    tensors, one a shard, -> their mean) before the Adam steps, so
+    every replica takes the same step.  Equal shards make the mean of
+    the shards' means the global batch's mean."""
     pc = cfg.policy
-    am = batch.get("act_mask")
-    remask = ((lambda a: a * am[:, None, :]) if am is not None
-              else (lambda a: a))
+
+    def remask(batch):
+        am = batch.get("act_mask")
+        return ((lambda a: a * am[:, None, :]) if am is not None
+                else (lambda a: a))
+
+    def mean_tree(trees):
+        return tree_map(lambda *xs: mean(list(xs)), *trees)
+
+    ys = []
     with torch.no_grad():
-        r = batch["r"] * cfg.reward_scale
-        a2 = remask(P.actor_apply(state.target_actor, pc, batch["s2"],
-                                  batch["mask2"]))
-        q2 = P.critic_apply(state.target_critic, pc, batch["s2"], a2,
-                            batch["mask2"])
-        y = r + cfg.gamma * q2
+        for batch in batches:
+            r = batch["r"] * cfg.reward_scale
+            a2 = remask(batch)(P.actor_apply(state.target_actor, pc,
+                                             batch["s2"], batch["mask2"]))
+            q2 = P.critic_apply(state.target_critic, pc, batch["s2"], a2,
+                                batch["mask2"])
+            ys.append(r + cfg.gamma * q2)
 
-    def critic_loss(cp):
-        q = P.critic_apply(cp, pc, batch["s"], batch["a"], batch["mask"])
-        return torch.mean((q - y) ** 2), q.detach()
+    crit = []
+    for batch, y in zip(batches, ys):
+        def critic_loss(cp, batch=batch, y=y):
+            q = P.critic_apply(cp, pc, batch["s"], batch["a"], batch["mask"])
+            return torch.mean((q - y) ** 2), q.detach()
+        crit.append(_grads(critic_loss, state.critic))
+    new_critic, new_copt = _adam_step(
+        state.critic, mean_tree([c[2] for c in crit]), state.critic_opt,
+        cfg.critic_lr, state.step, cfg.grad_clip)
 
-    closs, q, cgrads = _grads(critic_loss, state.critic)
-    new_critic, new_copt = _adam_step(state.critic, cgrads, state.critic_opt,
-                                      cfg.critic_lr, state.step,
-                                      cfg.grad_clip)
-
-    def actor_loss(ap):
-        a = remask(P.actor_apply(ap, pc, batch["s"], batch["mask"]))
-        return -torch.mean(P.critic_apply(new_critic, pc, batch["s"], a,
-                                          batch["mask"])), None
-
-    aloss, _, agrads = _grads(actor_loss, state.actor)
-    new_actor, new_aopt = _adam_step(state.actor, agrads, state.actor_opt,
-                                     cfg.actor_lr, state.step,
-                                     cfg.grad_clip)
+    act = []
+    for batch in batches:
+        def actor_loss(ap, batch=batch):
+            a = remask(batch)(P.actor_apply(ap, pc, batch["s"],
+                                            batch["mask"]))
+            return -torch.mean(P.critic_apply(new_critic, pc, batch["s"], a,
+                                              batch["mask"])), None
+        act.append(_grads(actor_loss, state.actor))
+    new_actor, new_aopt = _adam_step(
+        state.actor, mean_tree([a[2] for a in act]), state.actor_opt,
+        cfg.actor_lr, state.step, cfg.grad_clip)
     tau = cfg.tau
     with torch.no_grad():
         soft = lambda tgt, new: tree_map(
@@ -215,32 +239,45 @@ def ddpg_update(state: DDPGState, cfg: DDPGConfig,
             target_actor=soft(state.target_actor, new_actor),
             target_critic=soft(state.target_critic, new_critic),
             actor_opt=new_aopt, critic_opt=new_copt, step=state.step + 1)
-    info = {"critic_loss": closs, "actor_loss": aloss,
-            "q_mean": torch.mean(q), "target_mean": torch.mean(y)}
+    info = {"critic_loss": mean([c[0] for c in crit]),
+            "actor_loss": mean([a[0] for a in act]),
+            "q_mean": mean([torch.mean(c[1]) for c in crit]),
+            "target_mean": mean([torch.mean(y) for y in ys])}
     return new_state, info
 
 
 def ddpg_update_rounds(state: DDPGState, cfg: DDPGConfig, buf, idx,
-                       transform=None, comm=None) -> tuple[DDPGState, dict]:
+                       transform=None, comm=None,
+                       gather: bool = True) -> tuple[DDPGState, dict]:
     """``len(idx)`` updates, update ``u`` on the replay rows ``idx[u]``
     (idx: (num_updates, batch_size), drawn with
     :func:`repro_torch.core.replay.sample_indices` or passed in), each
     sampled batch mapped by ``transform`` when given.  Returns
     (new_state, infos stacked over the (num_updates,) axis).
 
-    With ``comm`` (the sharded rounds' gathered-batch mode, the
-    reference's ``gather_axis``): ``buf`` and ``idx`` are lists, the
-    local read rings this process holds and their (num_updates,
-    per_device) indices, and update ``u`` runs on
+    With ``comm``, ``buf`` and ``idx`` are lists: the local read rings
+    this process holds and their (num_updates, per_device) indices.
+    ``gather`` (the sharded rounds' gathered-batch mode, the reference's
+    ``gather_axis``): update ``u`` runs on
     ``replay_sample_global(buf, [i[u] for i in idx], comm)``, the same
     global batch on every replica, which so stay bit-equal with no
-    gradient collective; ``transform`` maps the gathered batch."""
+    gradient collective; ``transform`` maps the gathered batch.  Not
+    ``gather`` (the local-sample mode, the reference's ``axis_name``):
+    update ``u`` runs :func:`ddpg_update_shards` on each ring's own
+    rows, each mapped by ``transform``, averaged by ``comm.mean``."""
+    tf = transform or (lambda b: b)
     infos = []
     for u in range(len(idx[0]) if comm is not None else len(idx)):
-        batch = (replay_sample_global(buf, [i[u] for i in idx], comm)
-                 if comm is not None else replay_sample(buf, idx=idx[u]))
-        state, info = ddpg_update(state, cfg, transform(batch) if transform
-                                  else batch)
+        if comm is None:
+            state, info = ddpg_update(state, cfg, tf(replay_sample(
+                buf, idx=idx[u])))
+        elif gather:
+            state, info = ddpg_update(state, cfg, tf(replay_sample_global(
+                buf, [i[u] for i in idx], comm)))
+        else:
+            state, info = ddpg_update_shards(
+                state, cfg, [tf(replay_sample(b, idx=i[u]))
+                             for b, i in zip(buf, idx)], comm.mean)
         infos.append(info)
     if not infos:
         return state, {}

@@ -52,8 +52,11 @@ body (:func:`_sharded_round_body`) runs in stages (collect; the
 updates, each sampling, gathering and updating; the ring step; the
 reductions) and loops over the shards it holds in each, so the oracle
 and the process-group path share every line but the collective
-(``StackedShards`` / ``MeshShards``).  Only the gathered-batch topology
-is ported (the reference's ``update_gather=True``).
+(``StackedShards`` / ``MeshShards``).  The oracle also runs the
+reference's local-sample topology (``update_gather=False``): each
+shard's update samples its own read ring and the shards' gradients and
+infos are averaged (``StackedShards.mean``); the mesh callable keeps
+the gathered batch, as the reference's does.
 
 ``telemetry=True`` folds the round's telemetry block
 (``repro_torch.telemetry.metrics.round_telemetry``: SLA and reward
@@ -346,6 +349,14 @@ class StackedShards:
                              f"devices")
         return torch.stack(parts)
 
+    def mean(self, parts: list) -> torch.Tensor:
+        """The shards' mean (the reference's ``pmean``): their sum left
+        to right in shard order, over ``num_devices``."""
+        if len(parts) != self.num_devices:
+            raise ValueError(f"{len(parts)} shards for {self.num_devices} "
+                             f"devices")
+        return _sum_shards(parts) / self.num_devices
+
 
 class MeshShards:
     """A rank's collective over ``mesh``: one shard here, and
@@ -435,7 +446,8 @@ def _sharded_round_body(env, dcfg: D.DDPGConfig, *, num_devices: int,
                         batch_episodes: int, num_updates: int,
                         batch_size: int, sigma_min: float,
                         sigma_decay: float, arrivals=None, episodes=None,
-                        transform=None, telemetry: bool = False):
+                        transform=None, telemetry: bool = False,
+                        update_gather: bool = True):
     """``round_fn(state, pairs, draws, sigma, do_update, comm)`` ->
     ``(state, pairs, sigma, metrics)``, deterministic given ``draws``.
 
@@ -445,7 +457,9 @@ def _sharded_round_body(env, dcfg: D.DDPGConfig, *, num_devices: int,
     num_devices`` rows an update from its read ring; ``comm`` gathers
     over the device axis.  In stages: collect every shard; the updates
     (each gathers the shards' samples, ``ddpg_update_rounds``'s ``comm``
-    mode); each pair's ring step; the reductions (episode means averaged,
+    mode; with ``update_gather=False`` each shard updates on its own
+    samples and the gradients are averaged, ``comm.mean``); each pair's
+    ring step; the reductions (episode means averaged,
     telemetry counts summed, the fill gauge averaged over the new read
     rings), moved to the host in one transfer.  Sigma decays by the
     global ``batch_episodes``.  ``episodes`` and ``transform`` as in
@@ -465,7 +479,7 @@ def _sharded_round_body(env, dcfg: D.DDPGConfig, *, num_devices: int,
                 state, infos = D.ddpg_update_rounds(
                     state, dcfg, reads,
                     [d["idx"].to(r["r"].device) for d, r in zip(draws, reads)],
-                    transform, comm)
+                    transform, comm, update_gather)
             info = {k: infos[k][-1] for k in INFO_KEYS}
         with record_function("relmas.ring_write"):
             for p, (trans, _, _) in zip(pairs, outs):
@@ -547,7 +561,12 @@ def make_sharded_train_rounds(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
     the same on every rank.  ``kw``: ``batch_episodes``,
     ``num_updates``, ``batch_size`` (global; ``batch_episodes`` and
     ``batch_size`` divisible by D), ``sigma_min``, ``sigma_decay``,
-    ``arrivals``, ``telemetry``."""
+    ``arrivals``, ``telemetry``.  The updates take the gathered batch
+    (the reference's mesh callable has no local-sample mode)."""
+    if not kw.get("update_gather", True):
+        raise ValueError("make_sharded_train_rounds updates on the "
+                         "gathered batch; the local-sample topology runs "
+                         "in sharded_rounds_reference")
     comm = MeshShards(mesh)
     loop = _sharded_rounds(env, dcfg, comm, draws_fn, **kw)
 
@@ -568,7 +587,9 @@ def sharded_rounds_reference(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
     device order (:func:`replicate` of a fresh pair), ``keys`` all
     ``(D, R)`` seeds, and ``state`` one copy of the replicated learner
     state; on one device.  The same body and loop as the mesh path, its
-    collective a stack in shard order."""
+    collective a stack in shard order.  ``update_gather=False`` (in
+    ``kw``) runs the local-sample topology: each shard's update on its
+    own samples, the gradients and infos averaged over the shards."""
     loop = _sharded_rounds(env, dcfg, StackedShards(num_devices), draws_fn,
                            **kw)
 

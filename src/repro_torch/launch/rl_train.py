@@ -70,6 +70,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
+import faulthandler
 import json
 import os
 import pickle
@@ -631,6 +632,7 @@ def _rank_entry(rank: int, nprocs: int, init_method: str, backend: str,
     to the parent), send its return value (or its exception) to the
     parent through ``out``."""
     try:
+        faulthandler.enable()           # a crash prints the rank's stack
         torch.set_num_threads(threads)
         bind = {}
         if torch.device(device).type == "cuda":

@@ -1,8 +1,8 @@
-"""LM training driver on one device: data pipeline -> train step ->
-checkpoints, under failure-injection supervision.  The counterpart of
-the JAX package's ``launch/train.py``, with the same flags plus
-``--device`` (default ``cuda``; without a GPU it raises unless
-``--device cpu`` is given):
+"""LM training driver: data pipeline -> train step -> checkpoints,
+under failure-injection supervision.  The counterpart of the JAX
+package's ``launch/train.py``, with the same flags plus ``--device``
+(default ``cuda``; without a GPU it raises unless ``--device cpu`` is
+given):
 
 - step-indexed deterministic data (``data.TokenPipeline``): a restart
   replays the same batches;
@@ -20,10 +20,19 @@ Each step writes the update into the state's own tensors, as the
 reference's ``jax.jit(..., donate_argnums=(0, 1))`` donates them: one
 copy of the parameters and moments is held, not two.
 
-The mesh and the sharding rules of the reference are not ported yet
-(ROADMAP A11b).  Weights are drawn on the device by a
-``torch.Generator`` seeded from ``--seed``; each step's batch is drawn
-by NumPy and moved to the device.
+As the reference's driver, it builds the host mesh (``make_host_mesh``,
+one rank: (1, 1) (data, model)) and the default rules, places the
+initial and the restored state on it (``runtime.elastic.device_put_like``)
+and takes ``make_train_step(model, mesh=, rules=)``; on a mesh of one
+rank the state stays plain tensors and the step is the one-device step.
+Weights are drawn on the device by a ``torch.Generator`` seeded from
+``--seed``; each step's batch is drawn by NumPy and moved to the device.
+
+:func:`mesh_steps_rank` is the rank entry of the steps on a mesh of
+several ranks (``rl_train.spawn_ranks``): the train, prefill and decode
+steps of a dense config and the elastic restore across meshes, held by
+the caller against the one-process run (:func:`greedy_decode` serves
+both).
 
 Usage (CPU-sized):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -33,36 +42,49 @@ Usage (CPU-sized):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
 
+import numpy as np
 import torch
 
-from repro_torch.ckpt import CheckpointManager
+from repro_torch.ckpt import (CheckpointManager, restore_checkpoint,
+                              save_checkpoint)
 from repro_torch.configs import get_arch
-from repro_torch.data import TokenPipeline
+from repro_torch.data import TokenPipeline, synthetic_batch
 from repro_torch.device import resolve_device
+from torch.distributed.tensor import DTensor
+
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models import LM
-from repro_torch.models.steps import (make_loss_fn, make_train_step,
-                                      value_and_grad)
+from repro_torch.models import partition as PT
+from repro_torch.models import sharding as shd
+from repro_torch.models.steps import (make_decode_step, make_loss_fn,
+                                      make_prefill_step, make_train_step,
+                                      value_and_grad, whole)
 from repro_torch.runtime import (CompressionState, FailureInjector,
                                  compress_grads, decompress_grads,
                                  run_with_restarts)
+from repro_torch.runtime.elastic import device_put_like, reshard_restore
 from repro_torch.telemetry.console import console_line
 from repro_torch.tree import tree_map
 
 COMPRESS_LR = 3e-4          # the reference's fixed lr under --compress
 
 
-def build(cfg, device, *, total_steps: int, compress: str | None = None):
+def build(cfg, device, *, total_steps: int, compress: str | None = None,
+          mesh=None, rules=None):
     """-> (model, train_step, opt, has_res).  Under ``compress`` the
     step is ``(params, opt_state, batch, step, residual) -> (params,
     opt_state, metrics, residual)``: the gradients go through the lossy
     round-trip with error feedback, back in the parameters' dtype, and
-    the update runs at ``COMPRESS_LR``."""
+    the update runs at ``COMPRESS_LR`` (on one rank, as the
+    reference's)."""
     model = LM(cfg, device=device)
-    base_step, opt = make_train_step(model, total_steps=total_steps)
+    base_step, opt = make_train_step(model, mesh=mesh, rules=rules,
+                                     total_steps=total_steps)
     if not compress:
         return model, base_step, opt, False
     loss_fn = make_loss_fn(model)
@@ -104,9 +126,12 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke)
+    mesh = make_host_mesh(device.type)
+    rules = shd.make_rules(multi_pod=False)
     model, train_step, opt, has_res = build(cfg, device,
                                             total_steps=args.steps,
-                                            compress=args.compress)
+                                            compress=args.compress,
+                                            mesh=mesh, rules=rules)
     pipe = TokenPipeline(batch=args.batch, seq=args.seq, vocab=cfg.vocab,
                          seed=args.seed)
     mgr = CheckpointManager(os.path.join(args.outdir, "ckpt"))
@@ -118,7 +143,7 @@ def main(argv=None):
 
     def init_fn():
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = model.init(gen).params
+        params = device_put_like(model.init(gen).params, mesh, rules)
         model.params = None             # the state owns the weights
         state = {"params": params, "opt": opt.init(params)}
         if has_res:
@@ -133,8 +158,7 @@ def main(argv=None):
         # the structure, shapes and dtypes of a fresh state, on no device
         like = tree_map(lambda t: t.to("meta"), init_fn()[0])
         tree, step, _ = mgr.restore(like, step)
-        tree = tree_map(lambda a, ref: torch.as_tensor(a).to(
-            device=device, dtype=ref.dtype), tree, like)
+        tree = device_put_like(tree, mesh, rules)
         restore_secs.append(time.perf_counter() - t0)
         return tree, step
 
@@ -180,6 +204,244 @@ def main(argv=None):
             "final_loss": losses[-1] if losses else None,
             "restarts": restarts, "save_secs": save_secs,
             "restore_secs": restore_secs}
+
+
+# ---------------------------------------------------------------------------
+# the steps on a mesh of several ranks
+# ---------------------------------------------------------------------------
+def mesh_config(arch: str, *, smoke: bool = False, n_layers=None,
+                param_dtype=None):
+    """``arch``'s config, cut to ``n_layers`` and in ``param_dtype``
+    where given."""
+    cfg = get_arch(arch, smoke=smoke)
+    repl = {k: v for k, v in (("n_layers", n_layers),
+                              ("param_dtype", param_dtype)) if v is not None}
+    return dataclasses.replace(cfg, **repl) if repl else cfg
+
+
+def train_batch(cfg, seed: int, step: int, B: int, S: int, device):
+    return {"tokens": torch.as_tensor(synthetic_batch(
+        seed, step, B, S, cfg.vocab)).to(device)}
+
+
+def greedy_decode(prefill, decode, tokens, steps: int) -> dict:
+    """Prefill ``tokens`` (B, S), then ``steps`` greedy decode steps
+    from position S, each fed the previous argmax.  Returns the logits
+    of the prefill's last position and of every step (steps + 1, B, Vp)
+    and the tokens (B, steps + 1), as NumPy, and the final ``cache``."""
+    B, S = tokens.shape
+    logits, cache = prefill({"tokens": tokens})
+    logits = whole(logits)
+    out_l, out_t = [logits.float().cpu().numpy()], []
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for t in range(steps):
+        out_t.append(tok.cpu().numpy())
+        pos = torch.full((B,), S + t, dtype=torch.int32,
+                         device=tokens.device)
+        tok, logits, cache = decode(cache, {"token": tok[:, None],
+                                            "pos": pos})
+        out_l.append(whole(logits).float().cpu().numpy())
+    out_t.append(tok.cpu().numpy())
+    return {"logits": np.stack(out_l), "tokens": np.stack(out_t, axis=1),
+            "cache": cache}
+
+
+def _leaf_report(tree, ref=None) -> dict:
+    """Per leaf (key path string): global and local shape, placements,
+    and against ``ref`` (the same tree as NumPy, whole) the largest
+    |diff| and |ref| over this rank's block."""
+    out = {}
+
+    def one(path, x):
+        local = x.to_local() if isinstance(x, DTensor) else x
+        rec = {"shape": tuple(x.shape), "local": tuple(local.shape),
+               "placements": str(tuple(getattr(x, "placements", ())))}
+        if ref is not None:
+            want = torch.as_tensor(_at(ref, path)).to(local.device)
+            if isinstance(x, DTensor):
+                want = shd.place(want, x.device_mesh, x.placements
+                                 ).to_local()
+            rec["max_diff"] = float((local.detach().float()
+                                     - want.float()).abs().max())
+            rec["max_ref"] = float(want.abs().max())
+        out["/".join(map(str, path))] = rec
+    PT.map_with_path(one, tree)
+    return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _counters() -> dict:
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return {"flash_attention": fa_ops.LAUNCHES,
+            "decode_gqa": dec_ops.LAUNCHES}
+
+
+def _reset_counters() -> None:
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+
+
+def mesh_steps_rank(rank: int, relay, jobs: list) -> list:
+    """One rank of the LM steps on meshes over the process group, one
+    job after another (the tests' and ``chip_smoke.py``'s harness).  A
+    job is a dict:
+
+    - ``arch``, ``smoke``, ``n_layers``, ``param_dtype`` (:func:`mesh_config`),
+      ``seed`` (weights: ``torch.Generator(device).manual_seed(seed)``
+      on every rank, as a one-process run draws them), ``device``
+      (``cuda`` or ``cpu``), ``mesh`` (a (data, model) shape);
+    - ``train``: ``steps``, ``batch``, ``seq``, ``total_steps`` and
+      ``ref`` (optional: a checkpoint directory holding the one-process
+      run's ``params`` after the steps): the steps' metrics, the batches
+      of :func:`train_batch` (data seed ``seed``), every leaf against
+      ``ref``;
+    - ``elastic``: ``dir`` and ``meshes``: the state ({"params", "opt"},
+      after the train steps if any; the params alone with ``state``
+      false) saved on the job's mesh and ``reshard_restore``d onto each
+      of these meshes, each rank's block compared bit for bit;
+    - ``restore``: a directory holding a checkpoint of ``params`` written
+      by anyone (the JAX package too): ``reshard_restore``d onto the
+      job's mesh, each block compared with the host restore's;
+    - ``serve``: ``batch``, ``seq``, ``steps``, ``pad_to``: a prefill
+      and greedy decode steps (:func:`greedy_decode`) with the weights
+      of the job (after training if any).
+
+    Returns a dict a job: ``train`` (the metrics a step), ``params``
+    (:func:`_leaf_report` against ``ref``), ``elastic`` (a record a
+    mesh: leaves, ``equal``), ``restore`` (the same), ``serve`` (logits and tokens, rank 0 only), ``cache``
+    (the prefill cache's leaf report), ``launches`` (this rank's
+    ``flash_attention`` / ``decode_gqa`` launches in the train steps
+    and in the serve steps), ``peak_gb`` (the card's peak allocation,
+    None on the CPU), ``secs``, ``laps`` (its seconds by part: setup,
+    train, compare, elastic, serve) and the modules of JAX or ``repro`` it
+    has loaded (none)."""
+    import sys
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        device = resolve_device(job["device"])
+        laps, last = {}, [t0]
+
+        def lap(name: str) -> None:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            now = time.perf_counter()
+            laps[name], last[0] = now - last[0], now
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cfg = mesh_config(job["arch"], smoke=job.get("smoke", False),
+                          n_layers=job.get("n_layers"),
+                          param_dtype=job.get("param_dtype"))
+        rules = shd.make_rules(False)
+        mesh = make_mesh(tuple(job["mesh"]), ("data", "model"), device.type)
+        model = LM(cfg, device=device).init(
+            torch.Generator(device=device).manual_seed(job["seed"]))
+        params = device_put_like(model.params, mesh, rules)
+        model.params = None
+        res = {"mesh": tuple(job["mesh"]), "launches": {}, "laps": laps}
+        lap("setup")
+        if job.get("train"):
+            tr = job["train"]
+            step_fn, opt = make_train_step(model, mesh=mesh, rules=rules,
+                                           total_steps=tr["total_steps"])
+            state = opt.init(params)
+            _reset_counters()
+            hist = []
+            for i in range(tr["steps"]):
+                batch = train_batch(cfg, job["seed"], i, tr["batch"],
+                                    tr["seq"], device)
+                params, state, m = step_fn(params, state, batch, i)
+                hist.append({k: float(v) for k, v in m.items()})
+            res["launches"]["train"] = _counters()
+            lap("train")
+            ref = (restore_checkpoint(tr["ref"])[0]["params"]
+                   if tr.get("ref") else None)
+            res["train"] = hist
+            res["params"] = _leaf_report(params, ref)
+            res["opt"] = _leaf_report(state)
+            lap("compare")
+        else:
+            state = None
+            res["params"] = _leaf_report(params)
+        if job.get("elastic"):
+            res["elastic"] = _elastic(params, state, mesh, rules,
+                                      job["elastic"], device)
+            lap("elastic")
+        if job.get("restore"):
+            host, _, _ = restore_checkpoint(job["restore"], tree_map(
+                lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                {"params": params}))
+            want = tree_map(lambda a: torch.as_tensor(a).to(device), host)
+            res["restore"] = _restore_check(job["restore"], want,
+                                            job["mesh"], rules, device)
+        if job.get("serve"):
+            sv = job["serve"]
+            model.params = params
+            tokens = train_batch(cfg, job["seed"] + 1, 0, sv["batch"],
+                                 sv["seq"], device)["tokens"]
+            _reset_counters()
+            got = greedy_decode(
+                make_prefill_step(model, pad_to=sv["pad_to"], mesh=mesh,
+                                  rules=rules),
+                make_decode_step(model, mesh=mesh, rules=rules), tokens,
+                sv["steps"])
+            res["launches"]["serve"] = _counters()
+            res["cache"] = _leaf_report(got.pop("cache"))
+            res["serve"] = got if rank == 0 else None
+            model.params = None
+            lap("serve")
+        res["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if device.type == "cuda" else None)
+        res["secs"] = time.perf_counter() - t0
+        res["loaded"] = sorted(m for m in sys.modules
+                               if m == "jax" or m.startswith(("jax.",
+                                                              "repro.")))
+        relay(f"[rank {rank}] mesh {tuple(job['mesh'])} job done in "
+              f"{res['secs']:.1f}s")
+        out.append(res)
+        del params, state, model
+    return out
+
+
+def _elastic(params, state, mesh, rules, el: dict, device) -> list:
+    """Save ``{"params", "opt"}`` placed on ``mesh``, restore it onto each
+    mesh of ``el["meshes"]`` and compare every leaf's block with the
+    block that mesh's placements cut from the saved values, bit for
+    bit."""
+    tree = {"params": params} if state is None or not el.get(
+        "state", True) else {"params": params, "opt": state}
+    save_checkpoint(el["dir"], 0, tree, {"step": 0})
+    want = tree_map(whole, tree)
+    return [_restore_check(el["dir"], want, m, rules, device)
+            for m in el["meshes"]]
+
+
+def _restore_check(directory: str, want, shape, rules, device) -> dict:
+    """``reshard_restore`` of ``directory`` onto a (data, model) mesh of
+    ``shape``, like ``want`` (the whole values every rank holds): every
+    leaf's block bit-equal to the block of ``want``."""
+    mesh = make_mesh(tuple(shape), ("data", "model"), device.type)
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), want)
+    got, step, _ = reshard_restore(directory, like, mesh, rules=rules)
+    n, equal = [0], [True]
+
+    def check(path, g):
+        w = _at(want, path)
+        if isinstance(g, DTensor):
+            g, w = g.to_local(), shd.place(w, mesh, g.placements).to_local()
+        n[0] += 1
+        equal[0] &= bool(torch.equal(g.cpu(), w.cpu()))
+    PT.map_with_path(check, got)
+    return {"mesh": tuple(shape), "leaves": n[0], "equal": equal[0],
+            "step": step, "placements": _leaf_report(got)}
 
 
 if __name__ == "__main__":

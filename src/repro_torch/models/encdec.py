@@ -1,5 +1,7 @@
 """Encoder-decoder stack (Whisper-class), a port of
-``repro.models.encdec`` for one device.
+``repro.models.encdec``.  Its blocks take the sharding context
+(``layers.Ctx``) at the reference's sites; its steps on a mesh of
+several ranks are not run yet.
 
 The audio frontend (log-mel and two convolutions) is a stub in the
 reference too: the batch carries precomputed frame embeddings
@@ -90,41 +92,43 @@ def check_keys(cfg: ArchConfig, params) -> None:
 # ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
-def encode(params, frames, cfg: ArchConfig):
+def encode(params, frames, cfg: ArchConfig, ctx: L.Ctx = L.NO_CTX):
     """frames (B, Se, d) stub embeddings -> encoder output (B, Se, d):
     non-causal attention without RoPE over all Se frames."""
     _, Se, d = frames.shape
     x = frames + L.sinusoidal_positions(Se, d, device=frames.device
                                         )[None].to(frames.dtype)
+    x = ctx.shard(x, ("batch", None, None))
     for i in range(cfg.enc_layers):
-        x = remat(_enc_layer_fwd, cfg, layer_params(params["enc"], i), x)
+        x = remat(_enc_layer_fwd, cfg, layer_params(params["enc"], i), x,
+                  ctx)
     return L.rmsnorm(params["enc_norm"], x)
 
 
-def _enc_layer_fwd(lp, x):
+def _enc_layer_fwd(lp, x, ctx):
     a, _ = L.attention_fwd(lp["attn"], L.rmsnorm(lp["norm1"], x),
-                           causal=False, use_rope=False)
+                           causal=False, use_rope=False, ctx=ctx)
     x = x + a
-    return x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm2"], x))
+    return x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm2"], x), ctx)
 
 
 # ---------------------------------------------------------------------------
 # decoder
 # ---------------------------------------------------------------------------
-def _dec_layer_fwd(lp, x, enc_out):
+def _dec_layer_fwd(lp, x, enc_out, ctx):
     """One decoder layer over the whole sequence.  Returns (x, cache)."""
     a, (k, v) = L.attention_fwd(lp["attn"], L.rmsnorm(lp["norm1"], x),
-                                causal=True, use_rope=False)
+                                causal=True, use_rope=False, ctx=ctx)
     x = x + a
-    ck, cv = L.cross_kv(lp["cross"], enc_out)
+    ck, cv = L.cross_kv(lp["cross"], enc_out, ctx)
     x = x + L.cross_attention_fwd(lp["cross"], L.rmsnorm(lp["norm2"], x),
-                                  (ck, cv))
-    x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm3"], x))
+                                  (ck, cv), ctx)
+    x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm3"], x), ctx)
     return x, {"self": {"k": k, "v": v}, "cross": {"k": ck, "v": cv}}
 
 
 def decode_fwd(params, x, enc_out, cfg: ArchConfig,
-               collect_cache: bool = False):
+               collect_cache: bool = False, ctx: L.Ctx = L.NO_CTX):
     """Teacher-forced decoder pass over token embeddings x (B,S,d), the
     sinusoid of 0..S-1 added.  Returns (x, stacked cache or None)."""
     S, d = x.shape[1], x.shape[2]
@@ -132,13 +136,14 @@ def decode_fwd(params, x, enc_out, cfg: ArchConfig,
     caches = []
     for i in range(cfg.n_layers):
         x, cache = remat(_dec_layer_fwd, cfg, layer_params(params["dec"], i),
-                         x, enc_out)
+                         x, enc_out, ctx)
         if collect_cache:
             caches.append(cache)
     return x, (stack_trees(caches) if collect_cache else None)
 
 
-def decode_step(params, caches, x, pos, cfg: ArchConfig):
+def decode_step(params, caches, x, pos, cfg: ArchConfig,
+                ctx: L.Ctx = L.NO_CTX):
     """One token x (B,1,d) at positions ``pos`` (B,); the self cache is
     written in place, the cross cache only read."""
     x = x + L.sinusoid(pos, x.shape[-1])[:, None, :].to(x.dtype)
@@ -146,12 +151,13 @@ def decode_step(params, caches, x, pos, cfg: ArchConfig):
         lp = layer_params(params["dec"], i)
         cache = layer_params(caches, i)
         a, _ = L.attention_decode(lp["attn"], L.rmsnorm(lp["norm1"], x),
-                                  cache["self"], pos, use_rope=False)
+                                  cache["self"], pos, use_rope=False,
+                                  ctx=ctx)
         x = x + a
         x = x + L.cross_attention_decode(lp["cross"],
                                          L.rmsnorm(lp["norm2"], x),
                                          cache["cross"])
-        x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm3"], x))
+        x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm3"], x), ctx)
     return x, caches
 
 

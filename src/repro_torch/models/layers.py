@@ -2,11 +2,17 @@
 cross-attention, gated (SiLU) and GELU MLPs, embeddings, sinusoidal
 positions, and their initialisers.
 
-A port of ``repro.models.layers`` for one device (no sharding context).
-Parameters are plain dicts of tensors; the forward functions are pure
-except :func:`attention_decode`, which writes the new key and value into
-the cache in place (one slot per sequence) instead of returning a
-rewritten copy.  Compute dtype follows the input; norm and softmax
+A port of ``repro.models.layers``.  Every block takes a sharding
+context :class:`Ctx` (the reference's ``ctx``) and constrains its
+activations by the reference's logical names: on no mesh, or a mesh of
+one rank, the constraints are the identity and tensors are plain; on a
+mesh of several ranks parameters and activations are DTensors and the
+attention runs on each rank's head shard
+(``repro_torch.kernels.head_shards``).  Parameters are plain dicts of
+tensors; the forward functions are pure except :func:`attention_decode`,
+which writes the new key and value into the cache in place (one slot
+per sequence; on a mesh, into the rank's block that owns the slot)
+instead of returning a rewritten copy.  Compute dtype follows the input; norm and softmax
 statistics are float32.  Attention goes through the hand-written
 kernels' wrappers: their CUDA kernels for tensors on the card, their
 plain versions for CPU tensors.
@@ -16,11 +22,57 @@ device; they match the JAX package's distributions, not its numbers.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import head_shards as HS
 from repro_torch.kernels.decode_gqa.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import sharding as shd
+
+
+@dataclasses.dataclass(frozen=True)
+class Ctx:
+    """The sharding context: a mesh and its rules, either None."""
+    mesh: Any = None
+    rules: Any = None
+
+    @property
+    def active(self) -> bool:
+        """Whether tensors are DTensors here (a mesh of several ranks)."""
+        return shd.is_multi(self.mesh)
+
+    def shard(self, x, logical):
+        if not self.active:
+            return x
+        return shd.shard(x, logical, self.mesh, self.rules)
+
+    def weight(self, w):
+        """``w`` whole over the FSDP axes (the mesh axes ``fsdp`` maps
+        to), its tensor-parallel split kept: the reference's partitioner
+        gathers an FSDP weight before the layer uses it, and the backward
+        reduce-scatters its gradient back to the weight's placements."""
+        if not isinstance(w, DTensor):
+            return w
+        fsdp = set(self.rules.axes_for("fsdp"))
+        pls = tuple(Replicate() if name in fsdp else p for name, p in
+                    zip(shd.axis_sizes(self.mesh), w.placements))
+        return w if pls == tuple(w.placements) else \
+            w.redistribute(self.mesh, pls)
+
+
+NO_CTX = Ctx()
+
+
+def _attend(q, k, v, *, causal, window=0):
+    if isinstance(q, DTensor):
+        return HS.flash_attention_shards(q, k, v, causal=causal,
+                                         window=window)
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def truncated_normal(gen, shape, scale, dtype):
@@ -88,26 +140,56 @@ def _out_proj(o, w):
 
 
 def attention_fwd(p, x, *, causal=True, window=0, rope_theta=10000.0,
-                  use_rope=True):
+                  use_rope=True, ctx: Ctx = NO_CTX):
     """Full-sequence attention (prefill) at positions 0..S-1, causal or
     not, with or without RoPE.  x (B,S,d) -> (out (B,S,d), (k, v) each
     (B,Hkv,S,D))."""
     S = x.shape[1]
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = (_proj(x, ctx.weight(p[w])) for w in ("wq", "wk", "wv"))
     if use_rope:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None, :]
         q, k = rope(q, positions, rope_theta), rope(k, positions, rope_theta)
-    q = q.transpose(1, 2).contiguous()
-    k = k.transpose(1, 2).contiguous()
-    v = v.transpose(1, 2).contiguous()
-    o = flash_attention(q, k, v, causal=causal, window=window)
-    out = _out_proj(o.transpose(1, 2), p["wo"])
-    return out, (k, v)
+    q = ctx.shard(q.transpose(1, 2).contiguous(),
+                  ("batch", "model", None, None))
+    k = ctx.shard(k.transpose(1, 2).contiguous(),
+                  ("batch", "cache_kv", None, None))
+    v = ctx.shard(v.transpose(1, 2).contiguous(),
+                  ("batch", "cache_kv", None, None))
+    o = _attend(q, k, v, causal=causal, window=window)
+    out = _out_proj(o.transpose(1, 2), ctx.weight(p["wo"]))
+    return ctx.shard(out, ("batch", None, None)), (k, v)
+
+
+def _write_slot(cache_x, new, slot):
+    """``cache_x[b, :, slot[b]] = new[b]`` for every row b, in place.
+    On a mesh each rank writes into its own block: the rows and kv heads
+    it holds, where it holds the slot (the cache may be split along the
+    sequence)."""
+    if not isinstance(cache_x, DTensor):
+        rows = torch.arange(cache_x.shape[0], device=cache_x.device)
+        cache_x[rows, :, slot] = new.to(cache_x.dtype)
+        return
+    mesh, pls = cache_x.device_mesh, cache_x.placements
+    B, _, S, _ = cache_x.shape
+    new_pls = tuple(Replicate() if p == Shard(2) else p
+                    for p in pls)
+    if tuple(new.placements) != new_pls:        # the cache's rows and heads
+        new = new.redistribute(mesh, new_pls)
+    local, nl = cache_x.to_local(), new.to_local()
+    b0 = shd.local_offset(0, B, pls, mesh)
+    s0 = shd.local_offset(2, S, pls, mesh)
+    Bl, _, Sl, _ = local.shape
+    at = slot[b0:b0 + Bl] - s0
+    own = (at >= 0) & (at < Sl)
+    at = torch.clamp(at, 0, Sl - 1)
+    rows = torch.arange(Bl, device=local.device)
+    local[rows, :, at] = torch.where(own[:, None, None],
+                                     nl.to(local.dtype), local[rows, :, at])
 
 
 def attention_decode(p, x, cache, pos, *, window=0, rope_theta=10000.0,
-                     use_rope=True):
+                     use_rope=True, ctx: Ctx = NO_CTX):
     """One-token decode. x (B,1,d); cache dict(k, v (B,Hkv,Smax,D)),
     updated in place; pos (B,) int.  Returns (out (B,1,d), cache).
 
@@ -116,21 +198,25 @@ def attention_decode(p, x, cache, pos, *, window=0, rope_theta=10000.0,
     is ``pos % window``, clipped to ``Smax - 1``, and the attended
     length is ``min(pos + 1, Smax)``.
     """
-    B = x.shape[0]
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    x = ctx.shard(x, (None, None, "dec_embed"))
+    q, k, v = (_proj(x, ctx.weight(p[w])) for w in ("wq", "wk", "wv"))
     if use_rope:
         q = rope(q, pos[:, None], rope_theta)
         k = rope(k, pos[:, None], rope_theta)
     Smax = cache["k"].shape[2]
     slot = pos % max(window, 1) if window > 0 else pos
     slot = torch.clamp(slot, max=Smax - 1).long()
-    rows = torch.arange(B, device=x.device)
-    cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
+    _write_slot(cache["k"], k[:, 0], slot)
+    _write_slot(cache["v"], v[:, 0], slot)
     length = torch.clamp(pos + 1, max=Smax).to(torch.int32)
-    o = decode_attention(q.transpose(1, 2).contiguous(), cache["k"],
-                         cache["v"], length)
-    out = _out_proj(o.transpose(1, 2), p["wo"])
+    q = q.transpose(1, 2).contiguous()
+    if isinstance(q, DTensor):
+        q = ctx.shard(q, ("batch", "heads", None, None))
+        o = HS.decode_attention_shards(q, cache["k"], cache["v"], length)
+        o = ctx.shard(o, (None, "heads", None, None))
+    else:
+        o = decode_attention(q, cache["k"], cache["v"], length)
+    out = _out_proj(o.transpose(1, 2), ctx.weight(p["wo"]))
     return out, cache
 
 
@@ -139,21 +225,24 @@ def attention_decode(p, x, cache, pos, *, window=0, rope_theta=10000.0,
 # and values from the fixed encoder output.  No RoPE: positions enter as
 # sinusoids added at the stack level.
 # ---------------------------------------------------------------------------
-def cross_kv(p, enc_out):
+def cross_kv(p, enc_out, ctx: Ctx = NO_CTX):
     """The cross-attention K/V of the encoder output (B,Se,d): each
     (B,Hkv,Se,D), contiguous."""
-    k = _proj(enc_out, p["wk"]).transpose(1, 2).contiguous()
-    v = _proj(enc_out, p["wv"]).transpose(1, 2).contiguous()
-    return k, v
+    k = _proj(enc_out, ctx.weight(p["wk"])).transpose(1, 2).contiguous()
+    v = _proj(enc_out, ctx.weight(p["wv"])).transpose(1, 2).contiguous()
+    return (ctx.shard(k, ("batch", "cache_kv", None, None)),
+            ctx.shard(v, ("batch", "cache_kv", None, None)))
 
 
-def cross_attention_fwd(p, x, enc_kv):
+def cross_attention_fwd(p, x, enc_kv, ctx: Ctx = NO_CTX):
     """x (B,S,d) against enc_kv = (k, v) each (B,Hkv,Se,D), not causal:
     the prefill kernel with Sq = S and Sk = Se."""
-    q = _proj(x, p["wq"]).transpose(1, 2).contiguous()
+    q = _proj(x, ctx.weight(p["wq"])).transpose(1, 2).contiguous()
+    q = ctx.shard(q, ("batch", "model", None, None))
     k, v = enc_kv
-    o = flash_attention(q, k, v, causal=False)
-    return _out_proj(o.transpose(1, 2), p["wo"])
+    o = _attend(q, k, v, causal=False)
+    return ctx.shard(_out_proj(o.transpose(1, 2), ctx.weight(p["wo"])),
+                     ("batch", None, None))
 
 
 def cross_attention_decode(p, x, cross_cache):
@@ -174,8 +263,31 @@ def embedding_init(gen, vocab: int, d: int, dtype):
 
 
 def embedding(table, tokens):
-    """tokens (...) int -> (..., d) rows of ``table``."""
-    return table[tokens.long()]
+    """tokens (...) int -> (..., d) rows of ``table``.  A DTensor table
+    (vocab rows split over the model axis, the d columns over the data
+    axis) is gathered along d, as the reference's partitioner gathers a
+    weight; each rank then looks every token up in its vocab rows, zeros
+    where it does not hold the row, and the output is the sum over the
+    ranks (``Partial``), exact since one term is the row and the rest
+    zeros."""
+    if not isinstance(table, DTensor):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    pls = tuple(p if p == Shard(0) else Replicate()
+                for p in table.placements)
+    if pls != tuple(table.placements):
+        table = table.redistribute(mesh, pls)
+    local = table.to_local()
+    tok = (tokens.full_tensor() if isinstance(tokens, DTensor)
+           else tokens).long()
+    v0 = shd.local_offset(0, table.shape[0], pls, mesh)
+    at = tok - v0
+    own = (at >= 0) & (at < local.shape[0])
+    out = local[torch.clamp(at, 0, local.shape[0] - 1)] * own[..., None]
+    return DTensor.from_local(
+        out, mesh, tuple(Partial() if p == Shard(0)
+                         else Replicate() for p in pls),
+        run_check=False, shape=out.shape, stride=out.stride())
 
 
 def sinusoid(pos, d: int):
@@ -208,12 +320,14 @@ def mlp_init(gen, d, f, dtype, gated=True):
     return p
 
 
-def mlp_fwd(p, x):
+def mlp_fwd(p, x, ctx: Ctx = NO_CTX):
     """SiLU-gated where ``p`` has ``w_gate``, else GELU in its tanh form
     (``jax.nn.gelu``'s default, not torch's exact erf)."""
-    h = x @ p["w_up"]
+    x = ctx.shard(x, (None,) * (x.ndim - 1) + ("dec_embed",))
+    h = x @ ctx.weight(p["w_up"])
     if "w_gate" in p:
-        h = F.silu(x @ p["w_gate"]) * h
+        h = F.silu(x @ ctx.weight(p["w_gate"])) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_down"]
+    h = ctx.shard(h, ("batch", None, "model"))
+    return ctx.shard(h @ ctx.weight(p["w_down"]), ("batch", None, None))

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -106,6 +107,22 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, device="cpu"):
     return conv(tree)
 
 
+def _pad_seq(x, smax: int):
+    """(L,B,H,S,D) zero-padded to ``smax`` slots; a DTensor (whose
+    sequence dim a prefill never splits) is padded rank by rank."""
+    pad = (0, 0, 0, smax - x.shape[3])
+    if not isinstance(x, DTensor):
+        return torch.nn.functional.pad(x, pad)
+    if any(p == Shard(3) for p in x.placements):
+        raise ValueError(f"a prefill cache split along the sequence: "
+                         f"{x.placements}")
+    shape = x.shape[:3] + (smax,) + x.shape[4:]
+    return DTensor.from_local(
+        torch.nn.functional.pad(x.to_local(), pad), x.device_mesh,
+        x.placements, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def _pad_cache_seq(cache, smax: int):
     """Zero-pad the k/v cache tensors (stacked (L,B,H,S,D)), at any
     depth of the cache dict (the hybrid's attention sublayer), to
@@ -118,7 +135,7 @@ def _pad_cache_seq(cache, smax: int):
         if isinstance(x, dict):
             x = x if name == "cross" else _pad_cache_seq(x, smax)
         elif name in ("k", "v") and x.shape[3] < smax:
-            x = torch.nn.functional.pad(x, (0, 0, 0, smax - x.shape[3]))
+            x = _pad_seq(x, smax)
         out[name] = x
     return out
 
@@ -170,86 +187,98 @@ class LM(torch.nn.Module):
         return count(self.params)
 
     # ------------------------------------------------------------ pieces
-    def _embed(self, tokens, params=None):
+    def _embed(self, tokens, params=None, ctx: L.Ctx = L.NO_CTX):
         params = self.params if params is None else params
-        return L.embedding(params["embed"], tokens.to(self.device))
+        x = L.embedding(params["embed"], tokens.to(self.device))
+        return ctx.shard(x, ("batch", None, None))
 
-    def _head(self, x, params=None):
+    def _head(self, x, params=None, ctx: L.Ctx = L.NO_CTX):
         params = self.params if params is None else params
         x = L.rmsnorm(params["final_norm"], x)
+        if x.ndim == 2:                         # decode: (B, d)
+            x = ctx.shard(x, (None, "dec_embed"))
         if self.cfg.tie_embeddings:
-            return x @ params["embed"].t()
-        return x @ params["lm_head"]
+            logits = x @ ctx.weight(params["embed"]).t()
+        else:
+            logits = x @ ctx.weight(params["lm_head"])
+        return ctx.shard(logits, ("batch",) + (None,) * (logits.ndim - 2)
+                         + ("vocab",))
 
-    def _inputs(self, batch, params=None):
+    def _inputs(self, batch, params=None, ctx: L.Ctx = L.NO_CTX):
         """The decoder's input sequence: the token embeddings, after the
         projected patches for the VLM."""
         params = self.params if params is None else params
-        x = self._embed(batch["tokens"], params)
+        x = self._embed(batch["tokens"], params, ctx)
         if self.cfg.family != "vlm":
             return x
         patches = batch["patches"].to(device=self.device, dtype=self.dtype)
         return torch.cat([patches @ params["patch_proj"], x], dim=1)
 
-    def _encode(self, batch, params=None):
+    def _encode(self, batch, params=None, ctx: L.Ctx = L.NO_CTX):
         params = self.params if params is None else params
         frames = batch["frames"].to(device=self.device, dtype=self.dtype)
-        return ED.encode(params, frames, self.cfg)
+        return ED.encode(params, frames, self.cfg, ctx)
 
     # --------------------------------------------------------------- forward
-    def forward(self, batch, *, with_aux: bool = False, params=None):
+    def forward(self, batch, *, with_aux: bool = False, params=None,
+                ctx: L.Ctx = L.NO_CTX):
         """tokens (B, S) (and frames, encdec; patches, vlm) -> logits
         (B, S, Vp) (B, n_patches + S, Vp for the VLM); with
         ``with_aux`` also the MoE auxiliary loss, summed over layers
         and divided by ``n_layers`` (a float32 0 without MoE), as the
         reference's ``forward`` returns it.  ``params`` (a tree of the
         module's layout, such as the trainer's leaves that autograd
-        tracks) replace the module's own weights for this call."""
+        tracks) replace the module's own weights for this call.
+        ``ctx`` (``layers.Ctx``) is the mesh and rules, for a DTensor
+        ``params`` tree."""
         params = self.params if params is None else params
-        x = self._inputs(batch, params)
+        x = self._inputs(batch, params, ctx)
         if self.cfg.family == "encdec":
-            x, _ = ED.decode_fwd(params, x, self._encode(batch, params),
-                                 self.cfg)
+            x, _ = ED.decode_fwd(params, x, self._encode(batch, params, ctx),
+                                 self.cfg, ctx=ctx)
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
         else:
             x, _, aux = T.stack_fwd(params["stack"], x, self.cfg,
-                                    with_aux=with_aux)
-        logits = self._head(x, params)
+                                    with_aux=with_aux, ctx=ctx)
+        logits = self._head(x, params, ctx)
         return (logits, aux) if with_aux else logits
 
     # --------------------------------------------------------------- prefill
-    def prefill(self, batch, *, pad_to: int | None = None):
+    def prefill(self, batch, *, pad_to: int | None = None,
+                ctx: L.Ctx = L.NO_CTX):
         """tokens (B, S) (and frames, encdec; patches, vlm) -> (logits
         of the last position (B, Vp), cache).  ``pad_to`` grows the
         self-attention cache to that many sequence slots so that decode
         steps can append."""
-        x = self._inputs(batch)
+        x = self._inputs(batch, ctx=ctx)
         if self.cfg.family == "encdec":
-            x, cache = ED.decode_fwd(self.params, x, self._encode(batch),
-                                     self.cfg, collect_cache=True)
+            x, cache = ED.decode_fwd(self.params, x,
+                                     self._encode(batch, ctx=ctx), self.cfg,
+                                     collect_cache=True, ctx=ctx)
         else:
             x, cache, _ = T.stack_fwd(self.params["stack"], x, self.cfg,
-                                      collect_cache=True)
-        logits = self._head(x[:, -1])
+                                      collect_cache=True, ctx=ctx)
+        logits = self._head(x[:, -1], ctx=ctx)
         if pad_to is not None:
             cache = _pad_cache_seq(cache, pad_to)
         return logits, cache
 
     # ----------------------------------------------------------- decode step
-    def decode_step(self, cache, batch):
+    def decode_step(self, cache, batch, ctx: L.Ctx = L.NO_CTX):
         """token (B, 1), pos (B,) -> (logits (B, Vp), cache); writes this
         token's keys and values (dense, moe, vlm, encdec's self cache,
         the hybrid's attention sublayers) or the new SSM and conv states
         (ssm, the hybrid's Mamba-2 sublayers) into ``cache`` in
         place."""
-        x = self._embed(batch["token"])                   # (B, 1, d)
+        x = self._embed(batch["token"], ctx=ctx)          # (B, 1, d)
         pos = batch["pos"].to(self.device)
         if self.cfg.family == "encdec":
-            x, cache = ED.decode_step(self.params, cache, x, pos, self.cfg)
+            x, cache = ED.decode_step(self.params, cache, x, pos, self.cfg,
+                                      ctx)
         else:
             x, cache = T.stack_decode(self.params["stack"], cache, x, pos,
-                                      self.cfg)
-        return self._head(x[:, 0]), cache
+                                      self.cfg, ctx)
+        return self._head(x[:, 0], ctx=ctx), cache
 
     # ------------------------------------------------------------ init_cache
     def init_cache(self, B: int, smax: int, dtype=torch.bfloat16):

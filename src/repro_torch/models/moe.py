@@ -1,5 +1,7 @@
 """Mixture-of-Experts FFN with sort-based capacity dispatch, a port of
-``repro.models.moe`` for one device.
+``repro.models.moe``.  ``moe_fwd`` takes the sharding context at the
+reference's sites; the dispatch on a mesh of several ranks is not run
+yet.
 
 Tokens are dispatched per group, one group being one sequence: each
 group's ``(token, k)`` assignments (flattened token-major) are sorted
@@ -108,17 +110,24 @@ def load_balance(logits, top_idx):
 
 
 def moe_fwd(p, x, *, top_k: int, capacity_factor: float = 1.25,
-            with_aux: bool = True):
+            with_aux: bool = True, ctx=None):
     """x (B,S,d) -> (out (B,S,d), aux loss, a float32 scalar; None
-    without ``with_aux``, where no kernel is spent on it)."""
+    without ``with_aux``, where no kernel is spent on it).  ``ctx``
+    (``layers.Ctx``) constrains the slots, the hidden and the output by
+    the reference's logical names, in this module's (E, B*C, .)
+    layout."""
+    shard = ctx.shard if ctx is not None else (lambda t, logical: t)
     B, S, d = x.shape
     E = p["router"].shape[-1]
     top_idx, top_gates, logits = route(p, x, top_k)
     aux = load_balance(logits, top_idx) if with_aux else None
     C = capacity(S, top_k, E, capacity_factor)
     slots, slot = _group_dispatch(x, top_idx, E, C)
-    slots = slots.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    slots = shard(slots.reshape(B, E, C, d), ("batch", None, None, None))
+    slots = slots.transpose(0, 1).reshape(E, B * C, d)
     h = F.silu(torch.bmm(slots, p["w_gate"])) * torch.bmm(slots, p["w_up"])
-    y = torch.bmm(h, p["w_down"])                           # (E, B*C, d)
+    h = shard(h, (None, "batch", "model"))
+    y = shard(torch.bmm(h, p["w_down"]), (None, "batch", None))  # (E, B*C, d)
     y = y.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
-    return _group_combine(y, slot, top_idx, top_gates), aux
+    return shard(_group_combine(y, slot, top_idx, top_gates),
+                 ("batch", None, None)), aux

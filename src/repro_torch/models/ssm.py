@@ -84,9 +84,11 @@ def _gate_out(p, y, xs, z, dtype, shape):
     return rmsnorm(p["norm"], y) @ p["w_out"]
 
 
-def ssm_fwd(p, x, cfg):
+def ssm_fwd(p, x, cfg, ctx=None):
     """Prefill.  x (B,T,d) -> (y (B,T,d), state {"ssm" (B,H,N,P) float32,
-    "conv" (B,K-1,conv_dim)} for decode)."""
+    "conv" (B,K-1,conv_dim)} for decode).  ``ctx`` (``layers.Ctx``)
+    constrains the heads and the output by the reference's names."""
+    shard = ctx.shard if ctx is not None else (lambda t, logical: t)
     B, T, d = x.shape
     N, P = cfg.ssm_state, cfg.ssm_headdim
     d_inner, H, _ = ssm_dims(d, cfg.ssm_expand, P, N)
@@ -97,10 +99,12 @@ def ssm_fwd(p, x, cfg):
     Cm = xBC[..., d_inner + N:]
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
+    xs = shard(xs, ("batch", None, "model", None))
     y, S = ssd_forward(xs.float(), dt, A, Bm.float(), Cm.float(),
                        chunk=cfg.ssd_chunk)
     out = _gate_out(p, y, xs, z, x.dtype, (B, T, d_inner))
-    return out, {"ssm": S.contiguous(), "conv": conv_state}
+    return shard(out, ("batch", None, None)), {"ssm": S.contiguous(),
+                                               "conv": conv_state}
 
 
 def ssm_init_state(B, d_model, cfg, dtype=torch.float32, device="cpu"):
@@ -114,10 +118,12 @@ def ssm_init_state(B, d_model, cfg, dtype=torch.float32, device="cpu"):
     }
 
 
-def ssm_decode(p, x, state, cfg):
+def ssm_decode(p, x, state, cfg, ctx=None):
     """One token.  x (B,1,d); ``state`` (from :func:`ssm_init_state`,
     :func:`ssm_fwd` or a layer of the cache) is updated in place.
     Returns (y (B,1,d), state)."""
+    if ctx is not None:
+        x = ctx.shard(x, (None, None, "dec_embed"))
     B, _, d = x.shape
     N, P = cfg.ssm_state, cfg.ssm_headdim
     d_inner, H, _ = ssm_dims(d, cfg.ssm_expand, P, N)

@@ -1,5 +1,5 @@
 """Train-step and serving-step factories, a port of
-``repro.models.steps`` for one device.
+``repro.models.steps``.
 
 ``make_train_step``: next-token cross entropy (a float32 log-softmax
 over the padded vocab), the MoE aux loss, an optional z-loss, gradient
@@ -13,11 +13,38 @@ recomputed in the backward where ``cfg.remat`` is set
 ``make_prefill_step`` / ``make_decode_step``: batch prefill and one
 greedy decode step for every family; the prefill passes the batch
 through as it is (whisper's ``frames``, the VLM's ``patches``).
+
+Each factory takes ``mesh=`` and ``rules=`` as the reference's do.  On
+no mesh, or a mesh of one rank, the steps are the one-device steps.  On
+a mesh of several ranks (a ``DeviceMesh`` over the process group; the
+dense family) the parameters, optimizer state and caches are DTensors
+placed by ``models.partition`` (``runtime.elastic.device_put_like``),
+the batch is split over the data axis (``batch_shardings``), and the
+model constrains its activations by the reference's logical names:
+
+- each gradient is redistributed to its parameter's placements before
+  the clip and the update (DTensor's backward leaves some ``Partial``
+  over the data axis), which is what the reference's in/out shardings
+  do; the global norm reduces to a replicated scalar, and the update
+  writes into the DTensor state in place;
+- with ``grad_accum > 1`` each rank splits its own rows into the
+  microbatches;
+- the metrics (and the train step's loss) come back as plain replicated
+  tensors; the prefill's logits and cache and the decode step's logits
+  and cache stay DTensors, the decode step's greedy tokens are plain.
 """
 from __future__ import annotations
 
-import torch
+import dataclasses
 
+import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import zeros as dtensor_zeros
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.models import partition as PT
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import NO_CTX, Ctx
 from repro_torch.models.model import LM
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.tree import tree_leaves, tree_map
@@ -38,16 +65,23 @@ def _ce(logits, labels, mask):
     return nll.sum() / torch.clamp(mask.sum(), min=1.0), lse
 
 
-def make_loss_fn(model: LM):
+def make_loss_fn(model: LM, ctx: Ctx = NO_CTX):
     """-> ``loss_fn(params, batch) -> (loss, metrics)``: ``ce``, plus
     ``aux`` (MoE; weighted by ``aux_loss_w`` into the loss) and
     ``zloss`` (the mean squared logsumexp, weighted by ``cfg.zloss``
     when it is > 0).  The VLM's loss covers the text only: logits at
-    position P + i predict token i + 1."""
+    position P + i predict token i + 1.  ``ctx`` is the mesh and rules
+    of a DTensor ``params`` tree."""
     cfg = model.cfg
 
     def loss_fn(params, batch):
-        logits, aux = model.forward(batch, with_aux=True, params=params)
+        logits, aux = model.forward(batch, with_aux=True, params=params,
+                                    ctx=ctx)
+        # on a mesh the head leaves the logits split over the vocab;
+        # DTensor's vocab-split gather (its masked partial) does not
+        # reduce correctly with a batch split beside it, so the loss
+        # takes each rank's rows whole along the vocab
+        logits = ctx.shard(logits, ("batch", None, None))
         tokens = batch["tokens"].to(logits.device)
         if cfg.family == "vlm":
             P = cfg.n_patches
@@ -70,13 +104,22 @@ def make_loss_fn(model: LM):
     return loss_fn
 
 
+def whole(x):
+    """A DTensor as the plain tensor every rank holds (a no-op on a
+    plain tensor)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def value_and_grad(loss_fn, params, batch):
     """-> (loss, metrics, grads): the loss and metrics detached, the
     gradient of every parameter leaf in its dtype (zeros for a leaf the
-    loss does not reach)."""
+    loss does not reach).  On a mesh the loss and metrics are plain
+    replicated tensors and the gradients DTensors in whatever placements
+    the backward left them."""
     with torch.enable_grad():
         tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, metrics = loss_fn(tracked, batch)
+        loss, metrics = whole(loss), tree_map(whole, metrics)
         leaves = tree_leaves(tracked)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
@@ -88,8 +131,49 @@ def value_and_grad(loss_fn, params, batch):
 # ---------------------------------------------------------------------------
 # train step
 # ---------------------------------------------------------------------------
-def make_train_step(model: LM, *, total_steps: int = 10_000,
-                    peak_lr: float = 3e-4):
+def _placed_batch(batch, ctx: Ctx):
+    """The batch's leaves split over the data axis (each rank keeps its
+    rows of the batch every rank holds)."""
+    pls = PT.batch_shardings(batch, ctx.mesh, ctx.rules)
+    return {k: v if isinstance(v, DTensor) else
+            shd.place(v, ctx.mesh, pls[k]) for k, v in batch.items()}
+
+
+def _microbatches(batch, accum: int, ctx: Ctx) -> list:
+    """``accum`` microbatches: on a mesh each rank splits its own rows."""
+    if not ctx.active:
+        return [{k: v.reshape((accum, v.shape[0] // accum)
+                              + tuple(v.shape[1:]))[i]
+                 for k, v in batch.items()} for i in range(accum)]
+
+    def part(v, i):
+        loc = v.to_local()
+        loc = loc.reshape((accum, loc.shape[0] // accum)
+                          + tuple(loc.shape[1:]))[i]
+        shape = (v.shape[0] // accum,) + tuple(v.shape[1:])
+        return DTensor.from_local(loc, ctx.mesh, v.placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=loc.stride())
+    return [{k: part(v, i) for k, v in batch.items()} for i in range(accum)]
+
+
+def _placed_optimizer(opt, ctx: Ctx):
+    """``opt`` whose ``init`` places the moments like their parameters
+    (``partition.opt_shardings``) on ``ctx``'s mesh."""
+    if not ctx.active:
+        return opt
+
+    def init(params):
+        shapes = opt.init(tree_map(lambda p: torch.empty(
+            p.shape, dtype=p.dtype, device="meta"), params))
+        return tree_map(lambda x, pls: dtensor_zeros(
+            x.shape, dtype=x.dtype, device_mesh=ctx.mesh, placements=pls),
+            shapes, PT.opt_shardings(shapes, ctx.mesh, ctx.rules))
+    return dataclasses.replace(opt, init=init)
+
+
+def make_train_step(model: LM, *, mesh=None, rules=None,
+                    total_steps: int = 10_000, peak_lr: float = 3e-4):
     """-> ``(train_step, opt)``: ``train_step(params, opt_state, batch,
     step) -> (params, opt_state, metrics)`` with ``step`` a host int and
     the metrics (``loss``, ``gnorm``, ``lr`` and the loss's own) 0-d
@@ -97,28 +181,39 @@ def make_train_step(model: LM, *, total_steps: int = 10_000,
     many microbatches, run one after another; their gradients are
     summed in float32 over ``accum`` and their metrics averaged.  The
     update is written into ``params`` and ``opt_state``
-    (``Optimizer.update``), as the reference's driver donates them."""
+    (``Optimizer.update``), as the reference's driver donates them.
+    ``mesh`` / ``rules``: see the module docstring; ``opt.init`` then
+    places the moments."""
     cfg = model.cfg
-    loss_fn = make_loss_fn(model)
-    opt = make_optimizer(cfg.optimizer, moment_dtype=cfg.moment_dtype)
+    ctx = Ctx(mesh=mesh, rules=rules)
+    loss_fn = make_loss_fn(model, ctx)
+    opt = _placed_optimizer(make_optimizer(cfg.optimizer,
+                                          moment_dtype=cfg.moment_dtype), ctx)
     schedule = make_schedule(cfg.lr_schedule, peak=peak_lr,
                              warmup=max(1, total_steps // 100),
                              total=total_steps)
     accum = max(1, cfg.grad_accum)
 
-    def train_step(params, opt_state, batch, step: int):
+    def like_params(grads, params):
+        if not ctx.active:
+            return grads
+        return tree_map(lambda g, p: g if g.placements == p.placements
+                        else g.redistribute(mesh, p.placements), grads,
+                        params)
+
+    def step_fn(params, opt_state, batch, step: int):
         if accum == 1:
             loss, metrics, grads = value_and_grad(loss_fn, params, batch)
+            grads = like_params(grads, params)
         else:
-            mbs = [{k: v.reshape((accum, v.shape[0] // accum)
-                                 + tuple(v.shape[1:]))[i]
-                    for k, v in batch.items()} for i in range(accum)]
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                                   device=p.device), params)
+            mbs = _microbatches(batch, accum, ctx)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=F32),
+                             params)
             loss = torch.zeros((), dtype=F32, device=model.device)
             mstack = []
             for mb in mbs:
                 l_, m, g = value_and_grad(loss_fn, params, mb)
+                g = like_params(g, params)
                 for a, g_ in zip(tree_leaves(grads), tree_leaves(g)):
                     a.add_(g_.to(F32) / accum)      # acc + g / accum
                 del g
@@ -129,8 +224,17 @@ def make_train_step(model: LM, *, total_steps: int = 10_000,
         lr = schedule(step)
         new_params, new_opt, gnorm = opt.update(grads, opt_state, params,
                                                 step, lr)
-        metrics = {**metrics, "loss": loss, "gnorm": gnorm, "lr": lr}
+        metrics = {**metrics, "loss": loss, "gnorm": whole(gnorm),
+                   "lr": lr}
         return new_params, new_opt, metrics
+
+    if not ctx.active:
+        return step_fn, opt
+
+    def train_step(params, opt_state, batch, step: int):
+        with implicit_replication():
+            return step_fn(params, opt_state, _placed_batch(batch, ctx),
+                           step)
 
     return train_step, opt
 
@@ -138,20 +242,53 @@ def make_train_step(model: LM, *, total_steps: int = 10_000,
 # ---------------------------------------------------------------------------
 # serve steps
 # ---------------------------------------------------------------------------
-def make_prefill_step(model: LM, *, pad_to: int | None = None):
+def place_cache(cache, ctx: Ctx):
+    """A cache placed by ``partition.cache_shardings`` on ``ctx``'s
+    mesh: DTensors redistributed (a prefill's cache takes ``cache_seq``
+    here), plain tensors split."""
+    pls = PT.cache_shardings(cache, ctx.mesh, ctx.rules)
+
+    def one(x, p):
+        if not isinstance(x, DTensor):
+            return shd.place(x, ctx.mesh, p)
+        return x if tuple(x.placements) == p else x.redistribute(ctx.mesh, p)
+    return tree_map(one, cache, pls)
+
+
+def make_prefill_step(model: LM, *, pad_to: int | None = None, mesh=None,
+                      rules=None):
+    """-> ``prefill_step(batch) -> (last logits, cache)`` with the
+    module's own parameters (DTensors placed on ``mesh`` there)."""
+    ctx = Ctx(mesh=mesh, rules=rules)
+
     @torch.no_grad()
     def prefill_step(batch):
-        return model.prefill(batch, pad_to=pad_to)
+        if not ctx.active:
+            return model.prefill(batch, pad_to=pad_to)
+        with implicit_replication():
+            logits, cache = model.prefill(_placed_batch(batch, ctx),
+                                          pad_to=pad_to, ctx=ctx)
+            return logits, place_cache(cache, ctx)
 
     return prefill_step
 
 
-def make_decode_step(model: LM):
+def make_decode_step(model: LM, *, mesh=None, rules=None):
+    ctx = Ctx(mesh=mesh, rules=rules)
+
     @torch.no_grad()
     def decode_step(cache, batch):
-        logits, cache = model.decode_step(cache, batch)
-        # greedy token out (serving returns ids, not logits, to the host)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if not ctx.active:
+            logits, cache = model.decode_step(cache, batch)
+            # greedy token out (serving returns ids, not logits, to the
+            # host)
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            return next_tok, logits, cache
+        with implicit_replication():
+            logits, cache = model.decode_step(place_cache(cache, ctx), batch,
+                                              ctx)
+            next_tok = torch.argmax(logits.full_tensor(), dim=-1).to(
+                torch.int32)
         return next_tok, logits, cache
 
     return decode_step

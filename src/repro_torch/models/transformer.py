@@ -153,46 +153,49 @@ def layer_params(params, i: int):
 # ---------------------------------------------------------------------------
 # layer bodies
 # ---------------------------------------------------------------------------
-def _ffn(p, x, cfg: ArchConfig, ffn: str, with_aux: bool = False):
+def _ffn(p, x, cfg: ArchConfig, ffn: str, with_aux: bool = False,
+         ctx: L.Ctx = L.NO_CTX):
     """The layer's FFN on x: (out, MoE aux loss, or None without MoE or
     ``with_aux``)."""
     if ffn == "moe":
         return MOE.moe_fwd(p, x, top_k=cfg.top_k,
                            capacity_factor=cfg.capacity_factor,
-                           with_aux=with_aux)
-    return L.mlp_fwd(p, x), None
+                           with_aux=with_aux, ctx=ctx)
+    return L.mlp_fwd(p, x, ctx), None
 
 
 def _layer_fwd(p, x, cfg: ArchConfig, mixer: str, ffn: str,
-               with_aux: bool = False):
+               with_aux: bool = False, ctx: L.Ctx = L.NO_CTX):
     """Full-sequence layer. Returns (x, cache, aux or None)."""
     h = L.rmsnorm(p["norm1"], x)
     if mixer == "attn":
         a, (k, v) = L.attention_fwd(p["mixer"], h, window=cfg.window,
-                                    rope_theta=cfg.rope_theta)
+                                    rope_theta=cfg.rope_theta, ctx=ctx)
         cache = {"k": k, "v": v}
     else:
-        a, cache = SSM.ssm_fwd(p["mixer"], h, cfg)
+        a, cache = SSM.ssm_fwd(p["mixer"], h, cfg, ctx)
     x = x + a
     aux = None
     if ffn:
         f, aux = _ffn(p["ffn"], L.rmsnorm(p["norm2"], x), cfg, ffn,
-                      with_aux)
+                      with_aux, ctx)
         x = x + f
     return x, cache, aux
 
 
-def _layer_decode(p, x, cache, pos, cfg: ArchConfig, mixer: str, ffn: str):
+def _layer_decode(p, x, cache, pos, cfg: ArchConfig, mixer: str, ffn: str,
+                  ctx: L.Ctx = L.NO_CTX):
     h = L.rmsnorm(p["norm1"], x)
     if mixer == "attn":
         a, cache = L.attention_decode(p["mixer"], h, cache, pos,
                                       window=cfg.window,
-                                      rope_theta=cfg.rope_theta)
+                                      rope_theta=cfg.rope_theta, ctx=ctx)
     else:
-        a, cache = SSM.ssm_decode(p["mixer"], h, cache, cfg)
+        a, cache = SSM.ssm_decode(p["mixer"], h, cache, cfg, ctx)
     x = x + a
     if ffn:
-        x = x + _ffn(p["ffn"], L.rmsnorm(p["norm2"], x), cfg, ffn)[0]
+        x = x + _ffn(p["ffn"], L.rmsnorm(p["norm2"], x), cfg, ffn,
+                     ctx=ctx)[0]
     return x, cache
 
 
@@ -239,12 +242,13 @@ def _units(params, cfg: ArchConfig):
     return [layers[i:i + n] for i in range(0, len(layers), n)]
 
 
-def _unit_fwd(unit, x, aux, cfg: ArchConfig):
+def _unit_fwd(unit, x, aux, cfg: ArchConfig, ctx: L.Ctx = L.NO_CTX):
     """The layers of one unit in order -> (x, [(cache key, cache)],
     ``aux`` plus each MoE layer's aux loss; None stays None)."""
     caches = []
     for key, p, _, mixer, ffn in unit:
-        x, cache, a = _layer_fwd(p, x, cfg, mixer, ffn, aux is not None)
+        x, cache, a = _layer_fwd(p, x, cfg, mixer, ffn, aux is not None,
+                                 ctx)
         if a is not None:
             aux = aux + a
         caches.append((key, cache))
@@ -252,7 +256,7 @@ def _unit_fwd(unit, x, aux, cfg: ArchConfig):
 
 
 def stack_fwd(params, x, cfg: ArchConfig, collect_cache: bool = False,
-              with_aux: bool = False):
+              with_aux: bool = False, ctx: L.Ctx = L.NO_CTX):
     """x (B,S,d) -> (x, stacked cache or None, aux).  The cache is
     stacked over layers, or for the hybrid ``{"l{i}": sublayer i's cache
     stacked over super-blocks}``.  With ``with_aux`` aux is the sum of
@@ -263,7 +267,7 @@ def stack_fwd(params, x, cfg: ArchConfig, collect_cache: bool = False,
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if with_aux else None)
     for unit in _units(params, cfg):
-        x, unit_caches, aux = remat(_unit_fwd, cfg, unit, x, aux, cfg)
+        x, unit_caches, aux = remat(_unit_fwd, cfg, unit, x, aux, cfg, ctx)
         for key, cache in unit_caches if collect_cache else ():
             caches.setdefault(key, []).append(cache)
     if collect_cache:
@@ -274,8 +278,9 @@ def stack_fwd(params, x, cfg: ArchConfig, collect_cache: bool = False,
             aux / cfg.n_layers if with_aux else None)
 
 
-def stack_decode(params, caches, x, pos, cfg: ArchConfig):
+def stack_decode(params, caches, x, pos, cfg: ArchConfig,
+                 ctx: L.Ctx = L.NO_CTX):
     """One token through every layer; ``caches`` is updated in place."""
     for _, p, cache, mixer, ffn in _walk(params, cfg, caches):
-        x, _ = _layer_decode(p, x, cache, pos, cfg, mixer, ffn)
+        x, _ = _layer_decode(p, x, cache, pos, cfg, mixer, ffn, ctx)
     return x, caches

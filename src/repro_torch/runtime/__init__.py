@@ -1,7 +1,7 @@
 """Runtime substrate of training: failure injection and restart
 supervision, gradient compression, straggler budgets and the churn
-schedule's degradation draws.  ``repro.runtime``'s elastic resharding
-(the LM mesh) is not ported here."""
+schedule's degradation draws.  The elastic restore across meshes and
+the join draws are ``runtime.elastic``."""
 from repro_torch.runtime.compression import (CompressionState,
                                              compress_grads,
                                              compression_ratio,

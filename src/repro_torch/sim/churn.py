@@ -53,6 +53,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.runtime.elastic import join_schedule
 from repro_torch.runtime.fault import failure_schedule
 from repro_torch.runtime.straggler import slowdown_schedule, throttle_schedule
 
@@ -109,23 +110,8 @@ def _window(periods: int, window: tuple[float, float]) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 # NumPy host path (the JAX package's runtime draw helpers: the fail-stop
 # one is ``runtime/fault.py::failure_schedule``, the degradations
-# ``runtime/straggler.py``'s, the join's below)
+# ``runtime/straggler.py``'s, the join's ``runtime/elastic.py``'s)
 # ---------------------------------------------------------------------------
-def _draw(rng: np.random.Generator, n: int, periods: int, num_sas: int,
-          window: tuple[float, float]) -> tuple[np.ndarray, np.ndarray]:
-    """``n`` events at uniform periods inside ``window`` on distinct SAs
-    (``runtime/fault.py::failure_schedule`` and its siblings)."""
-    lo, hi = _window(periods, window)
-    p = rng.integers(lo, hi, size=n)
-    sa = rng.choice(num_sas, size=n, replace=False)
-    return p.astype(np.int32), sa.astype(np.int32)
-
-
-def join_schedule(rng, *, periods, num_sas, n=1, window=(0.25, 0.75)):
-    """Elastic-join events."""
-    return _draw(rng, max(0, min(int(n), num_sas)), periods, num_sas, window)
-
-
 def no_op_events(max_events: int = 4) -> dict[str, np.ndarray]:
     """All-``EV_NONE`` event arrays (compiles to the identity schedule)."""
     z = np.zeros((max_events,), np.int32)

@@ -70,7 +70,10 @@ def test_every_module_imports_with_jax_blocked():
         "       'repro_torch.optim.schedules', 'repro_torch.data.pipeline',\n"
         "       'repro_torch.runtime.fault', 'repro_torch.runtime.compression',\n"
         "       'repro_torch.launch.train', 'repro_torch.tree',\n"
-        "       'repro_torch.runtime.straggler'}\n"
+        "       'repro_torch.runtime.straggler',\n"
+        "       'repro_torch.models.sharding', 'repro_torch.models.partition',\n"
+        "       'repro_torch.launch.mesh', 'repro_torch.runtime.elastic',\n"
+        "       'repro_torch.kernels.head_shards'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -723,3 +723,36 @@ def test_telemetry_primitives_on_the_card_are_sync_free(card, case):
     for k, v in want.items():
         assert got[k].device.type == "cuda", k
         assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,tp", [(16, 8, 16), (16, 8, 4), (4, 2, 4),
+                                       (16, 2, 4), (8, 2, 2), (6, 2, 3)])
+def test_head_shard_kernels_take_each_q_heads_kv_head(card, Hq, Hkv, tp,
+                                                       dtype):
+    """A model-axis rank's q heads against the kv heads the shard wrappers
+    hand them (``head_shards.kv_heads_for``): replicated kv where Hkv does
+    not divide the model axis, so global q head j reads kv head j // G;
+    ``flash_attention`` and ``decode_attention`` against the plain
+    versions on the kv heads indexed by hand."""
+    from repro_torch.kernels import head_shards as HS
+    B, S, D, G = 2, 96, 64, Hq // Hkv
+    split = Hkv % tp == 0
+    hq, hkv = Hq // tp, (Hkv // tp if split else Hkv)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    length = torch.tensor([S, S - 17], dtype=torch.int32, device="cuda")
+    for r in range(tp):
+        j0, k0 = r * hq, (r * hkv if split else 0)
+        q, k, v, qd = rnd(B, hq, S, D), rnd(B, hkv, S, D), rnd(B, hkv, S, D), \
+            rnd(B, hq, 1, D)
+        ks, group = HS.kv_heads_for(k, j0, hq, G, k0)
+        vs, _ = HS.kv_heads_for(v, j0, hq, G, k0)
+        idx = (torch.arange(j0, j0 + hq, device="cuda") // G) - k0
+        got = fa_ops.flash_attention(q, ks, vs, causal=True)
+        want = fa_ref.attention_chunked(q, k[:, idx], v[:, idx], causal=True)
+        assert attn_err(got, want)[1] <= 1.0, (r, group)
+        got = dec_ops.decode_attention(qd, ks, vs, length)
+        want = dec_ref.decode_attention_ref(qd, k[:, idx], v[:, idx], length)
+        assert attn_err(got, want)[1] <= 1.0, (r, group)

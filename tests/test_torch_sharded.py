@@ -1,8 +1,9 @@
 """The port's sharded rounds: the in-process oracle against the JAX
 package's vmap oracle (``sharded_rounds_reference``, one CPU device) on
 the draws JAX's per-device keys give, the specialist and the
-generalist, then two gloo ranks on the CPU against the port's oracle,
-and the divisibility checks.
+generalist, in the gathered-batch and the local-sample topologies
+(``update_gather``), then two gloo ranks on the CPU against the port's
+oracle, and the divisibility checks.
 
 Randomness crosses as data (tests/test_torch_train.py's
 ``_jax_round_draws`` at ``fold_in(key, d)``).  Tolerances, those of
@@ -129,10 +130,23 @@ def _assert_params(state, jstate, dcfg, U):
 def test_sharded_oracle_matches_jax(envs):
     """D = 2 over 3 rounds (a warm-up, then two of 3 updates), with
     telemetry, on the draws JAX's device keys give."""
+    _check_specialist(envs, update_gather=True)
+
+
+def test_local_sample_oracle_matches_jax(envs):
+    """The local-sample topology (``update_gather=False``): each shard
+    updates on its own read ring's rows and the gradients and infos are
+    averaged, against JAX's ``pmean``'d oracle at D = 2 over 3 rounds,
+    under the same criteria."""
+    _check_specialist(envs, update_gather=False)
+
+
+def _check_specialist(envs, update_gather: bool):
     jenv, env, jdcfg, dcfg, jstate = envs
     keys = JT.round_keys(7, 0, len(FLAGS))
     jfn = JT.sharded_rounds_reference(jenv, jdcfg, num_devices=ND,
-                                      telemetry=True, **SKW)
+                                      telemetry=True,
+                                      update_gather=update_gather, **SKW)
     (js, jpair, _, jm), _ = _jax_sharded(
         jfn, jstate, JR.replay_init(CAP, jenv.seq_len, jenv.feat_dim,
                                     jenv.act_dim), keys)
@@ -145,7 +159,7 @@ def test_sharded_oracle_matches_jax(envs):
     pairs = TR.replicate(replay_pair_init(replay_init(
         CAP, env.seq_len, env.feat_dim, env.act_dim, "cpu"), ROUND), ND)
     body = TR._sharded_round_body(env, dcfg, num_devices=ND, telemetry=True,
-                                  **SKW)
+                                  update_gather=update_gather, **SKW)
     state, pairs, sigma, out = _port_rounds(body, state, pairs, draws_of)
     _assert_rings(pairs, jpair)
     _assert_metrics(out, jm)
@@ -168,6 +182,17 @@ def test_sharded_generalist_oracle_matches_jax(fleets):
     """Two fleets, D = 2, 3 rounds: each round's fleet from the shared
     round key, every device's draws on that fleet from its own, the
     ``fleet`` ring column, descriptors re-attached after the gather."""
+    _check_generalist(fleets, update_gather=True)
+
+
+def test_local_sample_generalist_oracle_matches_jax(fleets):
+    """The generalist's local-sample topology over the two fleets:
+    descriptors re-attached to each shard's own rows, gradients
+    averaged, against JAX's ``update_gather=False`` oracle."""
+    _check_generalist(fleets, update_gather=False)
+
+
+def _check_generalist(fleets, update_gather: bool):
     jenvs, envs_ = fleets
     spec = JG.GeneralistSpec(m_max=envs_[0].num_sas)
     jdcfg = JD.DDPGConfig(policy=spec.pcfg(hidden=8))
@@ -176,7 +201,8 @@ def test_sharded_generalist_oracle_matches_jax(fleets):
     jstate = JD.init_ddpg(jax.random.PRNGKey(2), jdcfg)
     keys = JT.round_keys(11, 0, len(FLAGS))
     jfn = JG.sharded_generalist_rounds_reference(
-        jenvs, jdcfg, num_devices=ND, telemetry=True, **SKW)
+        jenvs, jdcfg, num_devices=ND, telemetry=True,
+        update_gather=update_gather, **SKW)
     (js, jpair, _, jm), _ = _jax_sharded(
         jfn, jstate, JG.generalist_replay_init(CAP, jenvs[0].seq_len, spec),
         keys, shared=True)
@@ -196,7 +222,7 @@ def test_sharded_generalist_oracle_matches_jax(fleets):
         CAP, envs_[0].seq_len, G.GeneralistSpec(m_max=envs_[0].num_sas),
         "cpu"), ROUND), ND)
     body = TR._sharded_round_body(envs_, dcfg, num_devices=ND,
-                                  telemetry=True,
+                                  telemetry=True, update_gather=update_gather,
                                   **GT._generalist_parts(envs_, dcfg), **SKW)
     state, pairs, sigma, out = _port_rounds(body, state, pairs, draws_of)
     assert [m["fleet"] for m in out] == fleet
@@ -296,3 +322,8 @@ def test_sharded_body_checks_its_shares(envs):
             TR._sharded_round_body(env, dcfg, num_devices=ND, **bad)
     with pytest.raises(ValueError, match="3 shards for 2 devices"):
         TR.StackedShards(ND).all_gather([torch.zeros(1)] * 3)
+    with pytest.raises(ValueError, match="3 shards for 2 devices"):
+        TR.StackedShards(ND).mean([torch.zeros(1)] * 3)
+    with pytest.raises(ValueError, match="gathered batch"):
+        TR.make_sharded_train_rounds(env, dcfg, mesh=None,
+                                     update_gather=False, **SKW)
