@@ -94,7 +94,7 @@ no result:
                         prefill gives ``flash_attention``'s share of its
                         kernel time;
 9. ``lm:batcher``       ``ContinuousBatcher`` at full width, 16 slots,
-                        smax 512, 16 requests of 32 prompt and 64 new
+                        smax 512, 16 requests of 16 prompt and 64 new
                         tokens; all served, 24 ``decode_gqa`` launches
                         per batched decode step;
 10. ``lm:parity``       the same weights cut to 2 layers, on the CPU
@@ -125,7 +125,7 @@ no result:
                         tokens, then 32 greedy decode steps; exactly 64
                         ``ssd_chunk`` launches per prefill;
 13. ``lm:mamba2_batcher``  ``ContinuousBatcher`` on the full model, 8
-                        slots, smax 128, 16 requests of 16 prompt and 16
+                        slots, smax 128, 8 requests of 16 prompt and 16
                         new tokens (decode runs no kernel: the one-token
                         recurrence is plain in the reference too);
 14. ``lm:mamba2_parity``  the mamba2 weights cut to 2 layers, CPU
@@ -169,21 +169,22 @@ no result:
                         ``evaluate_batch_baseline`` on mixed / paper6,
                         96 RQ slots, 64 jobs, 8 streams, the arrivals
                         of a 60-period episode with its depth cut to
-                        2 periods: 101 engine calls a period (each
+                        1 period (2 before phases 45-46): 101 engine
+                        calls a period (each
                         over 800 rows), the elite non-decreasing and at
                         or above the Herald individual in every period;
                         seconds a period and the SLA beside Herald's; a
                         profiled fitness call;
 19. ``train:churn``     ``rl_train`` under ``--churn mixed`` at
                         hidden 256 (light, paper6, 96 RQ slots, 64 jobs,
-                        episodes cut to 15 periods (30 before phases
-                        39-42 came), 8 episodes a
+                        episodes cut to 10 periods (30 before phases
+                        39-42 came, 15 before 45-46), 8 episodes a
                         round): two rounds, an eval on 2
-                        seeds, the fcfs, herald and magma (24 x 12)
-                        baselines (on the static fleet, as the
-                        reference); ``lstm_cell`` exactly T per period
-                        and 5 T per update; then fcfs, herald and magma
-                        (24 x 12) under ``mixed`` on 2 seeds, and an
+                        seeds, the fcfs, herald and magma (12 x 6; 24 x
+                        12 before phases 45-46) baselines (on the static
+                        fleet, as the reference); ``lstm_cell`` exactly T
+                        per period and 5 T per update; then fcfs, herald
+                        and magma (12 x 6) under ``mixed`` on 2 seeds, and an
                         eval batch under the ``fail`` preset commits no
                         sub-job to an SA in a period in which it is
                         invalid (policy, Herald);
@@ -208,20 +209,21 @@ no result:
                         counted, completions and per-stream metrics
                         equal to phase 5's (telemetry off), one
                         ``lstm_seq`` launch a tick, the device block's
-                        60 ticks and 60 x 32 depths; tick p50/p99 on
-                        and off in turns; then four runs cut to 12
-                        periods with ``--profile-dir`` (off, on, on,
-                        off), each trace read for the tick loop's
-                        device busy share, each ``serving.*`` range's
-                        host time and the device-to-host copies a tick
-                        (equal in all four), printed by size and
-                        deleted;
+                        60 ticks and 60 x 32 depths; tick p50/p99 on,
+                        then off; then two runs cut to 12 periods with
+                        ``--profile-dir`` (off, on; four, in turns,
+                        before phases 45-46), each trace read for the
+                        tick loop's device busy share, each
+                        ``serving.*`` range's host time and the
+                        device-to-host copies a tick (equal in both),
+                        printed by size and deleted;
 24. ``telemetry:train`` (run after phase 17) ``rl_train`` at hidden 256
                         with episodes cut to 5 periods (10 before phases
                         39-42 came): a warm-up
                         round of 8 episodes and a tail round of 2 with
-                        2 updates, an eval on 1 seed, off / on / on /
-                        off with ``--log-jsonl``: a valid stream whose
+                        2 updates, an eval on 1 seed, off / on with
+                        ``--log-jsonl`` (off / on / on / off before
+                        phases 45-46 came): a valid stream whose
                         rounds carry the device block (one SLA an
                         episode, one reward a period), round metrics
                         and final actor and critic weights equal to
@@ -322,8 +324,8 @@ no result:
                         attention backward's time at the step's shape
                         and its share of the step;
 37. ``train:lm_parity``  internlm2-1.8b cut to 2 layers at full width in
-                        float32 (0.51 B parameters, remat on), 3 steps
-                        of ``make_train_step`` at 2 x 128 tokens from
+                        float32 (0.51 B parameters, remat on), 2 steps
+                        (3 before phases 45-46) of ``make_train_step`` at 2 x 128 tokens from
                         the same seed-0 weights and synthetic batches
                         on the card (float32 flash kernel, plain
                         backward) and on the CPU: losses within rtol
@@ -414,7 +416,38 @@ no result:
                         spawn's seconds;
 44. ``train:lm_mesh_nccl``  with four or more cards, the same on a
                         (2, 2) mesh (restored onto (4, 1)) over NCCL, a
-                        card a rank; with fewer a line that says so.
+                        card a rank; with fewer a line that says so;
+45. ``dryrun:production``  the dry run (``launch/dryrun.py``) of the
+                        production meshes on fake CUDA tensors over a
+                        fake process group of 512 ranks, four
+                        subprocesses side by side: internlm2-1.8b's
+                        train_4k, prefill_32k and decode_32k on 16x16
+                        with their roofline cost modules, its train_4k
+                        on 2x16x16, llama3-405b's train_4k on 16x16
+                        from 1- and 2-layer traces (its 126 layers x 8
+                        microbatches extrapolated) with its cost
+                        modules, relmas on 16x16; each record's ``ok``,
+                        memory, three roofline terms, dominant term and
+                        collectives by kind; every cell ok, nothing
+                        allocated on the card after FakeTensorMode's
+                        CUDA context (one 1-element tensor, freed), no
+                        kernel launched;
+46. ``dryrun:check``    (started with phase 45) the dry run of train:lm's
+                        step (internlm2-1.8b at full width and depth,
+                        4 x 2048) on a 1x1 mesh: its FLOPs beside
+                        ``train_bound``'s, its ``per_chip_total_bytes``
+                        within 25% of train:lm's measured peak, its
+                        compute term beside train:lm's step p50.
+
+Order and concurrency, to hold the script to half its 1200 s limit: the
+kernel checks (phases 2-4, 11, 15) run first, alone on the card; then
+phases 5-7 and 23; then the RELMAS training phases run in two child
+processes of this script (``--rl-group``: 16-22 and 24 in one, 39-42
+in the other; each console printed when it ends, their ``lstm_cell``
+launches added to the kernels line) beside the LM serving phases (8-14,
+25-35), so these three groups' times are taken side by side; then phases 45-46's subprocesses
+start (at a lower priority) beside phases 36-38 and 43-44, and are read
+last.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -508,8 +541,10 @@ DECODE_SHAPES = [(LM_B, 16, 8, LM_PAD, 128, LM_MID, torch.bfloat16),
 LM_ARCH = "internlm2-1.8b"
 # the internlm2 and olmoe batchers: one wave of requests through 16
 # slots (depth cut to leave the training phases their time: two waves
-# until the LM mesh phases came)
-BATCHER_REQUESTS = 16
+# until the LM mesh phases came), prompts of BATCHER_PROMPT tokens (32
+# until the dry-run phases came: ``add`` feeds a prompt token by token
+# through the batched step, so the prompts were 512 of the 576 steps)
+BATCHER_REQUESTS, BATCHER_PROMPT = 16, 16
 # card (kernels) against CPU (plain versions), bf16 weights and
 # activations: the tolerance of the port against JAX on the CPU
 # (tests/test_torch_lm.py), a few bf16 ulps of |logit| < 8 per logit
@@ -521,6 +556,9 @@ LM_TOL = dict(atol=0.1, rtol=0.02, mean=0.01)
 MAMBA_TOL = dict(atol=0.15, rtol=0.02, mean=0.02)
 MAMBA_ARCH = "mamba2-2.7b"
 MB_B, MB_S, MB_STEPS = 4, 2048, 32
+# its batcher: one wave through its 8 slots (two waves of 16 requests
+# until the dry-run phases came)
+MB_BATCHER_REQUESTS = 8
 # whisper-tiny: 8 clips of 1500 stub frames, a 4-token prompt and 128
 # greedy steps, 132 of the decoder's 448 positions
 WH_ARCH = "whisper-tiny"
@@ -579,13 +617,14 @@ RL_FAIL_AT = 16
 TRAIN_TOL = dict(atol=1e-4, rtol=1e-4)
 # LM training (phases 36-38): internlm2-1.8b at full width and depth,
 # 12 steps of 4 x 2048 tokens, a checkpoint every 6 steps, a crash at 8;
-# its parity 3 steps at 2 x 128 on 2 layers in float32; the families 3
-# steps at 2 x 512 positions each ((arch, layers or None for all))
+# its parity 2 steps (3 until the dry-run phases came) at 2 x 128 on 2
+# layers in float32; the families 3 steps at 2 x 512 positions each
+# ((arch, layers or None for all))
 TR_B, TR_S, TR_STEPS, TR_EVERY, TR_FAIL = 4, 2048, 12, 6, 8
 TR_ARGS = ["--arch", LM_ARCH, "--batch", str(TR_B), "--seq", str(TR_S),
            "--steps", str(TR_STEPS), "--ckpt-every", str(TR_EVERY),
            "--fail-at", str(TR_FAIL), "--log-every", "1", "--seed", "0"]
-TP_B, TP_S, TP_STEPS = 2, 128, 3
+TP_B, TP_S, TP_STEPS = 2, 128, 2
 TF_B, TF_S, TF_STEPS = 2, 512, 3
 TRAIN_FAMILIES = (("mamba2-2.7b", 2), ("olmoe-1b-7b", 2),
                   ("whisper-tiny", None), ("internvl2-76b", 2))
@@ -598,6 +637,26 @@ LMM_PAD = LMM_S + LMM_DEC
 LMM_MESHES = ((2, 1), (1, 2))
 LMM_NCCL_MESH = (2, 2)
 LM_F32_TOL = OLMOE_F32_TOL
+# the dry run (phases 45-46): groups of ``launch/dryrun.py`` main's argv,
+# each group one subprocess of a fake process group of 512 ranks on
+# ``cuda`` fake tensors (the production meshes: 16x16, 2x16x16), the
+# groups side by side; llama3-405b's 126 layers x 8 microbatches traced
+# at 1 and 2 layers and extrapolated (``--extrapolate``); then the
+# internlm2-1.8b step of train:lm (4 x 2048, full width and depth) on a
+# 1x1 mesh (started with the groups), held to train:lm's measured peak
+# within DRY_MEM_TOL
+DRY_PRODUCTION = [[["--arch", LM_ARCH, "--shape", "train_4k", "--roofline"]],
+                  [["--arch", LM_ARCH, "--shape", "prefill_32k",
+                    "--roofline"],
+                   ["--arch", LM_ARCH, "--shape", "decode_32k", "--roofline"],
+                   ["--arch", "relmas"]],
+                  [["--arch", LM_ARCH, "--shape", "train_4k", "--multi-pod"]],
+                  [["--arch", "llama3-405b", "--shape", "train_4k",
+                    "--roofline", "--extrapolate"]]]
+DRY_TIMEOUT_S = 420
+DRY_MEM_TOL = 0.25
+# what train:lm measured, for dryrun:check (peak GB, step p50 s)
+TRAIN_LM_MEASURED: dict = {}
 
 
 def card() -> str:
@@ -1336,7 +1395,8 @@ def lm_batcher_phase(model, CARD):
     cfg = model.cfg
     dec_ops.LAUNCHES = 0
     done, steps, wall = serve_batcher(model, n=BATCHER_REQUESTS,
-                                      n_slots=16, smax=512, prompt_len=32,
+                                      n_slots=16, smax=512,
+                                      prompt_len=BATCHER_PROMPT,
                                       max_new=64)
     launches = dec_ops.LAUNCHES
     n_tok = sum(len(r.tokens_out) for r in done)
@@ -1645,8 +1705,9 @@ def mamba_prefill_decode_phase(model, CARD):
 def mamba_batcher_phase(model, CARD):
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     ssd_ops.LAUNCHES = 0
-    done, steps, wall = serve_batcher(model, n=16, n_slots=8, smax=128,
-                                      prompt_len=16, max_new=16)
+    done, steps, wall = serve_batcher(model, n=MB_BATCHER_REQUESTS,
+                                      n_slots=8, smax=128, prompt_len=16,
+                                      max_new=16)
     n_tok = sum(len(r.tokens_out) for r in done)
     if ssd_ops.LAUNCHES != 0:
         raise AssertionError(f"lm:mamba2_batcher: ssd_chunk launched "
@@ -1862,7 +1923,8 @@ def olmoe_batcher_phase(model, CARD):
     cfg = model.cfg
     dec_ops.LAUNCHES = 0
     done, steps, wall = serve_batcher(model, n=BATCHER_REQUESTS,
-                                      n_slots=16, smax=512, prompt_len=32,
+                                      n_slots=16, smax=512,
+                                      prompt_len=BATCHER_PROMPT,
                                       max_new=64)
     launches = dec_ops.LAUNCHES
     n_tok = sum(len(r.tokens_out) for r in done)
@@ -2814,9 +2876,12 @@ def train_parity_phase(CARD):
 # depth cuts that keep the new phases within ~3 minutes: every MAGMA
 # engine call is ~130 ms of host-bound event loop at any row count (3
 # periods until the LM mesh phases came)
-MAGMA_STREAMS, MAGMA_PERIODS = 8, 2
-# cut from 30 to 15 to make room for the sharded phases (39-42)
-CHURN_PERIODS = 15
+MAGMA_STREAMS, MAGMA_PERIODS = 8, 1
+# cut from 30 to 15 to make room for the sharded phases (39-42), then to
+# 10 for the dry-run phases (45-46), with its MAGMA baseline's GA cut
+# from 24 x 12 to 12 x 6 (baseline:magma runs the paper's 100 x 100)
+CHURN_PERIODS = 10
+CHURN_MAGMA = (12, 6)
 RLC_ARGS = ["--workload", "light", "--hidden", "256", "--max-rq", "96",
             "--max-jobs", "64", "--periods", "60", "--batch-episodes", "8",
             "--batch-size", "32", "--episodes", "16",
@@ -2965,8 +3030,8 @@ def churn_fail_check(env, pcfg, params, CARD):
 
 
 def churn_baselines_check(env, CARD):
-    """The fcfs, herald and magma (24 x 12, ``--eval-baselines``'s GA)
-    baselines through ``evaluate_batch_baseline`` under the ``mixed``
+    """The fcfs, herald and magma (``CHURN_MAGMA``, ``--eval-baselines``'s
+    GA) baselines through ``evaluate_batch_baseline`` under the ``mixed``
     preset on the eval seeds (``rl_train`` scores them on the static
     fleet, as the reference does): MAGMA carries its generator and the
     churn schedules into every period's search on the card."""
@@ -2975,8 +3040,8 @@ def churn_baselines_check(env, CARD):
     from repro_torch.sim import churn as C
     seeds = range(7000, 7002)
     fns = {"fcfs": BL.BASELINES["fcfs"], "herald": BL.herald,
-           "magma": BL.make_magma_baseline(BL.MagmaConfig(population=24,
-                                                          generations=12))}
+           "magma": BL.make_magma_baseline(BL.MagmaConfig(
+               population=CHURN_MAGMA[0], generations=CHURN_MAGMA[1]))}
     out, secs = {}, {}
     for name, fn in fns.items():
         torch.cuda.synchronize()
@@ -3012,7 +3077,9 @@ def train_churn_phase(CARD):
         res = rl_train.main(RLC_ARGS + [
             "--fleet", "paper6", "--outdir", out,
             "--periods", str(CHURN_PERIODS),
-            "--eval-baselines", "fcfs,herald,magma"])
+            "--eval-baselines", "fcfs,herald,magma",
+            "--magma-population", str(CHURN_MAGMA[0]),
+            "--magma-generations", str(CHURN_MAGMA[1])])
     launches = cell_ops.LAUNCHES
     want = rl_expected_launches(rounds=2, eval_runs=1, updates=8,
                                 periods=CHURN_PERIODS)
@@ -3033,7 +3100,7 @@ def train_churn_phase(CARD):
           f"round_ms="
           f"{'/'.join(f'{us / 1e3:.1f}' for us in spans.each['round'])} "
           f"(a warm-up round, then one of 8 updates) baseline_s fcfs/herald/"
-          f"magma(24x12)="
+          f"magma({CHURN_MAGMA[0]}x{CHURN_MAGMA[1]})="
           f"{'/'.join(f'{us / 1e6:.1f}' for us in spans.each['baseline'])} "
           f"lstm_cell launches={launches} eval_sla={last['eval_sla']} "
           f"baselines="
@@ -3669,10 +3736,11 @@ def telemetry_serve_phase(serve_cli, ops, ref_out, ref_res, CARD):
     """``serve:relmas`` again with ``--log-jsonl`` and ``--window 16``:
     a valid stream with every serving kind, the run's numbers equal to
     the telemetry-off run's, one ``lstm_seq`` launch a tick, the device
-    block's counts; tick times on and off in turns; then four profiled
-    runs cut to SERVE_PROF_PERIODS periods, off / on / on / off: the
-    tick loop's device busy share, each ``serving.*`` range's host time,
-    equal device-to-host copies a tick."""
+    block's counts; tick times on, then off; then two profiled runs cut
+    to SERVE_PROF_PERIODS periods, off then on: the tick loop's device
+    busy share, each ``serving.*`` range's host time, equal
+    device-to-host copies a tick (on / off / off / on and four profiled
+    runs until the dry-run phases came)."""
     tmp = os.path.join(ROOT, "runs", "chip_smoke_telemetry")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -3703,13 +3771,9 @@ def telemetry_serve_phase(serve_cli, ops, ref_out, ref_res, CARD):
             or res["metrics"] != ref_res["metrics"]:
         raise AssertionError("telemetry:serve: completions or per-stream "
                              "metrics differ from the telemetry-off run")
-    # tick times in turns, 60 ticks each: the checked run (on), then
-    # off, off, on
-    ticks = {True: [out], False: []}
-    for on in (False, False, True):
-        ticks[on].append(serve_cli.main(
-            SERVE_ARGS + ["--policy", "relmas"] + (
-                ["--log-jsonl", os.path.join(tmp, "t.jsonl")] if on else [])))
+    # tick times, 60 ticks each: the checked run (on), then off
+    ticks = {True: [out],
+             False: [serve_cli.main(SERVE_ARGS + ["--policy", "relmas"])]}
     summ = next(r for r in recs if r["kind"] == "serve_summary")
     pq = lambda o: f"{o['tick_p50_us'] / 1e3:.3f}/{o['tick_p99_us'] / 1e3:.3f}"
     print(f"  telemetry:serve relmas, 32 streams x 60 periods [{CARD}]: "
@@ -3719,14 +3783,13 @@ def telemetry_serve_phase(serve_cli, ops, ref_out, ref_res, CARD):
           f"to serve:relmas (telemetry off); lstm_seq launches={launches}; "
           f"device block ticks={tele['ticks']} depth_hist="
           f"{tele['depth_hist']} committed={tele['committed']}; tick "
-          f"p50/p99_ms in turns on {pq(ticks[True][0])}, off "
-          f"{pq(ticks[False][0])}, off {pq(ticks[False][1])}, on "
-          f"{pq(ticks[True][1])} (serve:relmas, off, first run of the "
+          f"p50/p99_ms on {pq(ticks[True][0])}, then off "
+          f"{pq(ticks[False][0])} (serve:relmas, off, first run of the "
           f"process: {pq(ref_out)})", flush=True)
     cut = list(SERVE_ARGS)
     cut[cut.index("--periods") + 1] = str(SERVE_PROF_PERIODS)
     nums = {True: [], False: []}
-    for on in (False, True, True, False):          # in turns
+    for on in (False, True):
         label = f"telemetry:serve {'on' if on else 'off'}"
         args = cut + ["--policy", "relmas", "--profile-dir",
                       os.path.join(tmp, "trace")] + (
@@ -3792,13 +3855,12 @@ def telemetry_train_phase(CARD):
         TELE_TRAIN_ARGS + ["--outdir", os.path.join(tmp, name), *extra])
     stream = os.path.join(tmp, "train.jsonl")
     spans = Spans([(rl_train, "train_rounds_host", "rounds")])
-    with spans:                 # in turns: off, on, on, off
-        off = run("off")
+    with spans:                 # off, then on (off, on, on, off until
+        off = run("off")        # the dry-run phases came)
         cell_ops.LAUNCHES = 0
         on = run("on", "--log-jsonl", stream)
         launches = cell_ops.LAUNCHES
-        runs = [off, on, run("on2", "--log-jsonl", stream + "2"),
-                run("off2")]
+        runs = [off, on]
     want = rl_expected_launches(rounds=2, eval_runs=1, updates=2,
                                 periods=TELE_PERIODS)
     if launches != want:
@@ -3840,7 +3902,7 @@ def telemetry_train_phase(CARD):
           f"sla_hist={[r['sla_hist'] for r in rounds]} replay_fill="
           f"{[r['replay_fill'] for r in rounds]} committed="
           f"{[r['committed'] for r in rounds]}; the two rounds' ms "
-          f"off/on/on/off={'/'.join(f'{x:.1f}' for x in ms)}", flush=True)
+          f"off/on={'/'.join(f'{x:.1f}' for x in ms)}", flush=True)
     nums = {}
     for flag in (True, False):
         label = f"telemetry:train {'on' if flag else 'off'}"
@@ -3922,6 +3984,7 @@ def train_lm_phase(CARD) -> int:
                              f"{per_step} a step")
     secs = [r["secs"] for r in logs[1:]]
     p50 = pct(secs, 50)
+    TRAIN_LM_MEASURED.update(peak_gb=peak, p50_s=p50)
     t1 = time.perf_counter()
     model = LM(cfg, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
@@ -4343,6 +4406,319 @@ def train_lm_mesh_nccl_phase(CARD) -> dict:
     return lm_mesh_run("train:lm_mesh_nccl", (LMM_NCCL_MESH, (need, 1)),
                        "nccl", CARD)
 
+# the dry run's drivers, each in a process of its own (the fake process
+# group is process-global): the argv lists come as JSON in argv[1]; the
+# last line is a JSON object of the kernels' launches and the card's
+# allocations after FakeTensorMode's CUDA context (dryrun.settle_fake_cuda)
+DRY_DRIVER = """
+import json, sys, time
+t_start = time.perf_counter()
+import torch
+from repro_torch.launch import dryrun as D
+D.init_fake_group(512)
+context = D.settle_fake_cuda()
+rc = 0
+for argv in json.loads(sys.argv[1]):
+    rc |= D.main(argv + ["--device", "cuda", "--out", sys.argv[2]])
+print(json.dumps({"launches": D._launches(), "context": context,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "secs": time.perf_counter() - t_start}))
+sys.exit(rc)
+"""
+DRY_CHECK_DRIVER = """
+import json, sys, time
+t_start = time.perf_counter()
+import torch
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import hlo_analysis as HA
+D.init_fake_group(1)
+context = D.settle_fake_cuda()
+mesh = D._mesh_from_shape("1x1", "cuda")
+B, S = int(sys.argv[2]), int(sys.argv[3])
+t0 = time.perf_counter()
+tr = D.trace_cfg_cell(get_arch(sys.argv[1]), ShapeSpec("train_lm", "train",
+                      S, B), mesh, device="cuda")
+print(json.dumps({"cost": tr.cost, "mem": tr.mem,
+                  "terms": HA.roofline_terms(tr.cost, tr.coll, 1),
+                  "flops_by_op": tr.aux["flops_by_op"],
+                  "trace_s": time.perf_counter() - t0,
+                  "launches": D._launches(), "context": context,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "secs": time.perf_counter() - t_start}))
+"""
+# the dry-run subprocesses running, by label: (process, start time)
+DRY_PROCS: dict = {}
+
+
+# phase 45's JSONL files, one a group of DRY_PRODUCTION, in order
+DRY_OUTS: list = []
+
+
+def dry_start(label: str, code: str, args: list) -> None:
+    """Start ``code`` (a dry-run driver) in a process of its own with the
+    repo's ``src`` on the path, at a lower priority than this one (it
+    runs beside the phases on the card)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    DRY_PROCS[label] = (subprocess.Popen(
+        [sys.executable, "-c", code, *args], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        preexec_fn=lambda: os.nice(10)), time.perf_counter())
+
+
+def dry_start_all() -> None:
+    """Start phase 46's subprocess and phase 45's, side by side."""
+    tmp = tempfile.mkdtemp()
+    dry_start("dryrun:check", DRY_CHECK_DRIVER,
+              [LM_ARCH, str(TR_B), str(TR_S)])
+    for i, group in enumerate(DRY_PRODUCTION):
+        DRY_OUTS.append(os.path.join(tmp, f"dryrun{i}.jsonl"))
+        dry_start(f"dryrun:production[{i}]", DRY_DRIVER,
+                  [json.dumps(group), DRY_OUTS[-1]])
+
+
+def dry_finish(label: str) -> tuple[str, dict]:
+    """Wait for the subprocess ``label`` (its timeout counted from its
+    start); -> (its output, its last line as JSON).  A non-zero exit, an
+    allocation on the card or a kernel launch fails."""
+    proc, t0 = DRY_PROCS.pop(label)
+    left = DRY_TIMEOUT_S - (time.perf_counter() - t0)
+    try:
+        out, err = proc.communicate(timeout=max(left, 1))
+    except subprocess.TimeoutExpired as e:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{label}: the dry run took over "
+                             f"{DRY_TIMEOUT_S}s") from e
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    last = json.loads(out.strip().splitlines()[-1])
+    if any(last["launches"].values()) or last["max_memory_allocated"]:
+        raise AssertionError(f"{label}: the dry run launched "
+                             f"{last['launches']} and allocated "
+                             f"{last['max_memory_allocated']} B")
+    print(f"  {label}: subprocess ran {last['secs']:.1f}s (read "
+          f"{time.perf_counter() - t0:.1f}s after its start), kernel "
+          f"launches {last['launches']}, max_memory_allocated "
+          f"{last['max_memory_allocated']} B (FakeTensorMode's CUDA "
+          f"context before it: {last['context']} B, freed)", flush=True)
+    return out, last
+
+
+def dry_kill() -> None:
+    """Stop every dry-run subprocess still running."""
+    while DRY_PROCS:
+        proc, _ = DRY_PROCS.pop(next(iter(DRY_PROCS)))
+        proc.kill()
+        proc.communicate()
+
+
+def dry_print(rec: dict, CARD) -> None:
+    terms = rec.get("roofline", rec.get("roofline_raw", {}))
+    coll = terms.get("coll_by_op", terms.get("collectives", {}).get("by_op"))
+    print(f"  dryrun {rec['arch']} x {rec['shape']} mesh={rec['mesh']} "
+          f"[{CARD}]: ok={rec['ok']} trace {rec.get('trace_s')}s"
+          f" roofline {rec.get('roofline_s', '-')}s", flush=True)
+    if not rec["ok"]:
+        print(f"    error: {rec['error']}", flush=True)
+        return
+    print(f"    memory {json.dumps(rec['mem'])}", flush=True)
+    print(f"    terms ({'cost modules' if 'roofline' in rec else 'traced'})"
+          f": compute {terms['t_compute_s']:.6g}s memory "
+          f"{terms['t_memory_s']:.6g}s collective "
+          f"{terms['t_collective_s']:.6g}s dominant={terms['dominant']}; "
+          f"flops/chip {terms['flops_per_chip']:.6g} bytes/chip "
+          f"{terms['bytes_per_chip']:.6g}; collectives {json.dumps(coll)} "
+          f"counts {json.dumps(rec['roofline_raw']['collectives']['counts'])}"
+          + (f"; n_params {rec['n_params']} n_active {rec['n_active']} "
+             f"model_flops {rec['model_flops']:.6g} useful_flop_ratio "
+             f"{rec['useful_flop_ratio']:.4f}" if "n_params" in rec else ""),
+          flush=True)
+
+
+def dryrun_production_phase(CARD) -> None:
+    """The dry run of the production meshes (phase 45): each group of
+    cells in a subprocess of its own, side by side (and phase 46's,
+    started with them; ``main`` starts them all before phase 36); every
+    cell ok, nothing allocated on the card, no kernel launched."""
+    if not DRY_OUTS:
+        dry_start_all()
+    try:
+        recs = []
+        for i, out in enumerate(DRY_OUTS):
+            dry_finish(f"dryrun:production[{i}]")
+            with open(out) as f:
+                recs += [json.loads(line) for line in f]
+    except BaseException:
+        dry_kill()
+        raise
+    finally:
+        shutil.rmtree(os.path.dirname(DRY_OUTS[0]), ignore_errors=True)
+    for rec in recs:
+        dry_print(rec, CARD)
+    want = sum(len(group) for group in DRY_PRODUCTION)
+    failed = [(r["arch"], r["shape"], r.get("error")) for r in recs
+              if not r["ok"]]
+    if len(recs) != want or failed:
+        dry_kill()
+        raise AssertionError(f"dryrun:production: {len(recs)} records of "
+                             f"{want}, failed: {failed}")
+
+
+def dryrun_check_phase(CARD) -> None:
+    """The dry run held against the card (phase 46): train:lm's step on
+    a 1x1 mesh; its memory within DRY_MEM_TOL of train:lm's measured
+    peak, its FLOPs and compute term beside train:lm's bound and p50."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import param_specs
+    from repro_torch.models import LM
+    if "dryrun:check" not in DRY_PROCS:         # run without phase 45
+        dry_start("dryrun:check", DRY_CHECK_DRIVER,
+                  [LM_ARCH, str(TR_B), str(TR_S)])
+    _, got = dry_finish("dryrun:check")
+    model = LM(get_arch(LM_ARCH), device="cpu")
+    model.params = param_specs(model.cfg)       # fake: shapes only
+    bound_ms, _, bound_tflop = train_bound(model, TR_B, TR_S)
+    flops = got["cost"]["flops"]
+    est = got["mem"]["per_chip_total_bytes"] / 1e9
+    top = sorted(got["flops_by_op"].items(), key=lambda kv: -kv[1])[:6]
+    t_compute = got["terms"]["t_compute_s"]
+    print(f"  dryrun:check {LM_ARCH} train {TR_B} x {TR_S} mesh=1x1 "
+          f"[{CARD}]: traced in {got['trace_s']:.1f}s; flops {flops / 1e12:.3f} TFLOP ("
+          + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in top)
+          + f"); train_bound's {bound_tflop:.1f} TFLOP ({bound_ms:.1f} "
+          f"ms): ratio {flops / 1e12 / bound_tflop:.4f}; bytes "
+          f"{got['cost']['bytes accessed'] / 1e9:.3f} GB; memory "
+          f"{json.dumps(got['mem'])}; t_compute {t_compute * 1e3:.2f} ms, "
+          f"t_memory {got['terms']['t_memory_s'] * 1e3:.2f} ms", flush=True)
+    if not TRAIN_LM_MEASURED:
+        print("  dryrun:check: train:lm did not run here; no peak to hold "
+              "the memory to", flush=True)
+        return
+    peak, p50 = TRAIN_LM_MEASURED["peak_gb"], TRAIN_LM_MEASURED["p50_s"]
+    print(f"  dryrun:check [{CARD}]: per_chip_total {est:.3f} GB against "
+          f"train:lm's peak {peak:.3f} GB (ratio {est / peak:.4f}); "
+          f"t_compute {t_compute * 1e3:.2f} ms against "
+          f"train:lm's step p50 {p50 * 1e3:.1f} ms", flush=True)
+    if abs(est / peak - 1) > DRY_MEM_TOL:
+        raise AssertionError(f"dryrun:check: the estimate {est:.3f} GB is "
+                             f"not within {DRY_MEM_TOL:.0%} of the "
+                             f"measured peak {peak:.3f} GB")
+
+
+
+# the RELMAS training phases run in two child processes of this script
+# (``chip_smoke.py --rl-group NAME FILE``) beside the LM serving phases
+# (8-14, 25-35): "relmas" runs phases 16-22 and 24, "sharded" phases
+# 39-42.  All three are mostly host-bound, and the card and the host's
+# cores have room for them side by side; each child's console goes to a
+# file, printed when it ends
+RL_GROUP_TIMEOUT_S = 600
+RL_GROUPS: dict = {}
+
+
+def rl_group(name: str, out_path: str) -> int:
+    """A child's entry: the group ``name``'s phases in order.  Writes the
+    ``lstm_cell`` launches of their main paths (train:rl_train's driver,
+    the sharded ranks) and its seconds to ``out_path`` as JSON."""
+    t0 = time.perf_counter()
+    from repro_torch.kernels.lstm_seq import ops
+    from repro_torch.launch import serve as serve_cli
+    CARD = card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if name == "relmas":
+        with phase("train:rl_train"):
+            launches = rl_train_phase(CARD)
+        with phase("train:parity"):
+            train_parity_phase(CARD)
+        with phase("telemetry:train"):
+            telemetry_train_phase(CARD)
+        with phase("baseline:magma"):
+            magma_phase(CARD)
+        with phase("train:churn"):
+            train_churn_phase(CARD)
+        with phase("train:generalist"):
+            gen_ckpt = train_generalist_phase(CARD)
+        with phase("serve:generalist"):
+            serve_generalist_phase(serve_cli, ops, gen_ckpt, CARD)
+        with phase("generalist:parity"):
+            generalist_parity_phase(CARD)
+    elif name == "sharded":
+        with phase("train:sharded"):
+            train_sharded_phase(CARD)
+        with phase("train:sharded_ranks"):
+            launches = train_sharded_ranks_phase(CARD)
+        with phase("train:sharded_nccl"):
+            launches += train_sharded_nccl_phase(CARD)
+        with phase("train:sharded_driver"):
+            train_sharded_driver_phase(CARD)
+    else:
+        raise ValueError(f"no group {name!r}")
+    with open(out_path, "w") as f:
+        json.dump({"lstm_cell": launches,
+                   "secs": time.perf_counter() - t0}, f)
+    return 0
+
+
+def rl_group_start(name: str) -> None:
+    """Start the child of group ``name`` in a session of its own (so
+    its ranks stop with it)."""
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f"rl_group_{name}-",
+                           dir=os.path.join(ROOT, "runs"))
+    log = open(os.path.join(tmp, "console.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rl-group", name,
+         os.path.join(tmp, "launches.json")], cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    RL_GROUPS[name] = dict(proc=proc, tmp=tmp, log=log,
+                           t0=time.perf_counter())
+    print(f"  train:rl_group {name}: started in a child process (pid "
+          f"{proc.pid}) beside the LM serving phases", flush=True)
+
+
+def rl_group_kill() -> None:
+    """Stop every child still running and every process of its
+    session."""
+    for group in RL_GROUPS.values():
+        if group["proc"].poll() is None:
+            os.killpg(group["proc"].pid, 9)
+            group["proc"].wait()
+
+
+def rl_group_finish(name: str) -> int:
+    """Wait for the child of group ``name`` (its timeout counted from
+    its start), print its console, and fail if it failed.  Returns its
+    ``lstm_cell`` launches."""
+    group = RL_GROUPS[name]
+    proc, tmp = group["proc"], group["tmp"]
+    left = RL_GROUP_TIMEOUT_S - (time.perf_counter() - group["t0"])
+    try:
+        rc = proc.wait(timeout=max(left, 1))
+    except subprocess.TimeoutExpired:
+        rl_group_kill()
+        rc = None
+    group["log"].close()
+    with open(os.path.join(tmp, "console.txt")) as f:
+        print(f.read(), end="", flush=True)
+    secs = time.perf_counter() - group["t0"]
+    if rc != 0:
+        raise AssertionError(
+            f"train:rl_group {name}: the child " + (
+                f"took over {RL_GROUP_TIMEOUT_S}s" if rc is None
+                else f"exited {rc}") + f" after {secs:.1f}s")
+    with open(os.path.join(tmp, "launches.json")) as f:
+        got = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  train:rl_group {name}: the child's phases ran "
+          f"{got['secs']:.1f}s (joined {secs:.1f}s after its start)",
+          flush=True)
+    return got["lstm_cell"]
+
 
 def free(model) -> None:
     """Drop the model's weights from the card before the next model:
@@ -4353,11 +4729,22 @@ def free(model) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs one GPU", file=sys.stderr)
         return 1
+    if argv[:1] == ["--rl-group"]:
+        return rl_group(argv[1], argv[2])
+    try:
+        return run_all()
+    finally:
+        rl_group_kill()
+        dry_kill()
+
+
+def run_all() -> int:
     from repro_torch.kernels.decode_gqa import ops as dec_ops
     from repro_torch.kernels.decode_gqa import ref as dec_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4384,6 +4771,10 @@ def main() -> int:
         fa_info = check_flash(fa_ops, fa_ref, CARD)
     with phase("kernel:decode_gqa"):
         dec_info = check_decode(dec_ops, dec_ref, CARD)
+    with phase("kernel:ssd_chunk"):
+        ssd_info = check_ssd(ssd_ops, ssd_ref, CARD)
+    with phase("kernel:lstm_cell"):
+        cell_info = check_cell(cell_ops, cell_ref, CARD)
     with phase("serve:relmas"):
         launches, relmas_out, relmas_res = serve_phase(serve_cli, ops,
                                                        "relmas", CARD)
@@ -4394,6 +4785,8 @@ def main() -> int:
             parity_phase(serve_cli, policy, CARD)
     with phase("telemetry:serve"):
         telemetry_serve_phase(serve_cli, ops, relmas_out, relmas_res, CARD)
+    for name in ("relmas", "sharded"):
+        rl_group_start(name)
     with phase("lm:prefill_decode"):
         model = lm_from_seed(LM_ARCH)
         lm_launches = lm_prefill_decode_phase(model, CARD)
@@ -4402,8 +4795,6 @@ def main() -> int:
     with phase("lm:parity"):
         lm_parity_phase(model, CARD)
     free(model)
-    with phase("kernel:ssd_chunk"):
-        ssd_info = check_ssd(ssd_ops, ssd_ref, CARD)
     with phase("lm:mamba2_prefill_decode"):
         model = lm_from_seed(MAMBA_ARCH)
         ssd_launches = mamba_prefill_decode_phase(model, CARD)
@@ -4442,32 +4833,10 @@ def main() -> int:
     with phase("lm:vlm_parity"):
         vlm_parity_phase(model, CARD)
     free(model)
-    with phase("kernel:lstm_cell"):
-        cell_info = check_cell(cell_ops, cell_ref, CARD)
-    with phase("train:rl_train"):
-        cell_launches = rl_train_phase(CARD)
-    with phase("train:parity"):
-        train_parity_phase(CARD)
-    with phase("telemetry:train"):
-        telemetry_train_phase(CARD)
-    with phase("baseline:magma"):
-        magma_phase(CARD)
-    with phase("train:churn"):
-        train_churn_phase(CARD)
-    with phase("train:generalist"):
-        gen_ckpt = train_generalist_phase(CARD)
-    with phase("serve:generalist"):
-        serve_generalist_phase(serve_cli, ops, gen_ckpt, CARD)
-    with phase("generalist:parity"):
-        generalist_parity_phase(CARD)
-    with phase("train:sharded"):
-        train_sharded_phase(CARD)
-    with phase("train:sharded_ranks"):
-        shard_launches_ = train_sharded_ranks_phase(CARD)
-    with phase("train:sharded_nccl"):
-        shard_launches_ += train_sharded_nccl_phase(CARD)
-    with phase("train:sharded_driver"):
-        train_sharded_driver_phase(CARD)
+    with phase("train:rl_group"):
+        cell_launches = sum(rl_group_finish(name)
+                            for name in ("relmas", "sharded"))
+    dry_start_all()
     with phase("train:lm"):
         tr_launches = train_lm_phase(CARD)
     with phase("train:lm_parity"):
@@ -4479,6 +4848,10 @@ def main() -> int:
     with phase("train:lm_mesh_nccl"):
         for k, n in train_lm_mesh_nccl_phase(CARD).items():
             mesh_launches[k] += n
+    with phase("dryrun:production"):
+        dryrun_production_phase(CARD)
+    with phase("dryrun:check"):
+        dryrun_check_phase(CARD)
 
     kernels = [
         dict(name="lstm_seq", route="cuda",
@@ -4506,7 +4879,7 @@ def main() -> int:
         dict(name="lstm_cell", route="cuda",
              source="src/repro_torch/csrc/lstm_cell.cu",
              replaces="src/repro/kernels/lstm_cell/lstm_cell.py:51",
-             launches=cell_launches + shard_launches_, **cell_info)]
+             launches=cell_launches, **cell_info)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {

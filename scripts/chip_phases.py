@@ -6,8 +6,9 @@ timed, without the rest of the script.
 PHASE is one of ``kernel:lstm_cell``, ``train:parity``,
 ``telemetry:train``, ``train:churn``, ``train:sharded``,
 ``train:sharded_ranks``, ``train:sharded_nccl`` (two or more cards),
-``train:sharded_driver``, ``train:lm``, ``train:lm_mesh`` and
-``train:lm_mesh_nccl`` (four or more cards).  The five kernel libraries
+``train:sharded_driver``, ``train:lm``, ``train:lm_mesh``,
+``train:lm_mesh_nccl`` (four or more cards), ``dryrun:production`` and
+``dryrun:check`` (after ``train:lm`` to hold the memory to its peak).  The five kernel libraries
 are built first (one ``nvcc`` each, together).  Each phase prints what
 ``chip_smoke.py`` prints for it; the last line is a JSON object with
 the card and each phase's seconds.
@@ -41,7 +42,9 @@ def main(argv=None) -> int:
               "train:sharded_driver": cs.train_sharded_driver_phase,
               "train:lm": cs.train_lm_phase,
               "train:lm_mesh": cs.train_lm_mesh_phase,
-              "train:lm_mesh_nccl": cs.train_lm_mesh_nccl_phase}
+              "train:lm_mesh_nccl": cs.train_lm_mesh_nccl_phase,
+              "dryrun:production": cs.dryrun_production_phase,
+              "dryrun:check": cs.dryrun_check_phase}
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"unknown phases {unknown}; pick from {sorted(phases)}",

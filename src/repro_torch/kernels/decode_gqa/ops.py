@@ -14,6 +14,12 @@ the split from the static shapes and the card's SM count alone, never
 from the values of ``length``, so a call makes no host sync and can be
 captured in a CUDA graph.
 
+The call is the operator ``torch.ops.repro_torch.decode_attention``
+(``kernels/_library.py``): the plain version on the CPU, the kernel on
+the card, a fake route that gives the output's shape for
+``FakeTensorMode``, and its cost formulas (:func:`flops`,
+:func:`bytes_moved`).
+
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
 """
@@ -23,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _library
 from repro_torch.kernels.decode_gqa.ref import decode_attention_ref
 
 LAUNCHES = 0
@@ -110,18 +116,8 @@ def _check(q, k, v, length):
     return B, Hq, Hkv, S, D
 
 
-def decode_attention(q, k, v, length):
-    """q (B,Hq,1,D), k/v (B,Hkv,S,D), length (B,) ints -> (B,Hq,1,D).
-
-    CPU tensors go through :func:`decode_attention_ref`; CUDA tensors
-    through the kernel, which takes contiguous float32 or bfloat16
-    inputs with ``D in {64, 128}`` and ``Hq/Hkv in {1, 2, 4, 8, 16}``.
-    """
+def _cuda(q, k, v, length):
     global LAUNCHES
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, length)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, Hq, Hkv, S, D = _check(q, k, v, length)
     lib = _lib()
     length = length.to(torch.int32).contiguous()
@@ -143,3 +139,40 @@ def decode_attention(q, k, v, length):
     _build.raise_on_error(lib, "decode_gqa", err)
     LAUNCHES += 1
     return o
+
+
+def _fake(q, k, v, length):
+    return torch.empty_like(q)
+
+
+def flops(q_shape, k_shape, v_shape, length_shape, out_shape=None) -> int:
+    """``q K^T`` and ``p V`` over the whole cache, ``4 B Hq S D``: the
+    work at full length (the lengths are data; a shorter row does
+    less)."""
+    B, Hq, _, D = q_shape
+    return 4 * B * Hq * k_shape[2] * D
+
+
+def bytes_moved(q, k, v, length) -> int:
+    """q, the whole k and v cache and the lengths read once, the output
+    written once (at full length)."""
+    return _library.nbytes(q, k, v, length, q)
+
+
+_op = _library.define(
+    "decode_attention",
+    "(Tensor q, Tensor k, Tensor v, Tensor length) -> Tensor",
+    cpu=decode_attention_ref, cuda=_cuda, fake=_fake, flops=flops,
+    bytes_=bytes_moved)
+
+
+def decode_attention(q, k, v, length):
+    """q (B,Hq,1,D), k/v (B,Hkv,S,D), length (B,) ints -> (B,Hq,1,D).
+
+    CPU tensors go through :func:`decode_attention_ref`; CUDA tensors
+    through the kernel, which takes contiguous float32 or bfloat16
+    inputs with ``D in {64, 128}`` and ``Hq/Hkv in {1, 2, 4, 8, 16}``.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    return _op(q, k, v, length)

@@ -11,6 +11,12 @@ kernel (or, on the CPU, the plain version), the backward plain PyTorch,
 the function the reference differentiates, recomputed one query block
 at a time.  There is no backward kernel.
 
+The forward is the operator ``torch.ops.repro_torch.flash_attention``
+(``kernels/_library.py``): the plain version on the CPU, the kernel on
+the card, a fake route that gives the output's shape for
+``FakeTensorMode``, and its cost formulas (:func:`flops`,
+:func:`bytes_moved`).
+
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
 """
@@ -20,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _library
 from repro_torch.kernels.flash_attention.ref import (attention_chunked,
                                                      attention_chunked_vjp)
 
@@ -93,13 +99,13 @@ def _check(q, k, v, causal):
     return B, Hq, Hkv, Sq, Sk, D
 
 
-def _forward(q, k, v, causal, window):
+def _cpu(q, k, v, causal, window):
+    _check_shapes(q, k, v, causal)
+    return attention_chunked(q, k, v, causal=causal, window=window)
+
+
+def _cuda(q, k, v, causal, window):
     global LAUNCHES
-    if q.device.type == "cpu":
-        _check_shapes(q, k, v, causal)
-        return attention_chunked(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Hq, Hkv, Sq, Sk, D = _check(q, k, v, causal)
     lib = _lib()
     smem = lib.flash_attention_smem_bytes(D)
@@ -122,6 +128,45 @@ def _forward(q, k, v, causal, window):
     _build.raise_on_error(lib, "flash_attention", err)
     LAUNCHES += 1
     return o
+
+
+def _fake(q, k, v, causal, window):
+    _check_shapes(q, k, v, causal)
+    return torch.empty_like(q)
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the function computes: all ``Sq * Sk`` without
+    the causal mask; with it, query i sees ``min(i + 1, window)`` keys
+    (``window`` 0: all ``i + 1``)."""
+    if not causal:
+        return Sq * Sk
+    w = window if 0 < window < Sq else Sq
+    return w * (w + 1) // 2 + (Sq - w) * w
+
+
+def flops(q_shape, k_shape, v_shape, causal, window, out_shape=None) -> int:
+    """``Q K^T`` and ``P V`` over the visible pairs: ``4 B Hq D`` a pair
+    (the causal triangle ``Sq (Sq + 1) / 2`` with the mask)."""
+    B, Hq, Sq, D = q_shape
+    return 4 * B * Hq * D * visible_pairs(Sq, k_shape[2], causal, window)
+
+
+def bytes_moved(q, k, v, causal, window) -> int:
+    """q, k and v read once, the output (q's shape) written once."""
+    return _library.nbytes(q, k, v, q)
+
+
+_op = _library.define(
+    "flash_attention",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window) -> Tensor",
+    cpu=_cpu, cuda=_cuda, fake=_fake, flops=flops, bytes_=bytes_moved)
+
+
+def _forward(q, k, v, causal, window):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _op(q, k, v, bool(causal), int(window))
 
 
 class FlashAttention(torch.autograd.Function):

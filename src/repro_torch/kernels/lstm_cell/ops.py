@@ -15,6 +15,12 @@ saved anyway, so memory stays at the carries.  Its sums are float32
 (float64 for float64 inputs), its gradients come back in each input's
 type.
 
+The forward is the operator ``torch.ops.repro_torch.lstm_cell``
+(``kernels/_library.py``): the plain version on the CPU, the kernel on
+the card, a fake route that gives the outputs' shapes for
+``FakeTensorMode``, and its cost formulas (:func:`flops`,
+:func:`bytes_moved`).
+
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
 """
@@ -24,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _library
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 
 LAUNCHES = 0
@@ -75,14 +81,8 @@ def _check(x, h, c, wx, wh, b):
     return B, F, H
 
 
-def _forward(x, h, c, wx, wh, b):
-    """The cell without autograd: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def _cuda(x, h, c, wx, wh, b):
     global LAUNCHES
-    if x.device.type == "cpu":
-        return lstm_cell_ref(x, h, c, wx, wh, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"lstm_cell: unsupported device {x.device}")
     B, F, H = _check(x, h, c, wx, wh, b)
     h2 = torch.empty_like(h)
     c2 = torch.empty_like(c)
@@ -96,6 +96,38 @@ def _forward(x, h, c, wx, wh, b):
     _build.raise_on_error(lib, "lstm_cell", err)
     LAUNCHES += 1
     return h2, c2
+
+
+def _fake(x, h, c, wx, wh, b):
+    return torch.empty_like(h), torch.empty_like(c)
+
+
+def flops(x_shape, h_shape, c_shape, wx_shape, wh_shape, b_shape,
+          out_shape=None) -> int:
+    """The gate products ``x @ wx + h @ wh``: ``2 B (F + H) 4H``."""
+    (B, F), H = x_shape, h_shape[-1]
+    return 2 * B * (F + H) * 4 * H
+
+
+def bytes_moved(x, h, c, wx, wh, b) -> int:
+    """Every input read once, h2 and c2 written once."""
+    return _library.nbytes(x, h, c, wx, wh, b, h, c)
+
+
+_op = _library.define(
+    "lstm_cell",
+    "(Tensor x, Tensor h, Tensor c, Tensor wx, Tensor wh, Tensor b) "
+    "-> (Tensor, Tensor)",
+    cpu=lstm_cell_ref, cuda=_cuda, fake=_fake, flops=flops,
+    bytes_=bytes_moved)
+
+
+def _forward(x, h, c, wx, wh, b):
+    """The cell without autograd: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_cell: unsupported device {x.device}")
+    return _op(x, h, c, wx, wh, b)
 
 
 class LSTMCell(torch.autograd.Function):

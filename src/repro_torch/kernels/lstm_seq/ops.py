@@ -13,6 +13,12 @@ at once (``cudaOccupancyMaxActiveClusters``, asked once per device and
 shape), never from the mask, so a call makes no host sync and can be
 captured in a CUDA graph.
 
+The call is the operator ``torch.ops.repro_torch.lstm_seq``
+(``kernels/_library.py``): the plain version on the CPU, the kernel on
+the card, a fake route that gives the output's shape for
+``FakeTensorMode``, and its cost formulas (:func:`flops`,
+:func:`bytes_moved`).
+
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
 """
@@ -23,7 +29,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _library
 from repro_torch.kernels.lstm_seq.ref import lstm_seq_ref
 
 LAUNCHES = 0
@@ -185,19 +191,8 @@ def launch(lib, plan: SeqPlan, xs, mask, wx, wh, b, hs) -> None:
     _build.raise_on_error(lib, "lstm_seq", err)
 
 
-def lstm_seq(xs, mask, wx, wh, b):
-    """Fused-sequence LSTM. xs (T,B,F), mask (T,B) bool, wx (F,4H),
-    wh (H,4H), b (4H,) -> hs (T,B,H).
-
-    CPU tensors go through :func:`lstm_seq_ref`; CUDA tensors through
-    the kernel, which takes contiguous float32 inputs and
-    ``H in {32, 64, ..., 256}``.
-    """
+def _cuda(xs, mask, wx, wh, b):
     global LAUNCHES
-    if xs.device.type == "cpu":
-        return lstm_seq_ref(xs, mask, wx, wh, b)
-    if xs.device.type != "cuda":
-        raise ValueError(f"lstm_seq: unsupported device {xs.device}")
     T, B, F, H = _check(xs, mask, wx, wh, b)
     lib = _lib()
     with torch.cuda.device(xs.device):
@@ -214,3 +209,43 @@ def lstm_seq(xs, mask, wx, wh, b):
     launch(lib, plan, xs, mask, wx, wh, b, hs)
     LAUNCHES += 1
     return hs
+
+
+def _fake(xs, mask, wx, wh, b):
+    T, B, _ = xs.shape
+    return xs.new_empty((T, B, wh.shape[0]), dtype=torch.float32)
+
+
+def flops(xs_shape, mask_shape, wx_shape, wh_shape, b_shape,
+          out_shape=None) -> int:
+    """T steps of the gate products: ``2 T B (F + H) 4H`` (every step,
+    as if no row were masked)."""
+    T, B, F = xs_shape
+    H = wh_shape[0]
+    return 2 * T * B * (F + H) * 4 * H
+
+
+def bytes_moved(xs, mask, wx, wh, b) -> int:
+    """Every input read once, hs (T, B, H) float32 written once."""
+    T, B, _ = xs.shape
+    return _library.nbytes(xs, mask, wx, wh, b) + T * B * wh.shape[0] * 4
+
+
+_op = _library.define(
+    "lstm_seq",
+    "(Tensor xs, Tensor mask, Tensor wx, Tensor wh, Tensor b) -> Tensor",
+    cpu=lstm_seq_ref, cuda=_cuda, fake=_fake, flops=flops,
+    bytes_=bytes_moved)
+
+
+def lstm_seq(xs, mask, wx, wh, b):
+    """Fused-sequence LSTM. xs (T,B,F), mask (T,B) bool, wx (F,4H),
+    wh (H,4H), b (4H,) -> hs (T,B,H).
+
+    CPU tensors go through :func:`lstm_seq_ref`; CUDA tensors through
+    the kernel, which takes contiguous float32 inputs and
+    ``H in {32, 64, ..., 256}``.
+    """
+    if xs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_seq: unsupported device {xs.device}")
+    return _op(xs, mask, wx, wh, b)

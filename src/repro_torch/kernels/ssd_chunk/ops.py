@@ -4,9 +4,13 @@ public SSD forward built on it, as ``repro.kernels.ssd_chunk.ops``.
 ``ssd_intra`` takes the plain version (``ref.ssd_intra_ref``) only when
 its tensors lie on the CPU.  For CUDA tensors it launches the kernel or
 raises; there is no fallback.  The kernel is built at first use by
-:mod:`repro_torch.kernels._build`.  ``LAUNCHES`` counts kernel launches
-(and nothing else), so a run can show that its main path went through
-the kernel.  ``ssd_intra`` is differentiable (:class:`SSDIntra`): the
+:mod:`repro_torch.kernels._build`.  The intra-chunk term is the operator
+``torch.ops.repro_torch.ssd_intra`` (``kernels/_library.py``): the plain
+version on the CPU, the kernel on the card, a fake route that gives the
+output's shape for ``FakeTensorMode``, and its cost formulas
+(:func:`flops`, :func:`bytes_moved`).  ``LAUNCHES`` counts kernel
+launches (and nothing else), so a run can show that its main path went
+through the kernel.  ``ssd_intra`` is differentiable (:class:`SSDIntra`): the
 forward is the kernel (or the plain version), the backward plain
 PyTorch, ``ref.ssd_intra_vjp``, the gradient of ``ssd_intra_ref``
 recomputed a batch of chunks at a time; there is no backward kernel.
@@ -24,7 +28,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _library
 from repro_torch.kernels.ssd_chunk.ref import (CLIP, ssd_intra_ref,
                                                ssd_intra_vjp)
 
@@ -96,12 +100,8 @@ def _check(cm, bm, xdt, cum):
     return BC, C, N, H, P
 
 
-def _forward(cm, bm, xdt, cum):
+def _cuda(cm, bm, xdt, cum):
     global LAUNCHES
-    if cm.device.type == "cpu":
-        return ssd_intra_ref(cm, bm, xdt, cum)
-    if cm.device.type != "cuda":
-        raise ValueError(f"ssd_intra: unsupported device {cm.device}")
     BC, C, N, H, P = _check(cm, bm, xdt, cum)
     lib = _lib()
     y = torch.empty_like(xdt)
@@ -117,6 +117,35 @@ def _forward(cm, bm, xdt, cum):
     _build.raise_on_error(lib, "ssd_chunk", err)
     LAUNCHES += 1
     return y
+
+
+def _fake(cm, bm, xdt, cum):
+    return torch.empty_like(xdt, dtype=torch.float32)
+
+
+def flops(cm_shape, bm_shape, xdt_shape, cum_shape, out_shape=None) -> int:
+    """``S = C B^T`` once a chunk (``2 BC C^2 N``) and ``(S * L) @ xdt``
+    a head (``2 BC H C^2 P``), both over whole C x C blocks."""
+    BC, C, N = cm_shape
+    H, P = xdt_shape[1], xdt_shape[3]
+    return 2 * BC * C * C * N + 2 * BC * H * C * C * P
+
+
+def bytes_moved(cm, bm, xdt, cum) -> int:
+    """cm, bm, xdt and cum read once, y (xdt's shape) written once."""
+    return _library.nbytes(cm, bm, xdt, cum, xdt)
+
+
+_op = _library.define(
+    "ssd_intra", "(Tensor cm, Tensor bm, Tensor xdt, Tensor cum) -> Tensor",
+    cpu=ssd_intra_ref, cuda=_cuda, fake=_fake, flops=flops,
+    bytes_=bytes_moved)
+
+
+def _forward(cm, bm, xdt, cum):
+    if cm.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_intra: unsupported device {cm.device}")
+    return _op(cm, bm, xdt, cum)
 
 
 class SSDIntra(torch.autograd.Function):

@@ -111,23 +111,34 @@ def ssd_intra_ref(cm, bm, xdt, cum):
 
 
 # chunks (rows of BC) whose intra-chunk term the backward recomputes at
-# once: bounds the (rows, H, C, C) float32 decay matrix held at a time
+# once: BLOCK_BC, or more where a chunk's (H, C, C) float32 decay matrix
+# is small, as long as the block's stays within BLOCK_BYTES (BLOCK_BC
+# chunks at mamba2-2.7b's (80, 128, 128)); bounds the decay matrices
+# held at a time
 BLOCK_BC = 16
+BLOCK_BYTES = BLOCK_BC * 80 * 128 * 128 * 4
+
+
+def block_rows(H: int, C: int) -> int:
+    """Chunks a block of :func:`ssd_intra_vjp` recomputes at once."""
+    return max(BLOCK_BC, BLOCK_BYTES // max(1, H * C * C * 4))
 
 
 def ssd_intra_vjp(cm, bm, xdt, cum, dy):
     """The gradient of :func:`ssd_intra_ref` at (cm, bm, xdt, cum)
     against ``dy`` (BC,H,C,P): (dcm, dbm, dxdt, dcum) in the inputs'
-    dtypes, recomputed ``BLOCK_BC`` chunks at a time under autograd."""
+    dtypes, recomputed :func:`block_rows` chunks at a time under
+    autograd."""
     grads = [torch.empty_like(x) for x in (cm, bm, xdt, cum)]
-    for lo in range(0, cm.shape[0], BLOCK_BC):
-        part = [x[lo:lo + BLOCK_BC].detach().requires_grad_()
+    rows = block_rows(xdt.shape[1], cm.shape[1])
+    for lo in range(0, cm.shape[0], rows):
+        part = [x[lo:lo + rows].detach().requires_grad_()
                 for x in (cm, bm, xdt, cum)]
         with torch.enable_grad():
             y = ssd_intra_ref(*part)
-            got = torch.autograd.grad(y, part, dy[lo:lo + BLOCK_BC])
+            got = torch.autograd.grad(y, part, dy[lo:lo + rows])
         for g, x in zip(grads, got):
-            g[lo:lo + BLOCK_BC] = x
+            g[lo:lo + rows] = x
     return tuple(grads)
 
 

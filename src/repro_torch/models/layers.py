@@ -27,6 +27,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import head_shards as HS
@@ -77,9 +78,12 @@ def _attend(q, k, v, *, causal, window=0):
 
 def truncated_normal(gen, shape, scale, dtype):
     """N(0, 1) truncated to [-2, 2], times ``scale``, drawn in float32
-    and cast to ``dtype``."""
+    and cast to ``dtype``.  Under ``FakeTensorMode`` (the dry run's
+    abstract init, the counterpart of ``jax.eval_shape(model.init)``)
+    nothing is drawn: the tensor has a shape and a dtype, no data."""
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if not is_fake(x):
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * scale).to(dtype)
 
 

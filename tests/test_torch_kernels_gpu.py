@@ -756,3 +756,93 @@ def test_head_shard_kernels_take_each_q_heads_kv_head(card, Hq, Hkv, tp,
         got = dec_ops.decode_attention(qd, ks, vs, length)
         want = dec_ref.decode_attention_ref(qd, k[:, idx], v[:, idx], length)
         assert attn_err(got, want)[1] <= 1.0, (r, group)
+
+
+# The kernels as operators (``torch.ops.repro_torch.*``,
+# ``kernels/_library.py``): on CUDA tensors the wrapper's result is bit
+# for bit its CUDA route's called directly (the launch path as it was
+# before the operator), and each call is one launch; on fake CUDA
+# tensors (the dry run) the fake route launches and allocates nothing.
+def _operator_cases():
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    bf = torch.bfloat16
+    q, k, v = rnd(2, 16, 256, 128, dtype=bf), rnd(2, 8, 256, 128, dtype=bf), \
+        rnd(2, 8, 256, 128, dtype=bf)
+    qd = rnd(4, 16, 1, 128, dtype=bf)
+    kd, vd = rnd(4, 8, 300, 128, dtype=bf), rnd(4, 8, 300, 128, dtype=bf)
+    length = torch.tensor([300, 1, 77, 256], dtype=torch.int32,
+                          device="cuda")
+    cell = (rnd(8, 16), rnd(8, 256), rnd(8, 256), rnd(16, 1024) * 0.1,
+            rnd(256, 1024) * 0.1, rnd(1024) * 0.1)
+    seq = _args(97, 32, 16, 256)
+    ssd = (rnd(4, 64, 32), rnd(4, 64, 32), rnd(4, 9, 64, 16),
+           -torch.cumsum(rnd(4, 9, 64).abs() * 0.1, dim=-1))
+    return {
+        "flash_attention": (fa_ops, lambda: fa_ops.flash_attention(q, k, v),
+                            lambda: fa_ops._cuda(q, k, v, True, 0)),
+        "decode_gqa": (dec_ops,
+                       lambda: dec_ops.decode_attention(qd, kd, vd, length),
+                       lambda: dec_ops._cuda(qd, kd, vd, length)),
+        "lstm_cell": (cell_ops, lambda: cell_ops.lstm_cell(*cell),
+                      lambda: cell_ops._cuda(*cell)),
+        "lstm_seq": (ops, lambda: ops.lstm_seq(*seq),
+                     lambda: ops._cuda(*seq)),
+        "ssd_chunk": (ssd_ops, lambda: ssd_ops.ssd_intra(*ssd),
+                      lambda: ssd_ops._cuda(*ssd)),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flash_attention", "decode_gqa",
+                                  "lstm_cell", "lstm_seq", "ssd_chunk"])
+def test_operator_is_its_cuda_route_bit_for_bit(card, name):
+    mod, call, direct = _operator_cases()[name]
+    with torch.no_grad():
+        before = mod.LAUNCHES
+        got = call()
+        assert mod.LAUNCHES == before + 1
+        want = direct()
+    torch.cuda.synchronize()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_fake_cuda_tensors_launch_and_allocate_nothing(card):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mods = (fa_ops, dec_ops, cell_ops, ops, ssd_ops)
+    before = [m.LAUNCHES for m in mods]
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    with FakeTensorMode(), torch.no_grad():
+        def e(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, dtype=dtype, device="cuda")
+        f32 = torch.float32
+        outs = [fa_ops.flash_attention(e(4, 16, 4096, 128), e(4, 8, 4096, 128),
+                                       e(4, 8, 4096, 128)),
+                dec_ops.decode_attention(e(128, 16, 1, 128),
+                                         e(128, 8, 32768, 128),
+                                         e(128, 8, 32768, 128),
+                                         e(128, dtype=torch.int32)),
+                cell_ops.lstm_cell(e(4096, 16, dtype=f32),
+                                   *(e(4096, 256, dtype=f32),) * 2,
+                                   e(16, 1024, dtype=f32),
+                                   e(256, 1024, dtype=f32),
+                                   e(1024, dtype=f32))[0],
+                ops.lstm_seq(e(97, 32, 16, dtype=f32),
+                             e(97, 32, dtype=torch.bool),
+                             e(16, 1024, dtype=f32), e(256, 1024, dtype=f32),
+                             e(1024, dtype=f32)),
+                ssd_ops.ssd_intra(e(512, 128, 128, dtype=f32),
+                                  e(512, 128, 128, dtype=f32),
+                                  e(512, 80, 128, 64, dtype=f32),
+                                  e(512, 80, 128, dtype=f32))]
+        shapes = [tuple(o.shape) for o in outs]
+    assert shapes == [(4, 16, 4096, 128), (128, 16, 1, 128), (4096, 256),
+                      (97, 32, 256), (512, 80, 128, 64)]
+    assert [m.LAUNCHES for m in mods] == before
+    assert torch.cuda.memory_allocated() == alloc
