@@ -419,25 +419,72 @@ no result:
                         card a rank; with fewer a line that says so;
 45. ``dryrun:production``  the dry run (``launch/dryrun.py``) of the
                         production meshes on fake CUDA tensors over a
-                        fake process group of 512 ranks, four
+                        fake process group of 512 ranks, five
                         subprocesses side by side: internlm2-1.8b's
                         train_4k, prefill_32k and decode_32k on 16x16
                         with their roofline cost modules, its train_4k
                         on 2x16x16, llama3-405b's train_4k on 16x16
                         from 1- and 2-layer traces (its 126 layers x 8
                         microbatches extrapolated) with its cost
-                        modules, relmas on 16x16; each record's ``ok``,
-                        memory, three roofline terms, dominant term and
-                        collectives by kind; every cell ok, nothing
-                        allocated on the card after FakeTensorMode's
-                        CUDA context (one 1-element tensor, freed), no
-                        kernel launched;
+                        modules, relmas on 16x16, and the cells the
+                        families' mesh steps opened: olmoe-1b-7b's
+                        train_4k and mamba2-2.7b's prefill_32k (from 1-
+                        and 2-layer traces) and whisper-tiny's
+                        decode_32k; each record's ``ok``, memory, three
+                        roofline terms, dominant term and collectives by
+                        kind; every cell ok, nothing allocated on the
+                        card after FakeTensorMode's CUDA context (one
+                        1-element tensor, freed), no kernel launched;
+                        internlm2-1.8b's train_4k on 16x16 must fit
+                        80 GB a chip and lie at least the 388.6 GB of
+                        the global logits gradient below the 469.2 GB it
+                        needed when the mesh loss held that gradient
+                        (ROADMAP C1; now the loss on each rank's vocab
+                        block), and llama3-405b's is printed beside its
+                        127.2 GB of then;
 46. ``dryrun:check``    (started with phase 45) the dry run of train:lm's
                         step (internlm2-1.8b at full width and depth,
                         4 x 2048) on a 1x1 mesh: its FLOPs beside
                         ``train_bound``'s, its ``per_chip_total_bytes``
                         within 25% of train:lm's measured peak, its
                         compute term beside train:lm's step p50.
+47. ``train:families_mesh``  (in a child process beside phases 36-37
+                        and 43-44, read after them) every family's steps
+                        on a (data, model) mesh: olmoe-1b-7b (64 experts
+                        top-8) and mamba2-2.7b at full width cut to 2
+                        layers, whisper-tiny whole (1500 stub frames),
+                        all three in float32, and jamba-v0.1-52b and
+                        internvl2-76b at smoke width with heads of 64
+                        (the kernels' D; their full width does not fit
+                        two ranks' float32 state on the card); first
+                        each kernel at every shape the phase gives it,
+                        drawn from its configs and sizes
+                        (``families_shard_shapes``: each family's rows
+                        and heads on (1, 1), (2, 1) and (1, 2) in the
+                        train, prefill and decode steps, whisper's
+                        encoder and cross attention and cross cache
+                        too), against its plain version; then each
+                        family one process on the card (2
+                        train steps of 2 x 128 from seed 0, then a
+                        prefill of 2 x 64, after the VLM's patches, and
+                        8 greedy decode steps), then one spawn of 2
+                        ranks sharing the card over gloo running every
+                        family on (2, 1) and on (1, 2)
+                        (``launch.train.mesh_steps_rank``: the loss on
+                        each rank's vocab block, the MoE dispatch on its
+                        rows, ``ssd_chunk`` and the attention kernels on
+                        its heads, whisper's cross-attention decode on
+                        its kv heads of the cache), each held to its
+                        one-process run as phase 43: loss and gnorm
+                        within rtol 1e-4, every parameter within 2 lr
+                        per step, tokens equal, logits within
+                        ``LM_F32_TOL``; each leaf's local shape and
+                        placements, each rank's launches (added to the
+                        kernels line), peak memory and seconds, the
+                        largest logit gap a step; every shape at which
+                        the one-process runs or the ranks launched a
+                        kernel (``ops.SHAPES``) must be one of those
+                        checked first.
 
 Order and concurrency, to hold the script to half its 1200 s limit: the
 kernel checks (phases 2-4, 11, 15) run first, alone on the card; then
@@ -445,9 +492,10 @@ phases 5-7 and 23; then the RELMAS training phases run in two child
 processes of this script (``--rl-group``: 16-22 and 24 in one, 39-42
 in the other; each console printed when it ends, their ``lstm_cell``
 launches added to the kernels line) beside the LM serving phases (8-14,
-25-35), so these three groups' times are taken side by side; then phases 45-46's subprocesses
-start (at a lower priority) beside phases 36-38 and 43-44, and are read
-last.
+25-35), so these three groups' times are taken side by side; then phase
+38 alone (its internvl2 step peaks at 71 GB of the card); then phases
+45-46's subprocesses (at a lower priority) and phase 47's child
+process start beside phases 36-37 and 43-44, and are read last.
 
 Then a ``kernels`` JSON line, the card's name and power limit as
 ``nvidia-smi`` reports them, and a last JSON line
@@ -485,7 +533,9 @@ TOL = 1e-4
 # float32 one with Sq != Sk, the olmoe-1b-7b prefill (phase 27),
 # whisper-tiny's decoder self-attention prefill (its 4 prompt tokens),
 # and the jamba-v0.1-52b (phase 30: 32 query heads over 8 KV heads) and
-# internvl2-76b (phase 33: 64 over 8, group 8) prefills
+# internvl2-76b (phase 33: 64 over 8, group 8) prefills.  The head
+# shards of phase 47's meshes are not here: that phase draws them from
+# its configs (families_shard_shapes) and checks them itself
 FLASH_SHAPES = [(4, 16, 8, 2048, 2048, 128, True, 0, torch.bfloat16),
                 (1, 16, 8, 4096, 4096, 128, True, 1024, torch.bfloat16),
                 (2, 36, 36, 1024, 1024, 64, True, 0, torch.bfloat16),
@@ -575,7 +625,8 @@ OLMOE_F32_TOL = dict(atol=2e-3, rtol=1e-3, mean=2e-4)
 ROUTE_MARGIN = 0.05
 # (BC, C, N, H, P); the first is the mamba2-2.7b prefill of phase 12:
 # 4 prompts of 2048 tokens in chunks of 128, 80 heads of 64, state 128;
-# the last jamba-v0.1-52b's (phase 30): 128 heads of 64, state 16
+# the last jamba-v0.1-52b's (phase 30): 128 heads of 64, state 16 (phase
+# 47's head shards: families_shard_shapes)
 SSD_SHAPES = [(MB_B * MB_S // 128, 128, 128, 80, 64), (6, 16, 32, 7, 16),
               (5, 64, 128, 9, 64), (JB_B * JB_S // 128, 128, 16, 128, 64)]
 SERVE_ARGS = ["--workload", "mixed", "--fleet", "paper6", "--hidden", "256",
@@ -637,6 +688,21 @@ LMM_PAD = LMM_S + LMM_DEC
 LMM_MESHES = ((2, 1), (1, 2))
 LMM_NCCL_MESH = (2, 2)
 LM_F32_TOL = OLMOE_F32_TOL
+# every family's steps on a (data, model) mesh (phase 47): (arch, config
+# cuts) at full width cut in depth in float32 (olmoe, mamba2), whisper-
+# tiny whole in float32, jamba and internvl2 at smoke width with heads of
+# 64 (the attention kernels take D 64 or 128; their full width does not
+# fit two ranks' float32 state on one card); 2 train steps
+# of 2 x 128, a prefill of 2 x 64 (after the VLM's patches) and 8 greedy
+# steps, on (2, 1) and (1, 2), held to LMM's criteria
+FAMILIES_MESH = (("olmoe-1b-7b", dict(n_layers=2, param_dtype="float32")),
+                 ("mamba2-2.7b", dict(n_layers=2, param_dtype="float32")),
+                 ("whisper-tiny", dict(param_dtype="float32")),
+                 ("jamba-v0.1-52b", dict(smoke=True, head_dim=64)),
+                 ("internvl2-76b", dict(smoke=True, head_dim=64)))
+FM_B, FM_S, FM_STEPS, FM_SB, FM_SS, FM_DEC, FM_PAD = 2, 128, 2, 2, 64, 8, 80
+FM_MESHES = ((2, 1), (1, 2))
+FM_RANK_TIMEOUT_S = 420
 # the dry run (phases 45-46): groups of ``launch/dryrun.py`` main's argv,
 # each group one subprocess of a fake process group of 512 ranks on
 # ``cuda`` fake tensors (the production meshes: 16x16, 2x16x16), the
@@ -652,7 +718,19 @@ DRY_PRODUCTION = [[["--arch", LM_ARCH, "--shape", "train_4k", "--roofline"]],
                    ["--arch", "relmas"]],
                   [["--arch", LM_ARCH, "--shape", "train_4k", "--multi-pod"]],
                   [["--arch", "llama3-405b", "--shape", "train_4k",
-                    "--roofline", "--extrapolate"]]]
+                    "--roofline", "--extrapolate"]],
+                  # the families' cells on 16x16 that A.5 opened (the deep
+                  # ones from 1- and 2-unit traces)
+                  [["--arch", "olmoe-1b-7b", "--shape", "train_4k",
+                    "--extrapolate"],
+                   ["--arch", "mamba2-2.7b", "--shape", "prefill_32k",
+                    "--extrapolate"],
+                   ["--arch", "whisper-tiny", "--shape", "decode_32k"]]]
+# the 16x16 records while the mesh loss held the global batch's logits
+# gradient (ROADMAP C1): internlm2-1.8b train_4k per-chip GB and that
+# buffer; llama3-405b train_4k per-chip GB
+DRY_GLOBAL_LOSS = dict(internlm2_gb=469.2, loss_buffer_gb=388.6,
+                       llama3_gb=127.2)
 DRY_TIMEOUT_S = 420
 DRY_MEM_TOL = 0.25
 # what train:lm measured, for dryrun:check (peak GB, step p50 s)
@@ -895,7 +973,9 @@ def visible_pairs(Sq, Sk, causal, window) -> int:
     return int(np.minimum(i + 1, window if window > 0 else Sq).sum())
 
 
-def check_flash(ops, ref, CARD):
+def check_flash(ops, ref, CARD, shapes=None):
+    """The kernel at every shape of ``shapes`` (FLASH_SHAPES by
+    default) against its plain version, timed beside it and SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attn_tolerance import attn_err
@@ -903,7 +983,8 @@ def check_flash(ops, ref, CARD):
     main = None
     max_err = 0.0
     with torch.no_grad():
-        for (B, Hq, Hkv, Sq, Sk, D, causal, window, dt) in FLASH_SHAPES:
+        for (B, Hq, Hkv, Sq, Sk, D, causal, window, dt) in (
+                shapes or FLASH_SHAPES):
             q = torch.randn((B, Hq, Sq, D), generator=gen,
                             device="cuda").to(dt)
             k, v = (torch.randn((B, Hkv, Sk, D), generator=gen,
@@ -972,7 +1053,9 @@ def check_flash(ops, ref, CARD):
     return dict(max_abs_err=max_err, **main)
 
 
-def check_decode(ops, ref, CARD):
+def check_decode(ops, ref, CARD, shapes=None):
+    """The kernel at every shape of ``shapes`` (DECODE_SHAPES by
+    default) against its plain version, timed beside it and SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attn_tolerance import attn_err
@@ -980,7 +1063,7 @@ def check_decode(ops, ref, CARD):
     main = None
     max_err = 0.0
     with torch.no_grad():
-        for (B, Hq, Hkv, S, D, lengths, dt) in DECODE_SHAPES:
+        for (B, Hq, Hkv, S, D, lengths, dt) in shapes or DECODE_SHAPES:
             q = torch.randn((B, Hq, 1, D), generator=gen, device="cuda").to(dt)
             k, v = (torch.randn((B, Hkv, S, D), generator=gen,
                                 device="cuda").to(dt) for _ in range(2))
@@ -1584,12 +1667,15 @@ def ssd_bound_ms(BC, C, N, H, P) -> tuple[float, str]:
                                       else "bytes")
 
 
-def check_ssd(ops, ref, CARD):
+def check_ssd(ops, ref, CARD, shapes=None):
+    """The kernel at every shape of ``shapes`` (SSD_SHAPES by default)
+    and both draws against its plain version, timed beside it; then
+    ``ssd_forward`` against the sequential scan."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     main = None
     max_err = 0.0
     with torch.no_grad():
-        for (BC, C, N, H, P) in SSD_SHAPES:
+        for (BC, C, N, H, P) in shapes or SSD_SHAPES:
             for draw in ("kernels", "model"):
                 args = ssd_inputs(BC, C, N, H, P, draw, gen)
                 # the plain version first: the kernel's output then never
@@ -4154,42 +4240,57 @@ def train_lm_families_phase(CARD) -> tuple[int, int]:
     return total[0], total[1]
 
 
-def lm_mesh_reference(cfg, ref_dir: str) -> dict:
-    """The one-process run on the card that the mesh ranks are held to:
-    the train steps from seed 0 (their parameters saved to ``ref_dir``),
-    then the prefill and greedy decode steps with the trained weights.
-    Also holds ``flash_attention`` and ``decode_gqa`` against their
-    plain versions at every head-shard shape the meshes give them."""
+def mesh_reference(cfg, ref_dir: str, steps: int, B: int, S: int,
+                   serve: tuple, device: str = "cuda") -> dict:
+    """The one-process run that mesh ranks are held to: ``steps`` train
+    steps of B x S from seed 0 (their parameters saved to ``ref_dir``),
+    then, with the trained weights, the prefill and greedy decode steps
+    of ``serve`` = (batch, prompt, steps, pad_to) (whisper's frames, the
+    VLM's patches drawn beside the tokens by ``train_batch``)."""
     from repro_torch.ckpt import save_checkpoint
     from repro_torch.launch import train
     from repro_torch.models import (LM, make_decode_step, make_prefill_step,
                                     make_train_step)
     t0 = time.perf_counter()
-    model = LM(cfg, device="cuda").init(
-        torch.Generator(device="cuda").manual_seed(0))
+    model = LM(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(0))
     step, opt = make_train_step(model, total_steps=100)
     params, state = model.params, opt.init(model.params)
     hist = []
-    for i in range(LMM_STEPS):
+    for i in range(steps):
         params, state, m = step(params, state, train.train_batch(
-            cfg, 0, i, LMM_B, LMM_S, "cuda"), i)
+            cfg, 0, i, B, S, device), i)
         hist.append({k: float(v) for k, v in m.items()})
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / LMM_STEPS
+    if device == "cuda":
+        torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
     del state
     save_checkpoint(ref_dir, 0, {"params": params})
     model.params = params
-    tokens = train.train_batch(cfg, 1, 0, LMM_B, LMM_S, "cuda")["tokens"]
-    serve = train.greedy_decode(make_prefill_step(model, pad_to=LMM_PAD),
-                                make_decode_step(model), tokens, LMM_DEC)
-    serve.pop("cache")
-    shard_errs = lm_mesh_kernel_checks(model, cfg)
+    sb, ss, dec, pad = serve
+    batch = train.train_batch(cfg, 1, 0, sb, ss, device)
+    out = train.greedy_decode(make_prefill_step(model, pad_to=pad),
+                              make_decode_step(model), batch.pop("tokens"),
+                              dec, batch)
+    out.pop("cache")
+    n_params = model.param_count()
     free(model)
-    return dict(hist=hist, serve=serve, step_s=step_s,
-                secs=time.perf_counter() - t0, kernels=shard_errs)
+    return dict(hist=hist, serve=out, step_s=step_s, n_params=n_params,
+                secs=time.perf_counter() - t0)
 
 
-def lm_mesh_kernel_checks(model, cfg) -> list:
+def lm_mesh_reference(cfg, ref_dir: str) -> dict:
+    """The one-process run on the card that the mesh ranks are held to
+    (:func:`mesh_reference` at LMM's sizes); also holds
+    ``flash_attention`` and ``decode_gqa`` against their plain versions
+    at every head-shard shape the meshes give them."""
+    ref = mesh_reference(cfg, ref_dir, LMM_STEPS, LMM_B, LMM_S,
+                         (LMM_B, LMM_S, LMM_DEC, LMM_PAD))
+    ref["kernels"] = lm_mesh_kernel_checks(cfg)
+    return ref
+
+
+def lm_mesh_kernel_checks(cfg) -> list:
     """Each kernel at every (data, model) split of LMM_MESHES and
     LMM_NCCL_MESH: a rank's q heads against its kv heads (handed over by
     ``head_shards.kv_heads_for``, replicated kv too) on its batch rows,
@@ -4270,7 +4371,8 @@ def lm_mesh_jobs(ref_dir: str, meshes, tmp: str) -> list:
     return jobs
 
 
-def check_lm_mesh(label, ref, ranks, CARD) -> dict:
+def check_lm_mesh(label, ref, ranks, CARD,
+                  serve_shape=(LMM_B, LMM_S, LMM_DEC)) -> dict:
     """The ranks' jobs against the one-process run: loss and gnorm within
     rtol 1e-4 a step, every parameter within 2 lr per step taken (plus
     1e-5 of its largest value), the elastic restore bit-equal, the
@@ -4278,7 +4380,7 @@ def check_lm_mesh(label, ref, ranks, CARD) -> dict:
     leaf's local shape against its placements.  Returns the launches of
     all ranks by kernel."""
     lrs = sum(h["lr"] for h in ref["hist"])
-    launches = {"flash_attention": 0, "decode_gqa": 0}
+    launches = {"flash_attention": 0, "decode_gqa": 0, "ssd_chunk": 0}
     for j, job in enumerate(ranks[0]):
         mesh = job["mesh"]
         for r, rk in enumerate(ranks):
@@ -4292,8 +4394,9 @@ def check_lm_mesh(label, ref, ranks, CARD) -> dict:
                         raise AssertionError(
                             f"{label} {mesh}: rank {r} step {i} {k} "
                             f"{h[k]} against {w[k]} (rtol 1e-4)")
-            worst = max(v["max_diff"] / (2 * lrs + 1e-5 * v["max_ref"])
-                        for v in res["params"].values())
+            worst, leaf = max((v["max_diff"] / (2 * lrs + 1e-5
+                                                * v["max_ref"]), k)
+                              for k, v in res["params"].items())
             if worst > 1:
                 raise AssertionError(f"{label} {mesh}: rank {r}'s "
                                      f"parameters {worst:.3f} of the limit")
@@ -4304,8 +4407,8 @@ def check_lm_mesh(label, ref, ranks, CARD) -> dict:
                   + " ".join(f"{h['loss']:.6f}" for h in res["train"])
                   + " gnorm " + " ".join(f"{h['gnorm']:.4f}"
                                           for h in res["train"])
-                  + f" params worst/limit={worst:.4f} launches="
-                  f"{res['launches']} peak_gb={res['peak_gb']:.2f} job "
+                  + f" params worst/limit={worst:.4f} ({leaf}) launches="
+                  f"{res['launches']} peak_gb={res['peak_gb'] or 0:.2f} job "
                   f"{res['secs']:.1f}s (" + " ".join(
                       f"{k} {v:.1f}" for k, v in res["laps"].items())
                   + ")", flush=True)
@@ -4333,14 +4436,27 @@ def check_lm_mesh(label, ref, ranks, CARD) -> dict:
             lim = LM_F32_TOL["atol"] + LM_F32_TOL["rtol"] * np.abs(
                 want["logits"])
             if (diff > lim).any() or diff.mean() > LM_F32_TOL["mean"]:
-                raise AssertionError(f"{label} {mesh}: logits "
-                                     f"{diff.max():.3e} apart (mean "
-                                     f"{diff.mean():.3e})")
+                at = np.unravel_index(np.argmax(diff / lim), diff.shape)
+                raise AssertionError(
+                    f"{label} {mesh}: logits {diff.max():.3e} apart (mean "
+                    f"{diff.mean():.3e}; the worst against its limit at "
+                    f"step {at[0]}, row {at[1]}, column {at[2]}: "
+                    f"{got['logits'][at]:.6f} for {want['logits'][at]:.6f}"
+                    f"; max a step "
+                    + " ".join(f"{d:.2e}" for d in diff.max(axis=(1, 2)))
+                    + "; max |logit| a step " + " ".join(
+                        f"{m:.2f}" for m in np.abs(want["logits"]).max(
+                            axis=(1, 2))) + ")")
             cache = ranks[0][j]["cache"]
-            print(f"  {label} {mesh} prefill {LMM_B} x {LMM_S} + {LMM_DEC} "
+            print(f"  {label} {mesh} prefill {serve_shape[0]} x "
+                  f"{serve_shape[1]} + {serve_shape[2]} "
                   f"greedy steps [{CARD}]: tokens equal to the one-process "
                   f"run, logits max_abs_err {diff.max():.3e} mean "
-                  f"{diff.mean():.3e} (tol {LM_F32_TOL}); cache " + "; ".join(
+                  f"{diff.mean():.3e} (tol {LM_F32_TOL}; max a step, the "
+                  f"prefill's first: " + " ".join(
+                      f"{d:.2e}" for d in diff.max(axis=(1, 2)))
+                  + f"; max |logit| {np.abs(want['logits']).max():.2f}); "
+                  f"cache " + "; ".join(
                       f"{k} {v['shape']}->{v['local']} {v['placements']}"
                       for k, v in cache.items()), flush=True)
     return launches
@@ -4402,9 +4518,173 @@ def train_lm_mesh_nccl_phase(CARD) -> dict:
     if n < need:
         print(f"  train:lm_mesh_nccl [{CARD}]: {n} card, too few for "
               f"{need} NCCL ranks: not run", flush=True)
-        return {"flash_attention": 0, "decode_gqa": 0}
+        return {"flash_attention": 0, "decode_gqa": 0, "ssd_chunk": 0}
     return lm_mesh_run("train:lm_mesh_nccl", (LMM_NCCL_MESH, (need, 1)),
                        "nccl", CARD)
+
+def families_shard_shapes(cfgs) -> dict:
+    """The shapes phase 47 gives each kernel, drawn from its configs
+    (the configs of FAMILIES_MESH) and sizes (FM_*): on every (data,
+    model) split of FM_MESHES and in the one-process run, a rank's rows
+    and heads in the train steps (FM_B x FM_S), the prefill (FM_SB x
+    FM_SS, after the VLM's patches) and the decode steps (the cache
+    padded to FM_PAD; whisper's cross cache of its frames).  By kernel:
+    flash_attention (B, Hq, Hkv, Sq, Sk, D, causal, window, dtype),
+    decode_gqa (B, Hq, Hkv, S, D, dtype), ssd_chunk (BC, C, N, H, P),
+    as the wrappers record their launches (``ops.SHAPES``)."""
+    import math
+
+    from repro_torch.models.ssm import ssm_dims
+    out = {"flash_attention": set(), "decode_gqa": set(), "ssd_chunk": set()}
+    for cfg in cfgs:
+        dt = str(getattr(torch, cfg.param_dtype))[6:]
+        attn = cfg.family != "ssm"
+        ssm = cfg.family in ("ssm", "hybrid")
+        for dp, tp in ((1, 1),) + FM_MESHES:
+            if attn:
+                if cfg.n_heads % tp or cfg.n_kv % tp:
+                    raise ValueError(f"{cfg.name}: heads {cfg.n_heads} / "
+                                     f"{cfg.n_kv} do not split over {tp}")
+                hq, hkv, D = cfg.n_heads // tp, cfg.n_kv // tp, cfg.head_dim
+            for b, S in ((FM_B // dp, FM_S), (FM_SB // dp, FM_SS)):
+                S += cfg.n_patches
+                if attn:
+                    out["flash_attention"].add(
+                        (b, hq, hkv, S, S, D, True, cfg.window, dt))
+                if cfg.family == "encdec":
+                    F_ = cfg.n_frames
+                    out["flash_attention"] |= {
+                        (b, hq, hq, F_, F_, D, False, 0, dt),
+                        (b, hq, hq, S, F_, D, False, 0, dt)}
+                if ssm:
+                    _, H, _ = ssm_dims(cfg.d_model, cfg.ssm_expand,
+                                       cfg.ssm_headdim, cfg.ssm_state)
+                    out["ssd_chunk"].add(
+                        (b * math.ceil(S / cfg.ssd_chunk), cfg.ssd_chunk,
+                         cfg.ssm_state, H // tp, cfg.ssm_headdim))
+            if attn:
+                out["decode_gqa"].add((FM_SB // dp, hq, hkv, FM_PAD, D, dt))
+                if cfg.family == "encdec":
+                    out["decode_gqa"].add((FM_SB // dp, hq, hq, cfg.n_frames,
+                                           D, dt))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def families_kernel_checks(shapes: dict, CARD) -> None:
+    """``check_flash``, ``check_decode`` (at full and ragged lengths)
+    and ``check_ssd`` at every shape of :func:`families_shard_shapes`.
+    These launches are comparisons, not the main path's: the counters
+    and shape records are put back after."""
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.decode_gqa import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.kernels.ssd_chunk import ref as ssd_ref
+    mods = (fa_ops, dec_ops, ssd_ops)
+    saved = [(m.LAUNCHES, set(m.SHAPES)) for m in mods]
+    check_flash(fa_ops, fa_ref, CARD, [
+        x[:8] + (getattr(torch, x[8]),) for x in shapes["flash_attention"]])
+    check_decode(dec_ops, dec_ref, CARD, [
+        x[:5] + (n, getattr(torch, x[5])) for x in shapes["decode_gqa"]
+        for n in ("full", "ragged")])
+    check_ssd(ssd_ops, ssd_ref, CARD, shapes["ssd_chunk"])
+    for m, (n, sh) in zip(mods, saved):
+        m.LAUNCHES, m.SHAPES = n, sh
+
+
+def uncovered(seen: dict, checked: dict) -> dict:
+    """The launch shapes in ``seen`` (by kernel) that ``checked`` does not
+    hold."""
+    out = {}
+    for k, v in seen.items():
+        miss = sorted(set(map(tuple, v)) - set(map(tuple, checked[k])))
+        if miss:
+            out[k] = miss
+    return out
+
+
+def train_families_mesh_phase(CARD, device: str = "cuda") -> dict:
+    """Every family's steps on a (data, model) mesh (phase 47): each
+    kernel at every shape the phase gives it (:func:`families_shard_shapes`)
+    against its plain version first (on the card), then each family of
+    FAMILIES_MESH one process on the card, then one spawn of 2
+    ranks sharing the card over gloo running every family on (2, 1) and
+    on (1, 2) (``launch.train.mesh_steps_rank``: DTensor parameters,
+    moments, batch and caches; the loss on each rank's vocab block, the
+    MoE dispatch on its rows, the SSD and the attention on its heads),
+    each held to its family's one-process run as train:lm_mesh holds
+    internlm2, and every shape the one-process runs and the ranks
+    launched a kernel at must be one of those checked (``device`` "cpu"
+    rehearses it without a card, gloo ranks on the CPU, no kernel).
+    Returns the ranks' launches by kernel."""
+    from repro_torch.launch import rl_train
+    from repro_torch.launch import train
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="families_mesh-",
+                           dir=os.path.join(ROOT, "runs"))
+    try:
+        cfgs = [train.mesh_config(arch, **cut) for arch, cut in FAMILIES_MESH]
+        shapes = families_shard_shapes(cfgs)
+        print(f"  train:families_mesh shard shapes: " + "; ".join(
+            f"{k} {len(v)}: {v}" for k, v in shapes.items()), flush=True)
+        if device == "cuda":
+            families_kernel_checks(shapes, CARD)
+        train._launch_shapes(clear=True)
+        refs, jobs = {}, []
+        for (arch, cut), cfg in zip(FAMILIES_MESH, cfgs):
+            ref_dir = os.path.join(tmp, arch)
+            ref = refs[arch] = mesh_reference(
+                cfg, ref_dir, FM_STEPS, FM_B, FM_S,
+                (FM_SB, FM_SS, FM_DEC, FM_PAD), device)
+            print(f"  train:families_mesh {arch} one process [{CARD}]: "
+                  f"{cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+                  f"{cfg.param_dtype} ({ref['n_params'] / 1e9:.3f} B "
+                  f"parameters), {FM_STEPS} steps of {FM_B} x {FM_S}: loss "
+                  + " ".join(f"{h['loss']:.6f}" for h in ref["hist"])
+                  + " gnorm " + " ".join(f"{h['gnorm']:.4f}"
+                                          for h in ref["hist"])
+                  + f"; step {ref['step_s'] * 1e3:.1f} ms (the first "
+                  f"included); with the serve steps and the save "
+                  f"{ref['secs']:.1f}s", flush=True)
+            jobs += [dict(arch=arch, seed=0, device=device, mesh=m, **cut,
+                          train=dict(steps=FM_STEPS, batch=FM_B, seq=FM_S,
+                                     total_steps=100, ref=ref_dir),
+                          serve=dict(batch=FM_SB, seq=FM_SS, steps=FM_DEC,
+                                     pad_to=FM_PAD))
+                     for m in FM_MESHES]
+        seen = {k: set(v) for k, v in train._launch_shapes(clear=True).items()}
+        t0 = time.perf_counter()
+        ranks = rl_train.spawn_ranks(train.mesh_steps_rank, 2, jobs,
+                                     device=device, backend="gloo",
+                                     timeout=FM_RANK_TIMEOUT_S)
+        print(f"  train:families_mesh 2 ranks over gloo: {len(jobs)} jobs, "
+              f"spawn to join {time.perf_counter() - t0:.1f}s", flush=True)
+        for rk in ranks:
+            for res in rk:
+                for k, v in res["shapes"].items():
+                    seen[k] |= set(map(tuple, v))
+        miss = uncovered(seen, shapes)
+        print(f"  train:families_mesh launch shapes (one process and "
+              f"ranks): " + ", ".join(f"{k} {len(v)}" for k, v in
+                                      seen.items())
+              + f"; not among the checked: {miss or 'none'}", flush=True)
+        if miss:
+            raise AssertionError(f"train:families_mesh: kernels launched at "
+                                 f"shapes not held to their plain versions:"
+                                 f" {miss}")
+        launches = {"flash_attention": 0, "decode_gqa": 0, "ssd_chunk": 0}
+        n = len(FM_MESHES)
+        for i, (arch, _) in enumerate(FAMILIES_MESH):
+            got = check_lm_mesh(f"train:families_mesh {arch}", refs[arch],
+                                [rk[i * n:(i + 1) * n] for rk in ranks],
+                                CARD, serve_shape=(FM_SB, FM_SS, FM_DEC))
+            for k in launches:
+                launches[k] += got[k]
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 # the dry run's drivers, each in a process of its own (the fake process
 # group is process-global): the argv lists come as JSON in argv[1]; the
@@ -4565,6 +4845,27 @@ def dryrun_production_phase(CARD) -> None:
         dry_kill()
         raise AssertionError(f"dryrun:production: {len(recs)} records of "
                              f"{want}, failed: {failed}")
+    # the loss on each rank's vocab block (C1's repair) against the
+    # records of the loss that held the global batch's logits gradient
+    cell = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    il = cell[LM_ARCH, "train_4k", "16x16"]["mem"]
+    gb = il["per_chip_total_bytes"] / 1e9
+    fall = DRY_GLOBAL_LOSS["internlm2_gb"] - gb
+    llama = cell["llama3-405b", "train_4k", "16x16"]["mem"]
+    print(f"  dryrun:production C1 [{CARD}]: {LM_ARCH} train_4k 16x16 "
+          f"per_chip_total {gb:.3f} GB (temp "
+          f"{il['temp_size_in_bytes'] / 1e9:.3f} GB) fits_80GB_hbm="
+          f"{il['fits_80GB_hbm']}, {fall:.1f} GB below the "
+          f"{DRY_GLOBAL_LOSS['internlm2_gb']} GB of the loss on global "
+          f"rows (its buffer {DRY_GLOBAL_LOSS['loss_buffer_gb']} GB); "
+          f"llama3-405b train_4k 16x16 "
+          f"{llama['per_chip_total_bytes'] / 1e9:.3f} GB (then "
+          f"{DRY_GLOBAL_LOSS['llama3_gb']} GB) fits_80GB_hbm="
+          f"{llama['fits_80GB_hbm']}", flush=True)
+    if not il["fits_80GB_hbm"] or \
+            fall < DRY_GLOBAL_LOSS["loss_buffer_gb"]:
+        raise AssertionError(f"dryrun:production: {LM_ARCH} train_4k "
+                             f"needs {gb:.3f} GB a chip")
 
 
 def dryrun_check_phase(CARD) -> None:
@@ -4613,16 +4914,19 @@ def dryrun_check_phase(CARD) -> None:
 # (``chip_smoke.py --rl-group NAME FILE``) beside the LM serving phases
 # (8-14, 25-35): "relmas" runs phases 16-22 and 24, "sharded" phases
 # 39-42.  All three are mostly host-bound, and the card and the host's
-# cores have room for them side by side; each child's console goes to a
-# file, printed when it ends
+# cores have room for them side by side.  A third child, "families",
+# runs phase 47 beside the LM training tail (36-37, 43-44), whose card
+# memory leaves it room once phase 38 (71 GB) has run.  Each child's
+# console goes to a file, printed when it ends
 RL_GROUP_TIMEOUT_S = 600
 RL_GROUPS: dict = {}
 
 
 def rl_group(name: str, out_path: str) -> int:
     """A child's entry: the group ``name``'s phases in order.  Writes the
-    ``lstm_cell`` launches of their main paths (train:rl_train's driver,
-    the sharded ranks) and its seconds to ``out_path`` as JSON."""
+    kernel launches of their main paths (``lstm_cell``: train:rl_train's
+    driver, the sharded ranks; the attention and SSD kernels: the
+    families' mesh ranks) and its seconds to ``out_path`` as JSON."""
     t0 = time.perf_counter()
     from repro_torch.kernels.lstm_seq import ops
     from repro_torch.launch import serve as serve_cli
@@ -4655,15 +4959,21 @@ def rl_group(name: str, out_path: str) -> int:
             launches += train_sharded_nccl_phase(CARD)
         with phase("train:sharded_driver"):
             train_sharded_driver_phase(CARD)
+    elif name == "families":
+        with phase("train:families_mesh"):
+            launches = train_families_mesh_phase(CARD)
     else:
         raise ValueError(f"no group {name!r}")
+    if not isinstance(launches, dict):
+        launches = {"lstm_cell": launches}
     with open(out_path, "w") as f:
-        json.dump({"lstm_cell": launches,
+        json.dump({"launches": launches,
                    "secs": time.perf_counter() - t0}, f)
     return 0
 
 
-def rl_group_start(name: str) -> None:
+def rl_group_start(name: str, beside: str = "the LM serving phases"
+                   ) -> None:
     """Start the child of group ``name`` in a session of its own (so
     its ranks stop with it)."""
     os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
@@ -4678,7 +4988,7 @@ def rl_group_start(name: str) -> None:
     RL_GROUPS[name] = dict(proc=proc, tmp=tmp, log=log,
                            t0=time.perf_counter())
     print(f"  train:rl_group {name}: started in a child process (pid "
-          f"{proc.pid}) beside the LM serving phases", flush=True)
+          f"{proc.pid}) beside {beside}", flush=True)
 
 
 def rl_group_kill() -> None:
@@ -4690,10 +5000,10 @@ def rl_group_kill() -> None:
             group["proc"].wait()
 
 
-def rl_group_finish(name: str) -> int:
+def rl_group_finish(name: str) -> dict:
     """Wait for the child of group ``name`` (its timeout counted from
     its start), print its console, and fail if it failed.  Returns its
-    ``lstm_cell`` launches."""
+    launches by kernel."""
     group = RL_GROUPS[name]
     proc, tmp = group["proc"], group["tmp"]
     left = RL_GROUP_TIMEOUT_S - (time.perf_counter() - group["t0"])
@@ -4717,7 +5027,7 @@ def rl_group_finish(name: str) -> int:
     print(f"  train:rl_group {name}: the child's phases ran "
           f"{got['secs']:.1f}s (joined {secs:.1f}s after its start)",
           flush=True)
-    return got["lstm_cell"]
+    return got["launches"]
 
 
 def free(model) -> None:
@@ -4834,19 +5144,23 @@ def run_all() -> int:
         vlm_parity_phase(model, CARD)
     free(model)
     with phase("train:rl_group"):
-        cell_launches = sum(rl_group_finish(name)
+        cell_launches = sum(rl_group_finish(name)["lstm_cell"]
                             for name in ("relmas", "sharded"))
+    with phase("train:lm_families"):
+        tf_launches = train_lm_families_phase(CARD)
     dry_start_all()
+    rl_group_start("families", "the LM training phases")
     with phase("train:lm"):
         tr_launches = train_lm_phase(CARD)
     with phase("train:lm_parity"):
         train_lm_parity_phase(CARD)
-    with phase("train:lm_families"):
-        tf_launches = train_lm_families_phase(CARD)
     with phase("train:lm_mesh"):
         mesh_launches = train_lm_mesh_phase(CARD)
     with phase("train:lm_mesh_nccl"):
         for k, n in train_lm_mesh_nccl_phase(CARD).items():
+            mesh_launches[k] += n
+    with phase("train:families_mesh"):
+        for k, n in rl_group_finish("families").items():
             mesh_launches[k] += n
     with phase("dryrun:production"):
         dryrun_production_phase(CARD)
@@ -4874,8 +5188,8 @@ def run_all() -> int:
         dict(name="ssd_chunk", route="cuda",
              source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:45",
-             launches=ssd_launches + jb_launches[2] + tf_launches[1],
-             **ssd_info),
+             launches=ssd_launches + jb_launches[2] + tf_launches[1]
+             + mesh_launches["ssd_chunk"], **ssd_info),
         dict(name="lstm_cell", route="cuda",
              source="src/repro_torch/csrc/lstm_cell.cu",
              replaces="src/repro/kernels/lstm_cell/lstm_cell.py:51",

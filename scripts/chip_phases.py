@@ -3,11 +3,13 @@ timed, without the rest of the script.
 
     python scripts/chip_phases.py PHASE [PHASE ...]
 
-PHASE is one of ``kernel:lstm_cell``, ``train:parity``,
+PHASE is one of ``kernel:lstm_cell``, ``kernel:flash_attention``,
+``kernel:decode_gqa``, ``kernel:ssd_chunk``, ``train:parity``,
 ``telemetry:train``, ``train:churn``, ``train:sharded``,
 ``train:sharded_ranks``, ``train:sharded_nccl`` (two or more cards),
-``train:sharded_driver``, ``train:lm``, ``train:lm_mesh``,
-``train:lm_mesh_nccl`` (four or more cards), ``dryrun:production`` and
+``train:sharded_driver``, ``train:lm``, ``train:lm_families``,
+``train:lm_mesh``, ``train:lm_mesh_nccl`` (four or more cards),
+``train:families_mesh``, ``dryrun:production`` and
 ``dryrun:check`` (after ``train:lm`` to hold the memory to its peak).  The five kernel libraries
 are built first (one ``nvcc`` each, together).  Each phase prints what
 ``chip_smoke.py`` prints for it; the last line is a JSON object with
@@ -29,10 +31,22 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv=None) -> int:
     names = list(sys.argv[1:] if argv is None else argv)
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.decode_gqa import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.lstm_cell import ops as cell_ops
     from repro_torch.kernels.lstm_cell import ref as cell_ref
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.kernels.ssd_chunk import ref as ssd_ref
     phases = {"kernel:lstm_cell": lambda c: cs.check_cell(cell_ops, cell_ref,
                                                           c),
+              "kernel:flash_attention": lambda c: cs.check_flash(
+                  fa_ops, fa_ref, c),
+              "kernel:decode_gqa": lambda c: cs.check_decode(dec_ops,
+                                                             dec_ref, c),
+              "kernel:ssd_chunk": lambda c: cs.check_ssd(ssd_ops, ssd_ref,
+                                                         c),
               "train:parity": cs.train_parity_phase,
               "telemetry:train": cs.telemetry_train_phase,
               "train:churn": cs.train_churn_phase,
@@ -41,8 +55,10 @@ def main(argv=None) -> int:
               "train:sharded_nccl": cs.train_sharded_nccl_phase,
               "train:sharded_driver": cs.train_sharded_driver_phase,
               "train:lm": cs.train_lm_phase,
+              "train:lm_families": cs.train_lm_families_phase,
               "train:lm_mesh": cs.train_lm_mesh_phase,
               "train:lm_mesh_nccl": cs.train_lm_mesh_nccl_phase,
+              "train:families_mesh": cs.train_families_mesh_phase,
               "dryrun:production": cs.dryrun_production_phase,
               "dryrun:check": cs.dryrun_check_phase}
     unknown = [n for n in names if n not in phases]

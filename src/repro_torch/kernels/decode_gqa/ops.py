@@ -21,7 +21,9 @@ the card, a fake route that gives the output's shape for
 :func:`bytes_moved`).
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; ``SHAPES`` collects
+each launch's (B, Hq, Hkv, S, D, dtype name), so it can show which
+shapes those were.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.kernels import _build, _library
 from repro_torch.kernels.decode_gqa.ref import decode_attention_ref
 
 LAUNCHES = 0
+SHAPES: set = set()
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8, 16)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -138,6 +141,7 @@ def _cuda(q, k, v, length):
             stream)
     _build.raise_on_error(lib, "decode_gqa", err)
     LAUNCHES += 1
+    SHAPES.add((B, Hq, Hkv, S, D, str(q.dtype)[6:]))
     return o
 
 

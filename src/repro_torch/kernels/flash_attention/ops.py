@@ -18,7 +18,9 @@ the card, a fake route that gives the output's shape for
 :func:`bytes_moved`).
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; ``SHAPES`` collects
+each launch's (B, Hq, Hkv, Sq, Sk, D, causal, window, dtype name), so it
+can show which shapes those were.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_chunked,
                                                      attention_chunked_vjp)
 
 LAUNCHES = 0
+SHAPES: set = set()
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 _LIB = None
@@ -127,6 +130,8 @@ def _cuda(q, k, v, causal, window):
             int(bool(causal)), int(window), stream)
     _build.raise_on_error(lib, "flash_attention", err)
     LAUNCHES += 1
+    SHAPES.add((B, Hq, Hkv, Sq, Sk, D, bool(causal), int(window),
+                str(q.dtype)[6:]))
     return o
 
 

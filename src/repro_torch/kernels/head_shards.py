@@ -1,5 +1,5 @@
-"""``flash_attention`` and ``decode_attention`` on head shards of a
-(data, model) mesh.
+"""``flash_attention``, ``decode_attention`` and ``ssd_forward`` on
+head shards of a (data, model) mesh.
 
 q is a DTensor ``("batch", "model", None, None)`` and k / v DTensors
 ``("batch", "cache_kv", ...)`` (the reference's constraints before its
@@ -19,6 +19,11 @@ heads' part), which ``to_local``'s ``grad_placements`` states.
 A decode cache whose sequence is split over the model axis (the same
 fallback, ``cache_seq``) is gathered along the sequence before the
 kernel.
+
+:func:`ssd_forward_shards` runs the chunked SSD (``ssd_intra`` and the
+inter-chunk pass) on a rank's own batch rows and Mamba-2 heads, so no
+DTensor op sees its buffers; B / C, shared by the heads, are whole over
+the heads' mesh dims, and their gradient is a partial sum there.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.decode_gqa.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.sharding import local_offset, local_shape
+from repro_torch.kernels.ssd_chunk.ops import ssd_forward
+from repro_torch.models import sharding as shd
 
 
 def kv_heads_for(k, j0: int, hq: int, group: int, k0: int = 0):
@@ -67,15 +73,9 @@ def _heads(q: DTensor, k: DTensor):
         # heads' part of the kv gradient
         grad.append(Partial() if pq == Shard(1) and pk == Replicate()
                     else pk)
-    j0 = local_offset(1, Hq, q.placements, mesh)
-    k0 = local_offset(1, Hkv, k.placements, mesh)
+    j0 = shd.local_offset(1, Hq, q.placements, mesh)
+    k0 = shd.local_offset(1, Hkv, k.placements, mesh)
     return j0, k0, Hq // Hkv, tuple(grad)
-
-
-def _wrap(o_local, q: DTensor) -> DTensor:
-    return DTensor.from_local(o_local, q.device_mesh, q.placements,
-                              run_check=False, shape=q.shape,
-                              stride=q.stride())
 
 
 def flash_attention_shards(q: DTensor, k: DTensor, v: DTensor, *,
@@ -89,8 +89,9 @@ def flash_attention_shards(q: DTensor, k: DTensor, v: DTensor, *,
     hq = ql.shape[1]
     kl, _ = kv_heads_for(kl, j0, hq, group, k0)
     vl, _ = kv_heads_for(vl, j0, hq, group, k0)
-    return _wrap(flash_attention(ql.contiguous(), kl, vl, causal=causal,
-                                 window=window), q)
+    return shd.from_local(flash_attention(ql.contiguous(), kl, vl,
+                                          causal=causal, window=window),
+                          q.device_mesh, q.placements, q.shape)
 
 
 def _seq_whole(x: DTensor) -> DTensor:
@@ -111,7 +112,51 @@ def decode_attention_shards(q: DTensor, k: DTensor, v: DTensor,
     hq = ql.shape[1]
     kl, _ = kv_heads_for(kl, j0, hq, group, k0)
     vl, _ = kv_heads_for(vl, j0, hq, group, k0)
-    b0 = local_offset(0, q.shape[0], q.placements, q.device_mesh)
-    rows = local_shape(q.shape, q.placements, q.device_mesh)[0]
-    return _wrap(decode_attention(ql.contiguous(), kl, vl,
-                                  length[b0:b0 + rows]), q)
+    b0 = shd.local_offset(0, q.shape[0], q.placements, q.device_mesh)
+    rows = shd.local_shape(q.shape, q.placements, q.device_mesh)[0]
+    return shd.from_local(decode_attention(ql.contiguous(), kl, vl,
+                                           length[b0:b0 + rows]),
+                          q.device_mesh, q.placements, q.shape)
+
+
+def ssd_forward_shards(x: DTensor, dt, A, Bm, Cm, *, chunk: int = 128):
+    """:func:`ssd_forward` on this rank's rows and heads: x (B, T, H, P)
+    split by its placements over the batch (dim 0) and the heads (dim
+    2); dt (B, T, H), A (H,) and Bm / Cm (B, T, N) are brought to the
+    matching placements (B / C whole over the heads' mesh dims).
+    Returns (y (B, T, H, P) with x's placements, the final state
+    (B, H, N, P) split over the same rows and heads); differentiable:
+    the gradient of A is a partial sum over the rows' mesh dims, that
+    of Bm / Cm over the heads' ones."""
+    mesh, pls = x.device_mesh, tuple(x.placements)
+    for p in pls:
+        if p not in (Shard(0), Shard(2), Replicate()):
+            raise ValueError(f"ssd on shards: x placed {pls}")
+    rows = [p == Shard(0) for p in pls]
+    heads = [p == Shard(2) for p in pls]
+
+    def placed(t, row_dim, head_dim):
+        want = tuple(Shard(row_dim) if r and row_dim is not None
+                     else Shard(head_dim) if h and head_dim is not None
+                     else Replicate() for r, h in zip(rows, heads))
+        if not isinstance(t, DTensor):
+            return shd.place(t, mesh, want)
+        return t if tuple(t.placements) == want else \
+            t.redistribute(mesh, want)
+
+    def local(t, grad):
+        return t.to_local(grad_placements=tuple(grad))
+
+    dt = placed(dt, 0, 2)
+    A = placed(A, None, 0)
+    Bm, Cm = placed(Bm, 0, None), placed(Cm, 0, None)
+    part_rows = [Partial() if r else p for r, p in zip(rows, A.placements)]
+    part_heads = [Partial() if h else p for h, p in zip(heads, Bm.placements)]
+    y, S = ssd_forward(local(x, pls), local(dt, dt.placements),
+                       local(A, part_rows), local(Bm, part_heads),
+                       local(Cm, part_heads), chunk=chunk)
+    B, T, H, P = x.shape
+    s_pls = tuple(Shard(0) if r else Shard(1) if h else Replicate()
+                  for r, h in zip(rows, heads))
+    return (shd.from_local(y, mesh, pls, (B, T, H, P)),
+            shd.from_local(S, mesh, s_pls, (B, H, Bm.shape[2], P)))

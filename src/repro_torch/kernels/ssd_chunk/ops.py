@@ -10,7 +10,8 @@ version on the CPU, the kernel on the card, a fake route that gives the
 output's shape for ``FakeTensorMode``, and its cost formulas
 (:func:`flops`, :func:`bytes_moved`).  ``LAUNCHES`` counts kernel
 launches (and nothing else), so a run can show that its main path went
-through the kernel.  ``ssd_intra`` is differentiable (:class:`SSDIntra`): the
+through the kernel; ``SHAPES`` collects each launch's (BC, C, N, H, P).
+``ssd_intra`` is differentiable (:class:`SSDIntra`): the
 forward is the kernel (or the plain version), the backward plain
 PyTorch, ``ref.ssd_intra_vjp``, the gradient of ``ssd_intra_ref``
 recomputed a batch of chunks at a time; there is no backward kernel.
@@ -33,6 +34,7 @@ from repro_torch.kernels.ssd_chunk.ref import (CLIP, ssd_intra_ref,
                                                ssd_intra_vjp)
 
 LAUNCHES = 0
+SHAPES: set = set()
 CHUNKS = (16, 32, 64, 128)
 HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 128
@@ -116,6 +118,7 @@ def _cuda(cm, bm, xdt, cum):
             y.data_ptr(), BC, C, N, H, P, hg, stream)
     _build.raise_on_error(lib, "ssd_chunk", err)
     LAUNCHES += 1
+    SHAPES.add((BC, C, N, H, P))
     return y
 
 

@@ -30,9 +30,10 @@ Weights are drawn on the device by a ``torch.Generator`` seeded from
 
 :func:`mesh_steps_rank` is the rank entry of the steps on a mesh of
 several ranks (``rl_train.spawn_ranks``): the train, prefill and decode
-steps of a dense config and the elastic restore across meshes, held by
-the caller against the one-process run (:func:`greedy_decode` serves
-both).
+steps of any family's config (:func:`train_batch` draws whisper's
+frames and the VLM's patches beside the tokens) and the elastic restore
+across meshes, held by the caller against the one-process run
+(:func:`greedy_decode` serves both).
 
 Usage (CPU-sized):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -210,33 +211,54 @@ def main(argv=None):
 # the steps on a mesh of several ranks
 # ---------------------------------------------------------------------------
 def mesh_config(arch: str, *, smoke: bool = False, n_layers=None,
-                param_dtype=None):
-    """``arch``'s config, cut to ``n_layers`` and in ``param_dtype``
-    where given."""
+                param_dtype=None, head_dim=None):
+    """``arch``'s config, cut to ``n_layers``, in ``param_dtype`` and
+    with attention heads of ``head_dim`` where given (a smoke config's
+    16 is below what the attention kernels take on the card)."""
     cfg = get_arch(arch, smoke=smoke)
     repl = {k: v for k, v in (("n_layers", n_layers),
-                              ("param_dtype", param_dtype)) if v is not None}
+                              ("param_dtype", param_dtype),
+                              ("head_dim", head_dim)) if v is not None}
     return dataclasses.replace(cfg, **repl) if repl else cfg
 
 
 def train_batch(cfg, seed: int, step: int, B: int, S: int, device):
-    return {"tokens": torch.as_tensor(synthetic_batch(
+    """Step ``step``'s batch of ``cfg``'s family, a pure function of
+    (seed, step): ``tokens`` (B, S) of ``synthetic_batch``, and the
+    stubs' inputs drawn by NumPy beside them, whisper's ``frames`` (B,
+    n_frames, d_model) as N(0, 1) x 0.1 and the VLM's ``patches`` (B,
+    n_patches, vit_dim) as N(0, 1), in float32 (the model casts them to
+    its dtype)."""
+    out = {"tokens": torch.as_tensor(synthetic_batch(
         seed, step, B, S, cfg.vocab)).to(device)}
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step, 1]))
+    if cfg.family == "encdec":
+        out["frames"] = 0.1 * rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model))
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal((B, cfg.n_patches, cfg.vit_dim))
+    return {k: v if k == "tokens" else torch.as_tensor(
+        v.astype(np.float32)).to(device) for k, v in out.items()}
 
 
-def greedy_decode(prefill, decode, tokens, steps: int) -> dict:
-    """Prefill ``tokens`` (B, S), then ``steps`` greedy decode steps
-    from position S, each fed the previous argmax.  Returns the logits
+def greedy_decode(prefill, decode, tokens, steps: int,
+                  extra: dict | None = None) -> dict:
+    """Prefill ``tokens`` (B, S) (with ``extra``: whisper's ``frames``,
+    the VLM's ``patches``, before the text), then ``steps`` greedy
+    decode steps from the position after the prefill's last (S, or P + S
+    after P patches), each fed the previous argmax.  Returns the logits
     of the prefill's last position and of every step (steps + 1, B, Vp)
     and the tokens (B, steps + 1), as NumPy, and the final ``cache``."""
     B, S = tokens.shape
-    logits, cache = prefill({"tokens": tokens})
+    extra = extra or {}
+    start = S + (extra["patches"].shape[1] if "patches" in extra else 0)
+    logits, cache = prefill({"tokens": tokens, **extra})
     logits = whole(logits)
     out_l, out_t = [logits.float().cpu().numpy()], []
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     for t in range(steps):
         out_t.append(tok.cpu().numpy())
-        pos = torch.full((B,), S + t, dtype=torch.int32,
+        pos = torch.full((B,), start + t, dtype=torch.int32,
                          device=tokens.device)
         tok, logits, cache = decode(cache, {"token": tok[:, None],
                                             "pos": pos})
@@ -278,14 +300,31 @@ def _at(tree, path):
 def _counters() -> dict:
     from repro_torch.kernels.decode_gqa import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     return {"flash_attention": fa_ops.LAUNCHES,
-            "decode_gqa": dec_ops.LAUNCHES}
+            "decode_gqa": dec_ops.LAUNCHES, "ssd_chunk": ssd_ops.LAUNCHES}
 
 
 def _reset_counters() -> None:
     from repro_torch.kernels.decode_gqa import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+
+
+def _launch_shapes(clear: bool = False) -> dict:
+    """The shapes the three kernels were launched at (``ops.SHAPES``),
+    sorted, by kernel; ``clear`` empties the sets after."""
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    out = {}
+    for name, mod in (("flash_attention", fa_ops), ("decode_gqa", dec_ops),
+                      ("ssd_chunk", ssd_ops)):
+        out[name] = sorted(mod.SHAPES)
+        if clear:
+            mod.SHAPES.clear()
+    return out
 
 
 def mesh_steps_rank(rank: int, relay, jobs: list) -> list:
@@ -293,7 +332,8 @@ def mesh_steps_rank(rank: int, relay, jobs: list) -> list:
     job after another (the tests' and ``chip_smoke.py``'s harness).  A
     job is a dict:
 
-    - ``arch``, ``smoke``, ``n_layers``, ``param_dtype`` (:func:`mesh_config`),
+    - ``arch``, ``smoke``, ``n_layers``, ``param_dtype``, ``head_dim``
+      (:func:`mesh_config`),
       ``seed`` (weights: ``torch.Generator(device).manual_seed(seed)``
       on every rank, as a one-process run draws them), ``device``
       (``cuda`` or ``cpu``), ``mesh`` (a (data, model) shape);
@@ -315,13 +355,15 @@ def mesh_steps_rank(rank: int, relay, jobs: list) -> list:
 
     Returns a dict a job: ``train`` (the metrics a step), ``params``
     (:func:`_leaf_report` against ``ref``), ``elastic`` (a record a
-    mesh: leaves, ``equal``), ``restore`` (the same), ``serve`` (logits and tokens, rank 0 only), ``cache``
-    (the prefill cache's leaf report), ``launches`` (this rank's
-    ``flash_attention`` / ``decode_gqa`` launches in the train steps
-    and in the serve steps), ``peak_gb`` (the card's peak allocation,
-    None on the CPU), ``secs``, ``laps`` (its seconds by part: setup,
-    train, compare, elastic, serve) and the modules of JAX or ``repro`` it
-    has loaded (none)."""
+    mesh: leaves, ``equal``), ``restore`` (the same), ``serve`` (logits
+    and tokens, rank 0 only), ``cache`` (the prefill cache's leaf
+    report), ``launches`` (this rank's ``flash_attention`` /
+    ``decode_gqa`` / ``ssd_chunk`` launches in the train steps and in
+    the serve steps), ``shapes`` (the shapes of those launches by
+    kernel, :func:`_launch_shapes`), ``peak_gb`` (the card's peak
+    allocation, None on the CPU), ``secs``, ``laps`` (its seconds by
+    part: setup, train, compare, elastic, serve) and the modules of JAX
+    or ``repro`` it has loaded (none)."""
     import sys
     out = []
     for job in jobs:
@@ -338,7 +380,8 @@ def mesh_steps_rank(rank: int, relay, jobs: list) -> list:
             torch.cuda.reset_peak_memory_stats()
         cfg = mesh_config(job["arch"], smoke=job.get("smoke", False),
                           n_layers=job.get("n_layers"),
-                          param_dtype=job.get("param_dtype"))
+                          param_dtype=job.get("param_dtype"),
+                          head_dim=job.get("head_dim"))
         rules = shd.make_rules(False)
         mesh = make_mesh(tuple(job["mesh"]), ("data", "model"), device.type)
         model = LM(cfg, device=device).init(
@@ -346,6 +389,7 @@ def mesh_steps_rank(rank: int, relay, jobs: list) -> list:
         params = device_put_like(model.params, mesh, rules)
         model.params = None
         res = {"mesh": tuple(job["mesh"]), "launches": {}, "laps": laps}
+        _launch_shapes(clear=True)
         lap("setup")
         if job.get("train"):
             tr = job["train"]
@@ -384,19 +428,20 @@ def mesh_steps_rank(rank: int, relay, jobs: list) -> list:
         if job.get("serve"):
             sv = job["serve"]
             model.params = params
-            tokens = train_batch(cfg, job["seed"] + 1, 0, sv["batch"],
-                                 sv["seq"], device)["tokens"]
+            batch = train_batch(cfg, job["seed"] + 1, 0, sv["batch"],
+                                sv["seq"], device)
             _reset_counters()
             got = greedy_decode(
                 make_prefill_step(model, pad_to=sv["pad_to"], mesh=mesh,
                                   rules=rules),
-                make_decode_step(model, mesh=mesh, rules=rules), tokens,
-                sv["steps"])
+                make_decode_step(model, mesh=mesh, rules=rules),
+                batch.pop("tokens"), sv["steps"], batch)
             res["launches"]["serve"] = _counters()
             res["cache"] = _leaf_report(got.pop("cache"))
             res["serve"] = got if rank == 0 else None
             model.params = None
             lap("serve")
+        res["shapes"] = _launch_shapes()
         res["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                           if device.type == "cuda" else None)
         res["secs"] = time.perf_counter() - t0

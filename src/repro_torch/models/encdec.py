@@ -1,7 +1,7 @@
 """Encoder-decoder stack (Whisper-class), a port of
 ``repro.models.encdec``.  Its blocks take the sharding context
-(``layers.Ctx``) at the reference's sites; its steps on a mesh of
-several ranks are not run yet.
+(``layers.Ctx``) at the reference's sites, and its steps run on a mesh
+of several ranks.
 
 The audio frontend (log-mel and two convolutions) is a stub in the
 reference too: the batch carries precomputed frame embeddings
@@ -156,7 +156,7 @@ def decode_step(params, caches, x, pos, cfg: ArchConfig,
         x = x + a
         x = x + L.cross_attention_decode(lp["cross"],
                                          L.rmsnorm(lp["norm2"], x),
-                                         cache["cross"])
+                                         cache["cross"], ctx)
         x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["norm3"], x), ctx)
     return x, caches
 

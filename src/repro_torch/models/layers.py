@@ -249,14 +249,21 @@ def cross_attention_fwd(p, x, enc_kv, ctx: Ctx = NO_CTX):
                      ("batch", None, None))
 
 
-def cross_attention_decode(p, x, cross_cache):
-    """One token x (B,1,d) against the whole fixed encoder K/V cache."""
+def cross_attention_decode(p, x, cross_cache, ctx: Ctx = NO_CTX):
+    """One token x (B,1,d) against the whole fixed encoder K/V cache; on
+    a mesh each rank's q heads against its kv heads of the cache
+    (``head_shards.decode_attention_shards``), as :func:`attention_decode`."""
     B = x.shape[0]
-    q = _proj(x, p["wq"]).transpose(1, 2).contiguous()
+    q = _proj(x, ctx.weight(p["wq"])).transpose(1, 2).contiguous()
     k, v = cross_cache["k"], cross_cache["v"]
     length = torch.full((B,), k.shape[2], dtype=torch.int32, device=x.device)
-    o = decode_attention(q, k, v, length)
-    return _out_proj(o.transpose(1, 2), p["wo"])
+    if isinstance(q, DTensor):
+        q = ctx.shard(q, ("batch", "heads", None, None))
+        o = HS.decode_attention_shards(q, k, v, length)
+        o = ctx.shard(o, (None, "heads", None, None))
+    else:
+        o = decode_attention(q, k, v, length)
+    return _out_proj(o.transpose(1, 2), ctx.weight(p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -270,10 +277,12 @@ def embedding(table, tokens):
     """tokens (...) int -> (..., d) rows of ``table``.  A DTensor table
     (vocab rows split over the model axis, the d columns over the data
     axis) is gathered along d, as the reference's partitioner gathers a
-    weight; each rank then looks every token up in its vocab rows, zeros
-    where it does not hold the row, and the output is the sum over the
-    ranks (``Partial``), exact since one term is the row and the rest
-    zeros."""
+    weight; each rank then looks its own tokens (the rows of a batch
+    split over the data axis, all of a plain tensor) up in its vocab
+    rows, zeros where it does not hold the row, and the output is the
+    sum over the vocab's ranks (``Partial``), exact since one term is the
+    row and the rest zeros.  The table's gradient from a rank's rows is
+    its part of the sum over the data axis."""
     if not isinstance(table, DTensor):
         return table[tokens.long()]
     mesh = table.device_mesh
@@ -281,17 +290,26 @@ def embedding(table, tokens):
                 for p in table.placements)
     if pls != tuple(table.placements):
         table = table.redistribute(mesh, pls)
-    local = table.to_local()
-    tok = (tokens.full_tensor() if isinstance(tokens, DTensor)
-           else tokens).long()
+    rows = [Replicate()] * len(pls)
+    if isinstance(tokens, DTensor):
+        rows = [p if p == Shard(0) and v != Shard(0) else Replicate()
+                for p, v in zip(tokens.placements, pls)]
+        if tuple(rows) != tuple(tokens.placements):
+            tokens = tokens.redistribute(mesh, rows)
+        tok = tokens.to_local().long()
+    else:
+        tok = tokens.long()
+    # a rank's rows give its part of the table's gradient
+    local = table.to_local(grad_placements=tuple(
+        Partial() if r == Shard(0) else v for r, v in zip(rows, pls)))
     v0 = shd.local_offset(0, table.shape[0], pls, mesh)
     at = tok - v0
     own = (at >= 0) & (at < local.shape[0])
     out = local[torch.clamp(at, 0, local.shape[0] - 1)] * own[..., None]
-    return DTensor.from_local(
-        out, mesh, tuple(Partial() if p == Shard(0)
-                         else Replicate() for p in pls),
-        run_check=False, shape=out.shape, stride=out.stride())
+    return shd.from_local(
+        out, mesh, tuple(Partial() if v == Shard(0) else r
+                         for v, r in zip(pls, rows)),
+        tuple(tokens.shape) + (table.shape[1],))
 
 
 def sinusoid(pos, d: int):
@@ -301,7 +319,9 @@ def sinusoid(pos, d: int):
     throughout (the log taken of a float32 10000, as the reference)."""
     half = d // 2
     i = torch.arange(half, dtype=torch.float32, device=pos.device)
-    freqs = torch.exp(-torch.log(torch.tensor(10000.0, device=pos.device))
+    # a factory op, not ``torch.tensor``: under the dry run's
+    # FakeTensorMode a tensor made from data lands on the card
+    freqs = torch.exp(-torch.log(torch.full((), 10000.0, device=pos.device))
                       * i / max(half - 1, 1))
     ang = pos[..., None].float() * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

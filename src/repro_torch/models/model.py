@@ -57,6 +57,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import sharding as shd
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
@@ -120,7 +121,7 @@ def _pad_seq(x, smax: int):
     return DTensor.from_local(
         torch.nn.functional.pad(x.to_local(), pad), x.device_mesh,
         x.placements, run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride())
+        stride=shd.contiguous_stride(shape))
 
 
 def _pad_cache_seq(cache, smax: int):

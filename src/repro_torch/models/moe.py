@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN with sort-based capacity dispatch, a port of
 ``repro.models.moe``.  ``moe_fwd`` takes the sharding context at the
-reference's sites; the dispatch on a mesh of several ranks is not run
-yet.
+reference's sites; on a mesh of several ranks each rank dispatches and
+combines its own groups, the reference's design (its group dim split
+over the batch, so the sort is local).
 
 Tokens are dispatched per group, one group being one sequence: each
 group's ``(token, k)`` assignments (flattened token-major) are sorted
@@ -28,7 +29,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import dense_init
 
 # leaves kept in float32 whatever the weights' dtype
@@ -100,13 +103,26 @@ def route(p, x, top_k: int):
     return top_idx, top_gates, logits
 
 
-def load_balance(logits, top_idx):
+def load_balance(logits, top_idx, mean=None):
     """The aux loss, a float32 scalar: ``E * sum(mean gate * share of
-    first choices)`` over the batch and sequence."""
+    first choices)`` over the batch and sequence.  ``mean`` takes the
+    mean of a (B, S, E) tensor over (B, S) (on a mesh, this rank's rows'
+    part of the whole batch's)."""
     E = logits.shape[-1]
-    me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
-    ce = F.one_hot(top_idx[..., 0], E).float().mean(dim=(0, 1))
+    mean = mean or (lambda t: t.mean(dim=(0, 1)))
+    me = mean(torch.softmax(logits, dim=-1))
+    ce = mean(F.one_hot(top_idx[..., 0], E).float())
     return E * torch.sum(me * ce)
+
+
+def _slot_rows(B: int, C: int, ctx) -> str | None:
+    """The logical name of the slots' merged (B*C) dim on ``ctx``'s
+    mesh: ``"batch"`` where the mesh splits it as it splits the batch B
+    (each rank its groups' slots), else None (replicated: B does not
+    split, and C must not)."""
+    by_rows = shd.logical_spec((B,), ("batch",), ctx.mesh, ctx.rules)
+    by_slots = shd.logical_spec((B * C,), ("batch",), ctx.mesh, ctx.rules)
+    return "batch" if by_rows == by_slots else None
 
 
 def moe_fwd(p, x, *, top_k: int, capacity_factor: float = 1.25,
@@ -115,19 +131,53 @@ def moe_fwd(p, x, *, top_k: int, capacity_factor: float = 1.25,
     without ``with_aux``, where no kernel is spent on it).  ``ctx``
     (``layers.Ctx``) constrains the slots, the hidden and the output by
     the reference's logical names, in this module's (E, B*C, .)
-    layout."""
+    layout.  On a mesh of several ranks (``x`` a DTensor) the router
+    reads its weight whole over the FSDP axes (a row's logits summed
+    over d as on one device), the routing, dispatch and combine run on
+    each rank's own groups (rows), the expert products on DTensors; the
+    aux loss's means reduce over the whole batch."""
     shard = ctx.shard if ctx is not None else (lambda t, logical: t)
     B, S, d = x.shape
     E = p["router"].shape[-1]
-    top_idx, top_gates, logits = route(p, x, top_k)
-    aux = load_balance(logits, top_idx) if with_aux else None
     C = capacity(S, top_k, E, capacity_factor)
-    slots, slot = _group_dispatch(x, top_idx, E, C)
+    if not isinstance(x, DTensor):
+        top_idx, top_gates, logits = route(p, x, top_k)
+        aux = load_balance(logits, top_idx) if with_aux else None
+        slots, slot = _group_dispatch(x, top_idx, E, C)
+        y = _experts(p, slots, B, C, shard, "batch")
+        return _group_combine(y, slot, top_idx, top_gates), aux
+    # this rank's rows (groups) and the whole router: the routing, the
+    # dispatch and the combine are local
+    mesh = ctx.mesh
+    pls = shd.rows_placements(x.shape, mesh, ctx.rules)
+    rows = shd.split_by(pls, 0)
+    xl = shd.to_local_rows(x, mesh, ctx.rules)
+    router = ctx.weight(p["router"])
+    router = router.to_local(grad_placements=tuple(
+        Partial() if i in rows else pl
+        for i, pl in enumerate(router.placements)))
+    top_idx, top_gates, logits = route({"router": router}, xl, top_k)
+    aux = None
+    if with_aux:
+        aux = load_balance(logits, top_idx, lambda t: shd.sum_over(
+            t.sum(dim=(0, 1)), mesh, rows) / (B * S))
+    slots, slot = _group_dispatch(xl, top_idx, E, C)
+    slots = shd.from_local(slots, mesh, pls, (B, E * C, d))
+    y = _experts(p, slots, B, C, shard, _slot_rows(B, C, ctx))
+    y = shd.to_local_rows(y, mesh, ctx.rules)
+    out = _group_combine(y, slot, top_idx, top_gates)
+    return shard(shd.from_local(out, mesh, pls, (B, S, d)),
+                 ("batch", None, None)), aux
+
+
+def _experts(p, slots, B: int, C: int, shard, rows):
+    """The three expert products over every group's slots (B, E*C, d)
+    -> (B, E*C, d), in (E, B*C, .) with the reference's constraints
+    (``rows``: the merged dim's logical name, :func:`_slot_rows`)."""
+    E, d = p["router"].shape[-1], slots.shape[-1]
     slots = shard(slots.reshape(B, E, C, d), ("batch", None, None, None))
     slots = slots.transpose(0, 1).reshape(E, B * C, d)
     h = F.silu(torch.bmm(slots, p["w_gate"])) * torch.bmm(slots, p["w_up"])
-    h = shard(h, (None, "batch", "model"))
-    y = shard(torch.bmm(h, p["w_down"]), (None, "batch", None))  # (E, B*C, d)
-    y = y.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
-    return shard(_group_combine(y, slot, top_idx, top_gates),
-                 ("batch", None, None)), aux
+    h = shard(h, (None, rows, "model"))
+    y = shard(torch.bmm(h, p["w_down"]), (None, rows, None))  # (E, B*C, d)
+    return y.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)

@@ -192,3 +192,88 @@ def shard(x, logical: tuple[str | None, ...], mesh, rules: ShardingRules):
     if tuple(x.placements) == pls:
         return x
     return x.redistribute(mesh, pls)
+
+
+def contiguous_stride(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (no tensor made:
+    a meta tensor would count as storage under the dry run's counter)."""
+    out, n = [], 1
+    for s in reversed(tuple(shape)):
+        out.append(n)
+        n *= s
+    return tuple(reversed(out))
+
+
+def split_by(pls, dim: int) -> list[int]:
+    """The mesh dims whose placement in ``pls`` splits tensor dim
+    ``dim``."""
+    return [i for i, p in enumerate(pls)
+            if isinstance(p, Shard) and p.dim == dim]
+
+
+def all_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """``op`` ("sum", "max") of the plain tensor ``x`` over the mesh
+    dims ``dims``: a functional all-reduce a dim (those DTensor issues,
+    so a ``cuda`` mesh over gloo stages it through the host as it does
+    them, ``launch.mesh.stage_gloo_cuda_collectives``).  Not
+    differentiable: :func:`sum_over` is."""
+    import torch.distributed._functional_collectives  # noqa: F401 (ops)
+    c10d = torch.ops._c10d_functional
+    for d in dims:
+        x = c10d.wait_tensor(c10d.all_reduce(
+            x.contiguous(), op, mesh.get_group(d).group_name))
+    return x
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        return all_reduce(x, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The sum of this rank's ``x`` over the mesh dims ``dims``, which
+    every rank of them then holds as the one value.  Differentiable: the
+    adjoint passes the gradient through unchanged, since the gradient of
+    a replicated value is itself replicated (what DTensor's backward of
+    a ``Partial`` -> ``Replicate`` redistribution does)."""
+    return _SumOver.apply(x, mesh, tuple(dims)) if dims else x
+
+
+def new_zeros(x, shape) -> torch.Tensor:
+    """``x.new_zeros(shape)``; for a DTensor ``x`` a DTensor of ``x``'s
+    placements whose every rank allocates only its own block (DTensor's
+    ``new_zeros`` gives every rank the whole, replicated)."""
+    if not isinstance(x, DTensor):
+        return x.new_zeros(shape)
+    from torch.distributed.tensor import zeros
+    return zeros(shape, dtype=x.dtype, device_mesh=x.device_mesh,
+                 placements=x.placements)
+
+
+def rows_placements(shape, mesh, rules: ShardingRules) -> tuple:
+    """The placements of a (B, ...) tensor split over the batch by the
+    rules, replicated on every other dim."""
+    return logical_placements(shape, ("batch",) + (None,) * (len(shape) - 1),
+                              mesh, rules)
+
+
+def to_local_rows(x: DTensor, mesh, rules: ShardingRules) -> torch.Tensor:
+    """``x`` (B, ...) as this rank's rows (:func:`rows_placements`);
+    differentiable."""
+    pls = rows_placements(x.shape, mesh, rules)
+    if tuple(x.placements) != pls:
+        x = x.redistribute(mesh, pls)
+    return x.to_local(grad_placements=pls)
+
+
+def from_local(t: torch.Tensor, mesh, pls, shape) -> DTensor:
+    """This rank's block ``t`` as the contiguous DTensor of global
+    ``shape`` placed by ``pls``; differentiable."""
+    return DTensor.from_local(t.contiguous(), mesh, tuple(pls),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))

@@ -9,9 +9,11 @@ whatever the weights' dtype; the SSD itself runs in float32.
 
 Prefill always goes through ``kernels.ssd_chunk.ssd_forward`` (its
 intra-chunk term is the hand-written kernel on the card), which pads T
-to the chunk.  The JAX block instead runs its plain ``ssd_chunked_ref``
-and, when T is not a multiple of the chunk, a smaller chunk that
-divides T (``_pick_chunk``); both compute the same function.
+to the chunk; on a mesh of several ranks each rank runs it on its own
+batch rows and heads (``kernels.head_shards.ssd_forward_shards``).  The
+JAX block instead runs its plain ``ssd_chunked_ref`` and, when T is not
+a multiple of the chunk, a smaller chunk that divides T
+(``_pick_chunk``); both compute the same function.
 
 :func:`ssm_decode` writes the new SSM and conv states into the state
 tensors it is given, in place (views of the stacked cache), as the
@@ -21,9 +23,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import head_shards as HS
 from repro_torch.kernels.ssd_chunk.ops import ssd_forward
 from repro_torch.kernels.ssd_chunk.ref import ssd_decode_step
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
 
 # leaves kept in float32 whatever the weights' dtype
@@ -59,6 +64,15 @@ def _split(zxbcdt, d_inner, n_state, H):
     return z, xBC, dt
 
 
+def _gathered(p, ctx):
+    """``p`` with its projections whole over the FSDP axes
+    (``layers.Ctx.weight``), as the dense layers read theirs."""
+    if ctx is None:
+        return p
+    return {**p, "w_in": ctx.weight(p["w_in"]),
+            "w_out": ctx.weight(p["w_out"])}
+
+
 def _causal_dwconv(xBC, w, conv_state=None):
     """xBC (B,T,C), w (K,C) -> (y (B,T,C), new_state (B,K-1,C)).
 
@@ -68,7 +82,8 @@ def _causal_dwconv(xBC, w, conv_state=None):
     it alive in the prefill cache."""
     K, T = w.shape[0], xBC.shape[1]
     if conv_state is None:
-        conv_state = xBC.new_zeros((xBC.shape[0], K - 1, xBC.shape[-1]))
+        conv_state = shd.new_zeros(xBC, (xBC.shape[0], K - 1,
+                                         xBC.shape[-1]))
     xp = torch.cat([conv_state, xBC], dim=1)
     y = xp[:, 0:T] * w[0]
     for i in range(1, K):
@@ -89,6 +104,7 @@ def ssm_fwd(p, x, cfg, ctx=None):
     "conv" (B,K-1,conv_dim)} for decode).  ``ctx`` (``layers.Ctx``)
     constrains the heads and the output by the reference's names."""
     shard = ctx.shard if ctx is not None else (lambda t, logical: t)
+    p = _gathered(p, ctx)
     B, T, d = x.shape
     N, P = cfg.ssm_state, cfg.ssm_headdim
     d_inner, H, _ = ssm_dims(d, cfg.ssm_expand, P, N)
@@ -100,8 +116,9 @@ def ssm_fwd(p, x, cfg, ctx=None):
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xs = shard(xs, ("batch", None, "model", None))
-    y, S = ssd_forward(xs.float(), dt, A, Bm.float(), Cm.float(),
-                       chunk=cfg.ssd_chunk)
+    ssd = HS.ssd_forward_shards if isinstance(xs, DTensor) else ssd_forward
+    y, S = ssd(xs.float(), dt, A, Bm.float(), Cm.float(),
+               chunk=cfg.ssd_chunk)
     out = _gate_out(p, y, xs, z, x.dtype, (B, T, d_inner))
     return shard(out, ("batch", None, None)), {"ssm": S.contiguous(),
                                                "conv": conv_state}
@@ -118,19 +135,32 @@ def ssm_init_state(B, d_model, cfg, dtype=torch.float32, device="cpu"):
     }
 
 
+def _write(dst, src) -> None:
+    """``dst.copy_(src)``; into a DTensor ``dst`` (a view of the stacked
+    cache) each rank writes its own block of ``src``, brought to
+    ``dst``'s placements first."""
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
 def ssm_decode(p, x, state, cfg, ctx=None):
     """One token.  x (B,1,d); ``state`` (from :func:`ssm_init_state`,
     :func:`ssm_fwd` or a layer of the cache) is updated in place.
     Returns (y (B,1,d), state)."""
     if ctx is not None:
         x = ctx.shard(x, (None, None, "dec_embed"))
+    p = _gathered(p, ctx)
     B, _, d = x.shape
     N, P = cfg.ssm_state, cfg.ssm_headdim
     d_inner, H, _ = ssm_dims(d, cfg.ssm_expand, P, N)
     z, xBC, dt = _split(x @ p["w_in"], d_inner, N, H)
     xp = torch.cat([state["conv"], xBC], dim=1)             # (B,K,c)
     xBC = F.silu(torch.einsum("bkc,kc->bc", xp, p["conv_w"]))
-    state["conv"].copy_(xp[:, 1:])
+    _write(state["conv"], xp[:, 1:])
     xs = xBC[:, :d_inner].reshape(B, H, P)
     Bm = xBC[:, d_inner:d_inner + N]
     Cm = xBC[:, d_inner + N:]
@@ -138,6 +168,6 @@ def ssm_decode(p, x, state, cfg, ctx=None):
     A = -torch.exp(p["A_log"])
     S, y = ssd_decode_step(state["ssm"], xs.float(), dt, A, Bm.float(),
                            Cm.float())
-    state["ssm"].copy_(S)
+    _write(state["ssm"], S)
     return _gate_out(p, y, xs, z[:, 0], x.dtype, (B, d_inner))[:, None], \
         state

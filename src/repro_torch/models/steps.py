@@ -16,11 +16,16 @@ through as it is (whisper's ``frames``, the VLM's ``patches``).
 
 Each factory takes ``mesh=`` and ``rules=`` as the reference's do.  On
 no mesh, or a mesh of one rank, the steps are the one-device steps.  On
-a mesh of several ranks (a ``DeviceMesh`` over the process group; the
-dense family) the parameters, optimizer state and caches are DTensors
+a mesh of several ranks (a ``DeviceMesh`` over the process group;
+every family) the parameters, optimizer state and caches are DTensors
 placed by ``models.partition`` (``runtime.elastic.device_put_like``),
 the batch is split over the data axis (``batch_shardings``), and the
 model constrains its activations by the reference's logical names:
+
+- the loss is taken on each rank's block of the logits, its rows and
+  vocab columns (:func:`_ce_blocks`), with explicit all-reduces over the
+  mesh dims that split them: no rank holds the global batch's logits
+  or their gradient, as the reference's vocab-sharded cross entropy;
 
 - each gradient is redistributed to its parameter's placements before
   the clip and the update (DTensor's backward leaves some ``Partial``
@@ -38,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.distributed.tensor.experimental import implicit_replication
 
@@ -65,38 +70,94 @@ def _ce(logits, labels, mask):
     return nll.sum() / torch.clamp(mask.sum(), min=1.0), lse
 
 
+def _ce_blocks(logits: DTensor, labels, mask, start: int = 0):
+    """:func:`_ce` on a mesh, on each rank's block of the logits (B/dp
+    rows, Vp/tp vocab columns; its positions ``start`` on, as many as
+    this rank's rows of ``labels`` / ``mask`` have): the float32
+    log-sum-exp from the local max and sum of exponentials, each
+    all-reduced over the vocab's mesh dims (max, then sum), the gold
+    logit from the rank that owns the label's column (a local mask,
+    summed over the vocab's dims), and the mean over the mask as sums
+    over the rows' dims.  The padded vocab columns enter the
+    log-sum-exp as in :func:`_ce`.  No tensor holds another rank's rows
+    or columns.  Returns (the loss, a plain tensor every rank holds; lse
+    of this rank's rows (B/dp, T); the rows' mean of a (B/dp, T)
+    tensor)."""
+    mesh = logits.device_mesh
+    rows = shd.split_by(logits.placements, 0)
+    cols = shd.split_by(logits.placements, 2)
+    if shd.split_by(logits.placements, 1):
+        raise ValueError(f"the loss on a mesh: logits split along the "
+                         f"sequence ({logits.placements})")
+    T = labels.shape[1]
+    lf = logits.to_local(grad_placements=logits.placements)[
+        :, start:start + T].to(F32)
+    v0 = shd.local_offset(2, logits.shape[2], logits.placements, mesh)
+    m = shd.all_reduce(lf.detach().amax(dim=-1), "max", mesh, cols)
+    sumexp = torch.exp(lf - m[..., None]).sum(dim=-1)
+    lse = m + torch.log(shd.sum_over(sumexp, mesh, cols))
+    at = labels.long() - v0
+    own = (at >= 0) & (at < lf.shape[-1])
+    pick = torch.gather(lf, -1, torch.clamp(at, 0, lf.shape[-1] - 1)
+                        [..., None])[..., 0]
+    gold = shd.sum_over(torch.where(own, pick, torch.zeros_like(pick)),
+                        mesh, cols)
+
+    def total(t):
+        return shd.sum_over(t.sum(), mesh, rows)
+
+    def mean(t):
+        return total(t) / (logits.shape[0] * T)
+    nll = (lse - gold) * mask
+    return total(nll) / torch.clamp(total(mask), min=1.0), lse, mean
+
+
+def _local_rows(tokens: DTensor, logits: DTensor):
+    """This rank's rows of ``tokens`` (split over the batch), the rows of
+    its logits block."""
+    want = tuple(p if p == Shard(0) else Replicate()
+                 for p in logits.placements)
+    if tuple(tokens.placements) != want:
+        tokens = tokens.redistribute(logits.device_mesh, want)
+    return tokens.to_local()
+
+
 def make_loss_fn(model: LM, ctx: Ctx = NO_CTX):
     """-> ``loss_fn(params, batch) -> (loss, metrics)``: ``ce``, plus
     ``aux`` (MoE; weighted by ``aux_loss_w`` into the loss) and
     ``zloss`` (the mean squared logsumexp, weighted by ``cfg.zloss``
     when it is > 0).  The VLM's loss covers the text only: logits at
     position P + i predict token i + 1.  ``ctx`` is the mesh and rules
-    of a DTensor ``params`` tree."""
+    of a DTensor ``params`` tree; there the head leaves the logits split
+    over the batch and the vocab, and the loss is taken on each rank's
+    block (:func:`_ce_blocks`), never gathered."""
     cfg = model.cfg
 
     def loss_fn(params, batch):
         logits, aux = model.forward(batch, with_aux=True, params=params,
                                     ctx=ctx)
-        # on a mesh the head leaves the logits split over the vocab;
-        # DTensor's vocab-split gather (its masked partial) does not
-        # reduce correctly with a batch split beside it, so the loss
-        # takes each rank's rows whole along the vocab
-        logits = ctx.shard(logits, ("batch", None, None))
-        tokens = batch["tokens"].to(logits.device)
-        if cfg.family == "vlm":
-            P = cfg.n_patches
-            logits = logits[:, P:P + tokens.shape[1] - 1]
+        P = cfg.n_patches if cfg.family == "vlm" else 0
+        if isinstance(logits, DTensor):
+            labels = _local_rows(batch["tokens"], logits)[:, 1:]
+            mask = torch.ones(labels.shape, dtype=F32, device=labels.device)
+            loss, lse, mean = _ce_blocks(logits, labels, mask, P)
         else:
-            logits = logits[:, :-1]
-        labels = tokens[:, 1:]
-        mask = torch.ones(labels.shape, dtype=F32, device=logits.device)
-        loss, lse = _ce(logits, labels, mask)
+            tokens = batch["tokens"].to(logits.device)
+            if P:
+                logits = logits[:, P:P + tokens.shape[1] - 1]
+            else:
+                logits = logits[:, :-1]
+            labels = tokens[:, 1:]
+            mask = torch.ones(labels.shape, dtype=F32, device=logits.device)
+            loss, lse = _ce(logits, labels, mask)
+            mean = torch.mean
         metrics = {"ce": loss}
         if cfg.is_moe:
+            aux = whole(aux)
             loss = loss + cfg.aux_loss_w * aux
             metrics["aux"] = aux
         if cfg.zloss > 0:
-            zl = torch.mean(lse ** 2)
+            zl = mean(lse ** 2)
             loss = loss + cfg.zloss * zl
             metrics["zloss"] = zl
         return loss, metrics

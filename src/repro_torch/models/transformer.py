@@ -23,6 +23,7 @@ in ``jax.checkpoint``.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -278,9 +279,31 @@ def stack_fwd(params, x, cfg: ArchConfig, collect_cache: bool = False,
             aux / cfg.n_layers if with_aux else None)
 
 
+def _split_layers(caches) -> list:
+    """(dict, key) of every DTensor cache leaf whose layer dim is split:
+    the rules place the Mamba-2 conv state by the k/v rule
+    (``partition._CACHE_RULES``), its layers over the batch's axes, and
+    a layer's slice of it is then no view to write into."""
+    out = []
+    for k, v in caches.items():
+        if isinstance(v, dict):
+            out += _split_layers(v)
+        elif isinstance(v, DTensor) and Shard(0) in v.placements:
+            out.append((caches, k))
+    return out
+
+
 def stack_decode(params, caches, x, pos, cfg: ArchConfig,
                  ctx: L.Ctx = L.NO_CTX):
-    """One token through every layer; ``caches`` is updated in place."""
+    """One token through every layer; ``caches`` is updated in place (on
+    a mesh, a leaf whose layer dim is split is gathered along it for the
+    writes and put back in its own placements)."""
+    split = [(d, k, d[k].placements) for d, k in _split_layers(caches)]
+    for d, k, pls in split:
+        d[k] = d[k].redistribute(d[k].device_mesh, tuple(
+            Replicate() if p == Shard(0) else p for p in pls))
     for _, p, cache, mixer, ffn in _walk(params, cfg, caches):
         x, _ = _layer_decode(p, x, cache, pos, cfg, mixer, ffn, ctx)
+    for d, k, pls in split:
+        d[k] = d[k].redistribute(d[k].device_mesh, pls)
     return x, caches

@@ -4,11 +4,9 @@ each with a timeout: ``--device cpu --smoke`` on a 2x4 (data, model)
 mesh for every arch and shape and relmas, on 2x2x2 (pod, data, model)
 for internlm2-1.8b's train cell, and with ``--override expert=data``.
 
-- dense, VLM and whisper train / prefill, and dense and VLM decode are
-  ``ok`` on 2x4, and so is mamba2's decode;
-- the cells whose family step does not run on a mesh of several ranks
-  yet are ``xfail(strict=True)``: the next slice (ROADMAP A.5) removes
-  each mark as it makes the cell run;
+- every family's train / prefill / decode cell is ``ok`` on 2x4 (the
+  MoE, SSM, hybrid and whisper-decode cells since ROADMAP A.5), and so
+  is olmoe's train cell with ``--override expert=data``;
 - internlm2-1.8b ``train_4k`` on 2x2x2 is ``ok`` with ``devices == 8``;
 - relmas on 2x4: its collective bytes within 1% of the reference's
   (2,532,400 in the reference's own dry run here: the actor's and the
@@ -40,19 +38,6 @@ from repro_torch.optim import make_optimizer
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 300
-# (arch, shape) cells that do not trace on a mesh of several ranks yet,
-# with the site each fails at (ROADMAP A.5)
-A5 = {("mamba2-2.7b", "train_4k"): "ssd_intra on DTensors (ssd_chunk/ops.py)",
-      ("mamba2-2.7b", "prefill_32k"): "ssd_intra on DTensors",
-      ("jamba-v0.1-52b", "train_4k"): "ssd_intra on DTensors",
-      ("jamba-v0.1-52b", "prefill_32k"): "ssd_intra on DTensors",
-      ("jamba-v0.1-52b", "decode_32k"): "searchsorted (models/moe.py)",
-      ("jamba-v0.1-52b", "long_500k"): "searchsorted (models/moe.py)",
-      ("whisper-tiny", "decode_32k"):
-          "decode_attention on the DTensor cross cache (layers.py)"}
-A5.update({(a, s): "searchsorted has no DTensor strategy (models/moe.py)"
-           for a in ("olmoe-1b-7b", "mixtral-8x7b")
-           for s in reg.shapes_for(reg.get_arch(a))})
 
 
 def _start(args, out):
@@ -92,13 +77,8 @@ def runs(tmp_path_factory):
 
 
 def _cells():
-    out = []
-    for a in reg.ARCHS:
-        for s in reg.shapes_for(reg.get_arch(a, smoke=True)):
-            marks = ([pytest.mark.xfail(strict=True, reason=f"A.5: {A5[a, s]}")]
-                     if (a, s) in A5 else [])
-            out.append(pytest.param(a, s, marks=marks, id=f"{a}-{s}"))
-    return out
+    return [pytest.param(a, s, id=f"{a}-{s}") for a in reg.ARCHS
+            for s in reg.shapes_for(reg.get_arch(a, smoke=True))]
 
 
 def _rec(recs, arch, shape):
@@ -122,9 +102,8 @@ def test_sweep_records_every_cell_and_launches_nothing(runs):
     n = sum(len(reg.shapes_for(reg.get_arch(a, smoke=True)))
             for a in reg.ARCHS) + 1
     assert len(recs) == n
-    failed = {(r["arch"], r["shape"]) for r in recs if not r["ok"]}
-    assert rc == (1 if failed else 0)
-    assert all(r["traceback"] for r in recs if not r["ok"])
+    assert [(r["arch"], r["shape"]) for r in recs if not r["ok"]] == []
+    assert rc == 0
     assert done.endswith(
         'kernel launches {"lstm_seq": 0, "flash_attention": 0, '
         '"decode_gqa": 0, "ssd_chunk": 0, "lstm_cell": 0}; '
@@ -144,13 +123,17 @@ def test_multipod_mesh(runs):
         on_2x4["mem"]["argument_size_in_bytes"]
 
 
-@pytest.mark.xfail(strict=True, reason="A.5: searchsorted has no DTensor "
-                   "strategy (models/moe.py)")
 def test_sharding_override_changes_collectives(runs):
     rc, _, recs = runs["override"]
     (rec,) = recs
     assert rec["overrides"] == {"expert": ["data"]}
     assert rec["ok"], rec.get("error")
+    assert rc == 0
+    # the experts over the data axis move other bytes than over the model
+    # axis (the default rules' cell in the 2x4 sweep)
+    default = _rec(runs["2x4"][2], "olmoe-1b-7b", "train_4k")
+    assert rec["roofline_raw"]["collectives"] != \
+        default["roofline_raw"]["collectives"]
 
 
 def test_relmas_cell_is_the_references(runs):

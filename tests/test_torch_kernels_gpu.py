@@ -364,6 +364,28 @@ def test_decode_gqa_kernel_matches_plain(card, B, Hq, Hkv, S, D, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype", [
+    (1, 6, 6, 1500, 64, torch.float32),
+    (2, 3, 3, 1500, 64, torch.float32),
+    (8, 3, 3, 1500, 64, torch.bfloat16)])
+def test_decode_gqa_on_whisper_cross_cache_shards(card, B, Hq, Hkv, S, D,
+                                                 dtype):
+    """whisper-tiny's cross-attention decode on a mesh: a rank's rows of
+    the 1500-frame cache with all 6 heads, or its 3 heads
+    (``head_shards.decode_attention_shards``), every frame attended."""
+    rng = np.random.default_rng(17)
+    q = _randn((B, Hq, 1, D), dtype, rng)
+    k, v = (_randn((B, Hkv, S, D), dtype, rng) for _ in range(2))
+    length = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    before = dec_ops.LAUNCHES
+    got = dec_ops.decode_attention(q, k, v, length)
+    want = dec_ref.decode_attention_ref(q, k, v, length)
+    torch.cuda.synchronize()
+    assert dec_ops.LAUNCHES == before + 1
+    assert attn_err(got, want)[1] <= 1.0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,lengths,dtype", [
     # whole runs of the split empty (short and zero-length rows beside a
     # full one)
@@ -488,7 +510,16 @@ def _ssd_inputs(BC, C, N, H, P, decay, seed=8):
                                         # and its prefill's 64, where the
                                         # blocks take 32 heads each
                                         (4, 128, 16, 128, 64),
-                                        (64, 128, 16, 128, 64)])
+                                        (64, 128, 16, 128, 64),
+                                        # head shards of a (data, model)
+                                        # mesh: mamba2's 80 heads on one
+                                        # row, its 40 a rank at 2 rows
+                                        # and at its prefill's 64, and
+                                        # jamba's 64 of 128
+                                        (1, 128, 128, 80, 64),
+                                        (2, 128, 128, 40, 64),
+                                        (64, 128, 128, 40, 64),
+                                        (64, 128, 16, 64, 64)])
 def test_ssd_chunk_kernel_matches_plain(card, BC, C, N, H, P, decay):
     args = _ssd_inputs(BC, C, N, H, P, decay)
     before = ssd_ops.LAUNCHES
@@ -846,3 +877,35 @@ def test_fake_cuda_tensors_launch_and_allocate_nothing(card):
                       (97, 32, 256), (512, 80, 128, 64)]
     assert [m.LAUNCHES for m in mods] == before
     assert torch.cuda.memory_allocated() == alloc
+
+
+@pytest.mark.gpu
+def test_each_launch_records_its_shape(card):
+    """A launch adds one to ``LAUNCHES`` and its shape to ``SHAPES``;
+    the plain version on CPU tensors adds neither."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((2, 4, 40, 64), generator=g, device="cuda")
+    k = torch.randn((2, 2, 40, 64), generator=g, device="cuda")
+    cm = torch.randn((3, 16, 8), generator=g, device="cuda")
+    xdt = torch.randn((3, 5, 16, 16), generator=g, device="cuda")
+    cum = torch.cumsum(-torch.rand((3, 5, 16), generator=g, device="cuda"),
+                       dim=-1)
+    length = torch.tensor([40, 7], dtype=torch.int32, device="cuda")
+    calls = [(fa_ops, lambda: fa_ops.flash_attention(q, k, k, causal=True),
+              (2, 4, 2, 40, 40, 64, True, 0, "float32")),
+             (dec_ops, lambda: dec_ops.decode_attention(
+                 q[:, :, :1].contiguous(), k, k, length),
+              (2, 4, 2, 40, 64, "float32")),
+             (ssd_ops, lambda: ssd_ops.ssd_intra(cm, cm, xdt, cum),
+              (3, 16, 8, 5, 16))]
+    for mod, call, key in calls:
+        n, shapes = mod.LAUNCHES, set(mod.SHAPES)
+        mod.SHAPES.clear()
+        try:
+            call()
+            assert mod.LAUNCHES == n + 1 and mod.SHAPES == {key}
+        finally:
+            mod.LAUNCHES, mod.SHAPES = n, shapes
+    n, shapes = fa_ops.LAUNCHES, set(fa_ops.SHAPES)
+    fa_ops.flash_attention(q.cpu(), k.cpu(), k.cpu(), causal=True)
+    assert fa_ops.LAUNCHES == n and fa_ops.SHAPES == shapes
