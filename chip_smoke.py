@@ -485,14 +485,57 @@ no result:
                         the one-process runs or the ranks launched a
                         kernel (``ops.SHAPES``) must be one of those
                         checked first.
+48. ``legacy:runners``  (in the "sharded" child, after phase 42) the
+                        legacy per-period runners on one stream at
+                        serve:relmas's configuration (mixed on paper6,
+                        hidden 256, 96 RQ slots, 64 jobs, 60 periods,
+                        the actor from seed 0): (a) one episode through
+                        ``make_policy_period`` + ``run_episode`` at
+                        sigma 0 on the step route (exactly 97 x 60 =
+                        5,820 ``lstm_cell`` launches) and on the
+                        sequence route (60 ``lstm_seq`` launches), each
+                        held to one ``collect_episodes`` run of the step
+                        route on the same trace with a zero noise block
+                        (``counted`` and ``hits`` equal, transitions
+                        within 1e-5) and to the same episode on the CPU
+                        (``counted`` equal, ``hits`` within 1% of it,
+                        transitions within 1e-4); (b) fcfs, prema and
+                        herald through ``make_baseline_period`` on two
+                        seeds picked for their three different
+                        schedules, cut to 40 periods, equal to
+                        ``evaluate_batch_baseline``
+                        (and the three must differ); (c)
+                        (a)'s step-route episode with
+                        ``simulate_segments`` swapped in at module
+                        level (``counted`` and ``hits`` equal), the
+                        engine inputs of its first 4 periods run through
+                        both engines (within rtol 1e-5), and the periods
+                        per second of the segment-engine loop, the
+                        current-engine loop and ``collect_episodes`` at
+                        32 streams (20 periods), taken once; (d)
+                        ``ddpg_update_scan``, 8 updates of 32 rows of
+                        (a)'s transitions (8 x 485 = 3,880 ``lstm_cell``
+                        launches), equal to 8 ``ddpg_update`` calls on
+                        the same indices, the buffer the same object and
+                        unchanged; (e) ``train_rounds_scan``, two rounds
+                        (a warm-up) at smoke width, equal to
+                        ``train_rounds_host``; (f)
+                        ``examples/torch_quickstart.py`` in a process of
+                        its own, started first, beside (a)-(e) (exit 0,
+                        2,178 ``lstm_cell`` launches, which it prints).
+                        The launches of (a), (d) and (f) go to the
+                        kernels line.  Every ``lstm_cell`` shape of
+                        (a), (d), (e) and (f) must be in
+                        ``CELL_SHAPES``.
 
 Order and concurrency, to hold the script to half its 1200 s limit: the
 kernel checks (phases 2-4, 11, 15) run first, alone on the card; then
 phases 5-7 and 23; then the RELMAS training phases run in two child
 processes of this script (``--rl-group``: 16-22 and 24 in one, 39-42
-in the other; each console printed when it ends, their ``lstm_cell``
-launches added to the kernels line) beside the LM serving phases (8-14,
-25-35), so these three groups' times are taken side by side; then phase
+and 48 in the other; each console printed when it ends, their
+``lstm_cell`` and ``lstm_seq`` launches added to the kernels line)
+beside the LM serving phases (8-14, 25-35), so these three groups'
+times are taken side by side; then phase
 38 alone (its internvl2 step peaks at 71 GB of the card); then phases
 45-46's subprocesses (at a lower priority) and phase 47's child
 process start beside phases 36-37 and 43-44, and are read last.
@@ -642,11 +685,17 @@ GEN_SEQ_SHAPE = (97, 32, 84, 256)
 # kernel tests' shapes (tests/test_kernels.py), H = 8 and 16, the
 # generalist's below, and the sharded rounds' rollouts (phases 39-40): a
 # rank's 4 episodes of 8 over 2 ranks, a shard's 2 of 8 in the oracle at
-# D = 4 (their updates take the gathered batch of 32)
+# D = 4 (their updates take the gathered batch of 32), and phase 48's:
+# the legacy one-stream step (1, 16, 256); the quickstart's hidden-32
+# actor on one stream and its updates of 16; train_rounds_scan at hidden
+# 8 (2 episodes, updates of 8).  Phase 48 fails if its runs give the
+# kernel a shape that is not here (legacy_shapes_checked).
 CELL_SHAPES = [(8, 16, 256), (32, 16, 256), (32, 23, 256), (4, 16, 64),
                (97, 16, 256), (32, 20, 128), (1, 7, 32), (129, 16, 64),
                (8, 16, 8), (32, 23, 16), (8, 84, 256), (32, 84, 256),
-               (32, 93, 256), (4, 16, 256), (2, 16, 256), (4, 84, 256)]
+               (32, 93, 256), (4, 16, 256), (2, 16, 256), (4, 84, 256),
+               (1, 16, 256), (1, 16, 32), (16, 16, 32), (16, 23, 32),
+               (2, 16, 8), (8, 23, 8)]
 # the generalist's steps: rollout (8 episodes; 4 on a rank of 2) and
 # update (batch 32; actor F = 84, critic F + G = 93)
 GEN_CELL_SHAPES = [(8, 84, 256), (32, 84, 256), (32, 93, 256),
@@ -3679,6 +3728,370 @@ def train_sharded_driver_phase(CARD) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the legacy per-period runners, the segment engine, the quickstart
+# ---------------------------------------------------------------------------
+# serve:relmas's configuration (paper6, mixed, hidden 256, 96 RQ slots,
+# 64 jobs, 60 periods), one stream, its trace drawn with NumPy from seed 0
+LEGACY_CFG = dict(workload="mixed", fleet="paper6", hidden=256, periods=60,
+                  max_rq=96, max_jobs=64)
+# the heuristics' two episodes (b), cut from 60 periods to 40 so that
+# the sharded child still ends before the relmas child (a one-stream
+# heuristic period is ~130-230 ms of host-bound engine loop).  A
+# one-stream episode of this workload holds a few jobs and the three
+# heuristics mostly agree on it; of seeds 0-127 at 40 periods, on 22
+# and 58 they do not (float32 CPU runs: counted = hits, fcfs 4 and 2,
+# prema 4 and 3, herald 3 and 2), so the per-period runner is held
+# against the batched one on three different schedules
+LEGACY_SEEDS = (22, 58)
+LEGACY_HEUR_PERIODS = 40
+LEGACY_UPDATES, LEGACY_BATCH = 8, 32
+LEGACY_RECORDED = 4              # periods whose engine inputs are re-run
+LEGACY_STREAMS = 32              # the batched arm's streams
+# the batched arm (c) cut from 60 periods to 20 to make room beside the
+# LM serving phases
+LEGACY_SHORT_PERIODS = 20
+LEGACY_TOL = 1e-5
+# examples/torch_quickstart.py on the card: a 16-period episode of its
+# hidden-32 actor at T = 33, then 10 updates of 16 rows, 5 T launches each
+QUICKSTART_T, QUICKSTART_PERIODS, QUICKSTART_UPDATES = 33, 16, 10
+QUICKSTART_HIDDEN, QUICKSTART_BATCH = 32, 16
+QUICKSTART_LAUNCHES = QUICKSTART_T * (QUICKSTART_PERIODS
+                                      + 5 * QUICKSTART_UPDATES)
+
+
+def legacy_check(label: str, ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"legacy:runners {label}: {what}")
+
+
+def legacy_transitions_err(label, trans, want, tol) -> float:
+    """``run_episode``'s transitions ``trans`` (one dict a period)
+    against ``want`` (``s``, ``a``, ``r``, ``s2`` stacked over the
+    periods): every field within ``tol`` (atol and rtol).  Returns the
+    worst error."""
+    worst = 0.0
+    for k in ("s", "a", "r", "s2"):
+        got = np.stack([t[k] for t in trans])
+        legacy_check(label, got.shape == want[k].shape,
+                     f"{k} shape {got.shape} against {want[k].shape}")
+        err = float(np.abs(got - want[k]).max())
+        worst = max(worst, err)
+        legacy_check(label, np.allclose(got, want[k], atol=tol, rtol=tol),
+                     f"{k} differs by {err:.3e} (tol {tol})")
+    return worst
+
+
+def legacy_shapes_checked(label, shapes) -> None:
+    """Every (B, F, H) a run gave ``lstm_cell`` is one that the
+    kernel:lstm_cell phase holds against the plain version
+    (``CELL_SHAPES``)."""
+    legacy_check(label, shapes <= set(CELL_SHAPES),
+                 f"lstm_cell ran at {sorted(shapes - set(CELL_SHAPES))}, "
+                 f"not in CELL_SHAPES")
+
+
+def legacy_runners_phase(CARD, device: str = "cuda") -> dict:
+    """Phase 48: the legacy runners on one stream at serve:relmas's
+    configuration (a-c), ``ddpg_update_scan`` (d), ``train_rounds_scan``
+    (e) and ``examples/torch_quickstart.py`` (f, in a process of its
+    own started first, beside (a)-(e)).  Returns the kernel launches of
+    the main paths (a), (d) and (f) by kernel."""
+    t_ex = time.perf_counter()
+    argv = [] if device == "cuda" else ["--device", device]
+    with tempfile.TemporaryFile("w+") as log:
+        example = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples",
+                                          "torch_quickstart.py")] + argv,
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        try:
+            launches = legacy_checks(CARD, device)
+            rc = example.wait(timeout=300)
+        finally:
+            if example.poll() is None:
+                example.kill()
+                example.wait()
+        log.seek(0)
+        lines = log.read().splitlines()
+    legacy_check("torch_quickstart.py", rc == 0,
+                 f"exited {rc}: {lines[-20:]}")
+    sla = [ln for ln in lines if "SLA satisfaction" in ln]
+    n_ex = [int(ln.split(":")[1]) for ln in lines
+            if ln.startswith("lstm_cell launches:")]
+    want = QUICKSTART_LAUNCHES if device == "cuda" else 0
+    legacy_check("torch_quickstart.py", len(sla) == 4 and n_ex == [want]
+                 and any(ln.startswith("after 10 updates:") for ln in lines),
+                 f"printed {lines}")
+    # its actor's one-stream steps and its updates' actor and critic steps
+    F, G = launches.pop("feat_act")
+    legacy_shapes_checked("torch_quickstart.py", {
+        (1, F, QUICKSTART_HIDDEN), (QUICKSTART_BATCH, F, QUICKSTART_HIDDEN),
+        (QUICKSTART_BATCH, F + G, QUICKSTART_HIDDEN)})
+    launches["lstm_cell"] += n_ex[0]
+    print(f"  legacy:runners (f) examples/torch_quickstart.py [{CARD}]: "
+          f"exit 0, joined {time.perf_counter() - t_ex:.1f}s after its "
+          f"start (beside (a)-(e)), lstm_cell launches={n_ex[0]}: "
+          + "; ".join(ln.strip() for ln in sla), flush=True)
+    return launches
+
+
+def legacy_checks(CARD, device: str) -> dict:
+    """Phase 48's (a)-(e); returns the launches of (a) and (d), and the
+    fleet's feature and action widths under ``feat_act``."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import ddpg as D
+    from repro_torch.core import policy as P
+    from repro_torch.core import rollout as RO
+    from repro_torch.core import train as TR
+    from repro_torch.core.replay import (replay_add, replay_init,
+                                         replay_sample, sample_indices)
+    from repro_torch.kernels.lstm_cell import ops as cell_ops
+    from repro_torch.kernels.lstm_seq import ops as seq_ops
+    from repro_torch.launch import rl_train
+    from repro_torch.sim import engine
+    cfg = rl_train.TrainConfig(**LEGACY_CFG)
+    envs = {d: rl_train.build_env(dataclasses.replace(cfg, device=d))
+            for d in ("cpu", device)}
+    env, periods = envs[device], cfg.periods
+    short, heur = (rl_train.build_env(dataclasses.replace(
+        cfg, device=device, periods=n))
+        for n in (LEGACY_SHORT_PERIODS, LEGACY_HEUR_PERIODS))
+    T = env.seq_len
+    pcfg = P.PolicyConfig(feat_dim=env.feat_dim, act_dim=env.act_dim,
+                          hidden=cfg.hidden)
+    dcfg = D.DDPGConfig(policy=pcfg)
+    state0 = D.init_ddpg(torch.Generator().manual_seed(0), dcfg, "cpu")
+    actor = {d: D.tree_map(lambda t: t.to(d), state0.actor)
+             for d in ("cpu", device)}
+    routes = {"step": pcfg, "sequence": dataclasses.replace(
+        pcfg, use_pallas=True)}
+
+    def episode(dev, route, **kw):
+        return RO.run_episode(envs[dev], RO.make_policy_period(
+            envs[dev], routes[route]), np.random.default_rng(0),
+            params=actor[dev], collect=True, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- (a) the policy period on both routes
+    runs, secs, launches = {}, {}, {"feat_act": (env.feat_dim, env.act_dim)}
+    cell_ops.SHAPES.clear()
+    for route, kernel, ops_mod, want in (
+            ("step", "lstm_cell", cell_ops, T * periods),
+            ("sequence", "lstm_seq", seq_ops, periods)):
+        cell_ops.LAUNCHES = seq_ops.LAUNCHES = 0
+        runs[route], secs[route] = timed(lambda: episode(device, route))
+        launches[kernel] = ops_mod.LAUNCHES
+        other = seq_ops if ops_mod is cell_ops else cell_ops
+        legacy_check(route, ops_mod.LAUNCHES == want and other.LAUNCHES == 0,
+                     f"{ops_mod.LAUNCHES} launches of its kernel (expected "
+                     f"{want}), {other.LAUNCHES} of the other")
+    # both routes against one collect_episodes run of the step route on
+    # the same trace (the two kernels' float32 sums differ by ~1e-6)
+    traces, states = RO.stack_episodes(env, [0])
+    zero = torch.zeros((1, periods, cfg.max_rq, env.act_dim),
+                       device=env.device)
+    legacy_shapes_checked("(a)", cell_ops.SHAPES)
+    (_, ref, _, mets), secs["collect"] = timed(lambda: RO.collect_episodes(
+        env, pcfg, actor[device], states, traces, None, 0.0, noise=zero))
+    ref = {k: ref[k][0].cpu().numpy() for k in ("s", "a", "r", "s2")}
+    for route, (m, trans) in runs.items():
+        label = f"{route} vs collect_episodes"
+        for k in ("counted", "hits"):
+            legacy_check(label, m[k] == float(mets[k][0]),
+                         f"{k} {m[k]} against {float(mets[k][0])}")
+        worst = legacy_transitions_err(label, trans, ref, LEGACY_TOL)
+        # the kernels against their plain versions: the same episode on
+        # the CPU, decisions and transitions
+        (mc, tc), secs["cpu"] = timed(lambda: episode("cpu", route))
+        legacy_check(f"{route} vs the CPU", mc["counted"] == m["counted"]
+                     and abs(mc["hits"] - m["hits"]) <= 0.01 * m["counted"],
+                     f"counted {m['counted']} / {mc['counted']}, hits "
+                     f"{m['hits']} / {mc['hits']}")
+        worst_cpu = legacy_transitions_err(
+            f"{route} vs the CPU", trans,
+            {k: np.stack([t[k] for t in tc]) for k in ref},
+            TRAIN_TOL["atol"])
+        kernel = "lstm_seq" if routes[route].use_pallas else "lstm_cell"
+        print(f"  legacy:runners (a) {route} route [{CARD}]: one stream x "
+              f"{periods} periods in {secs[route]:.2f}s, {kernel} "
+              f"launches={launches[kernel]} counted={m['counted']:.0f} "
+              f"hits={m['hits']:.0f}; collect_episodes ({secs['collect']:.2f}"
+              f"s): counted and hits equal, transitions max_abs_err "
+              f"{worst:.3e} (tol {LEGACY_TOL}); the CPU ({secs['cpu']:.2f}"
+              f"s): counted equal, hits={mc['hits']:.0f}, transitions "
+              f"max_abs_err {worst_cpu:.3e} (tol {TRAIN_TOL['atol']})",
+              flush=True)
+
+    # ---- (b) the heuristics through the per-period runner
+    scheds = {}
+    for name in ("fcfs", "prema", "herald"):
+        t0 = time.perf_counter()
+        fn = BL.BASELINES[name]
+        m = RO.evaluate(heur, RO.make_baseline_period(heur, fn),
+                        LEGACY_SEEDS)
+        mb = RO.evaluate_batch_baseline(heur, fn, LEGACY_SEEDS)
+        for k in m:
+            tol = 0.0 if k in ("counted", "hits", "arrived") else LEGACY_TOL
+            legacy_check(name, np.isclose(m[k], mb[k], rtol=tol, atol=0.0),
+                         f"{k} {m[k]} per period, {mb[k]} batched")
+        scheds[name] = (m["counted"], m["hits"])
+        print(f"  legacy:runners (b) {name} on seeds {LEGACY_SEEDS} x "
+              f"{LEGACY_HEUR_PERIODS} periods [{CARD}]: per-period runner "
+              f"= evaluate_batch_baseline: sla_rate={m['sla_rate']:.4f} "
+              f"counted={m['counted']:.1f} hits={m['hits']:.1f} arrived="
+              f"{m['arrived']:.1f} (means over the seeds; both runners "
+              f"{time.perf_counter() - t0:.2f}s)", flush=True)
+    # the seeds were picked for this: otherwise the check cannot tell a
+    # heuristic's schedule from another's
+    legacy_check("(b)", len(set(scheds.values())) == 3,
+                 f"the heuristics' (counted, hits) {scheds} do not differ")
+
+    # ---- (c) the segment engine swapped in at module level
+    real, recorded = engine.simulate, []
+
+    def segments(*a, **k):
+        if len(recorded) < LEGACY_RECORDED:
+            recorded.append((a, k))
+        return engine.simulate_segments(*a, **k)
+    engine.simulate = segments
+    try:
+        (ms, _), secs["segments"] = timed(lambda: episode(device, "step"))
+    finally:
+        engine.simulate = real
+    m = runs["step"][0]
+    legacy_check("segment engine", (ms["counted"], ms["hits"])
+                 == (m["counted"], m["hits"]),
+                 f"counted/hits {ms['counted']}/{ms['hits']} against "
+                 f"{m['counted']}/{m['hits']}")
+    legacy_check("segment engine", len(recorded) == LEGACY_RECORDED,
+                 f"{len(recorded)} engine calls recorded")
+    worst = 0.0
+    for a, k in recorded:
+        for x, y in zip(engine.simulate_segments(*a, **k),
+                        engine.simulate(*a, **k)):
+            fin = y < engine.INF / 2
+            d = (x - y)[fin].abs()
+            err = float(d.max()) if d.numel() else 0.0
+            legacy_check("segment engine", torch.equal(
+                fin, x < engine.INF / 2) and torch.allclose(
+                    x[fin], y[fin], rtol=LEGACY_TOL, atol=0.0),
+                f"start or finish apart by {err}")
+            worst = max(worst, err)
+    traces, states = short.new_episodes(np.random.default_rng(7),
+                                        LEGACY_STREAMS)
+    _, secs["batched"] = timed(lambda: RO.collect_episodes(
+        short, pcfg, actor[device], states, traces, None, 0.0,
+        noise=torch.zeros((LEGACY_STREAMS, LEGACY_SHORT_PERIODS, cfg.max_rq,
+                           env.act_dim), device=env.device)))
+    pps = {k: n / secs[k] for k, n in (
+        ("segments", periods), ("step", periods),
+        ("batched", LEGACY_STREAMS * LEGACY_SHORT_PERIODS))}
+    print(f"  legacy:runners (c) segment engine [{CARD}]: counted and hits "
+          f"equal; start/finish on {LEGACY_RECORDED} periods' engine "
+          f"inputs within rtol {LEGACY_TOL} of simulate (max_abs_err "
+          f"{worst:.3e} us).  Periods/s, one "
+          f"run each (rollout_throughput.py's arms, sigma 0, not a "
+          f"benchmark): segment-engine loop {pps['segments']:.2f}, "
+          f"current-engine loop {pps['step']:.2f}, collect_episodes at "
+          f"{LEGACY_STREAMS} streams x {LEGACY_SHORT_PERIODS} periods "
+          f"{pps['batched']:.2f}", flush=True)
+
+    # ---- (d) ddpg_update_scan on (a)'s transitions
+    trans = runs["step"][1]
+    buf = replay_init(2 * periods, env.seq_len, env.feat_dim, env.act_dim,
+                      env.device)
+    replay_add(buf, {k: torch.as_tensor(np.stack([t[k] for t in trans]),
+                                        device=env.device)
+                     for k in trans[0]})
+    before = {k: v.clone() if torch.is_tensor(v) else v
+              for k, v in buf.items()}
+    state = D.DDPGState(**{f.name: D.tree_map(lambda t: t.to(device),
+                                              getattr(state0, f.name))
+                           for f in dataclasses.fields(state0)
+                           if f.name != "step"}, step=0)
+    cell_ops.LAUNCHES = 0
+    cell_ops.SHAPES.clear()
+    (new, out, infos), secs["scan"] = timed(lambda: D.ddpg_update_scan(
+        state, dcfg, buf, torch.Generator(device=env.device).manual_seed(3),
+        LEGACY_UPDATES, LEGACY_BATCH))
+    n_scan = cell_ops.LAUNCHES
+    legacy_shapes_checked("(d)", cell_ops.SHAPES)
+    legacy_check("ddpg_update_scan", n_scan == 5 * T * LEGACY_UPDATES,
+                 f"{n_scan} lstm_cell launches, expected "
+                 f"{5 * T * LEGACY_UPDATES}")
+    launches["lstm_cell"] += n_scan
+    legacy_check("ddpg_update_scan", new.step == LEGACY_UPDATES
+                 and out is buf and all(
+                     torch.equal(buf[k], v) if torch.is_tensor(v)
+                     else buf[k] == v for k, v in before.items()),
+                 f"step {new.step}, the buffer returned or changed")
+    legacy_check("ddpg_update_scan", all(
+        bool(torch.isfinite(v).all()) for v in infos.values()),
+        f"infos {infos}")
+    g = torch.Generator(device=env.device).manual_seed(3)
+    ref = state
+    for _ in range(LEGACY_UPDATES):
+        ref, _ = D.ddpg_update(ref, dcfg, replay_sample(
+            buf, idx=sample_indices(buf, LEGACY_BATCH, g)))
+    for name in ("actor", "critic", "target_actor", "target_critic",
+                 "actor_opt", "critic_opt"):
+        legacy_check("ddpg_update_scan", all(
+            torch.equal(x, y) for x, y in zip(
+                D.tree_leaves(getattr(new, name)),
+                D.tree_leaves(getattr(ref, name)))),
+            f"{name} differs from {LEGACY_UPDATES} ddpg_update calls")
+    print(f"  legacy:runners (d) ddpg_update_scan [{CARD}]: "
+          f"{LEGACY_UPDATES} updates of {LEGACY_BATCH} at hidden "
+          f"{cfg.hidden} in {secs['scan']:.2f}s, lstm_cell launches="
+          f"{n_scan}; equal to {LEGACY_UPDATES} ddpg_update calls, the "
+          f"buffer the same object and unchanged; critic_loss "
+          f"{float(infos['critic_loss'][-1]):.6f}", flush=True)
+
+    # ---- (e) train_rounds_scan at smoke width
+    scfg = rl_train.TrainConfig(workload="light", fleet="paper6", hidden=8,
+                                periods=6, max_rq=16, max_jobs=8,
+                                device=device)
+    senv = rl_train.build_env(scfg)
+    sdcfg = D.DDPGConfig(policy=P.PolicyConfig(
+        feat_dim=senv.feat_dim, act_dim=senv.act_dim, hidden=scfg.hidden))
+    kw = dict(batch_episodes=2, num_updates=3, batch_size=8, sigma_min=0.05,
+              sigma_decay=0.97)
+    res = {}
+    cell_ops.SHAPES.clear()
+    for name, fn in (("scan", TR.train_rounds_scan),
+                     ("host", TR.train_rounds_host)):
+        res[name] = fn(senv, sdcfg, D.init_ddpg(
+            torch.Generator().manual_seed(0), sdcfg, device),
+            replay_init(64, senv.seq_len, senv.feat_dim, senv.act_dim,
+                        device), TR.round_keys(1, 0, 2), 0.3,
+            [False, True], **kw)
+    legacy_shapes_checked("(e)", cell_ops.SHAPES)
+    (s1, b1, sg1, m1), (s2, b2, sg2, m2) = res["scan"], res["host"]
+    legacy_check("train_rounds_scan", sg1 == sg2 and m1.keys() == m2.keys()
+                 and all(np.array_equal(m1[k], m2[k]) for k in m1)
+                 and list(m1["did_update"]) == [False, True]
+                 and s1.step == s2.step == kw["num_updates"]
+                 and all(torch.equal(x, y) for x, y in zip(
+                     D.tree_leaves(s1.actor) + D.tree_leaves(s1.critic),
+                     D.tree_leaves(s2.actor) + D.tree_leaves(s2.critic)))
+                 and all(torch.equal(b1[k], b2[k]) for k in ("s", "a", "r")),
+                 f"metrics {m1} against {m2}")
+    print(f"  legacy:runners (e) train_rounds_scan [{CARD}]: 2 rounds (a "
+          f"warm-up, then {kw['num_updates']} updates) at hidden "
+          f"{scfg.hidden} equal to train_rounds_host: sla="
+          f"{[float(x) for x in m1['sla']]}",
+          flush=True)
+
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # telemetry: the JSONL stream, the device blocks, the profiler trace
 # ---------------------------------------------------------------------------
 SERVE_PROF_PERIODS = 12         # the profiled serving runs' depth (of 60)
@@ -4913,7 +5326,7 @@ def dryrun_check_phase(CARD) -> None:
 # the RELMAS training phases run in two child processes of this script
 # (``chip_smoke.py --rl-group NAME FILE``) beside the LM serving phases
 # (8-14, 25-35): "relmas" runs phases 16-22 and 24, "sharded" phases
-# 39-42.  All three are mostly host-bound, and the card and the host's
+# 39-42 and 48.  All three are mostly host-bound, and the card and the host's
 # cores have room for them side by side.  A third child, "families",
 # runs phase 47 beside the LM training tail (36-37, 43-44), whose card
 # memory leaves it room once phase 38 (71 GB) has run.  Each child's
@@ -4925,8 +5338,10 @@ RL_GROUPS: dict = {}
 def rl_group(name: str, out_path: str) -> int:
     """A child's entry: the group ``name``'s phases in order.  Writes the
     kernel launches of their main paths (``lstm_cell``: train:rl_train's
-    driver, the sharded ranks; the attention and SSD kernels: the
-    families' mesh ranks) and its seconds to ``out_path`` as JSON."""
+    driver, the sharded ranks, legacy:runners' episode, updates and
+    quickstart; ``lstm_seq``: legacy:runners' sequence route; the
+    attention and SSD kernels: the families' mesh ranks) and its seconds
+    to ``out_path`` as JSON."""
     t0 = time.perf_counter()
     from repro_torch.kernels.lstm_seq import ops
     from repro_torch.launch import serve as serve_cli
@@ -4959,6 +5374,10 @@ def rl_group(name: str, out_path: str) -> int:
             launches += train_sharded_nccl_phase(CARD)
         with phase("train:sharded_driver"):
             train_sharded_driver_phase(CARD)
+        with phase("legacy:runners"):
+            legacy = legacy_runners_phase(CARD)
+        launches = {"lstm_cell": launches + legacy["lstm_cell"],
+                    "lstm_seq": legacy["lstm_seq"]}
     elif name == "families":
         with phase("train:families_mesh"):
             launches = train_families_mesh_phase(CARD)
@@ -5144,8 +5563,9 @@ def run_all() -> int:
         vlm_parity_phase(model, CARD)
     free(model)
     with phase("train:rl_group"):
-        cell_launches = sum(rl_group_finish(name)["lstm_cell"]
-                            for name in ("relmas", "sharded"))
+        groups = [rl_group_finish(name) for name in ("relmas", "sharded")]
+        cell_launches = sum(g["lstm_cell"] for g in groups)
+        launches += sum(g.get("lstm_seq", 0) for g in groups)
     with phase("train:lm_families"):
         tf_launches = train_lm_families_phase(CARD)
     dry_start_all()

@@ -9,8 +9,9 @@ PHASE is one of ``kernel:lstm_cell``, ``kernel:flash_attention``,
 ``train:sharded_ranks``, ``train:sharded_nccl`` (two or more cards),
 ``train:sharded_driver``, ``train:lm``, ``train:lm_families``,
 ``train:lm_mesh``, ``train:lm_mesh_nccl`` (four or more cards),
-``train:families_mesh``, ``dryrun:production`` and
-``dryrun:check`` (after ``train:lm`` to hold the memory to its peak).  The five kernel libraries
+``train:families_mesh``, ``legacy:runners``, ``dryrun:production``
+and ``dryrun:check`` (after ``train:lm`` to hold the memory to its
+peak).  The five kernel libraries
 are built first (one ``nvcc`` each, together).  Each phase prints what
 ``chip_smoke.py`` prints for it; the last line is a JSON object with
 the card and each phase's seconds.
@@ -59,6 +60,7 @@ def main(argv=None) -> int:
               "train:lm_mesh": cs.train_lm_mesh_phase,
               "train:lm_mesh_nccl": cs.train_lm_mesh_nccl_phase,
               "train:families_mesh": cs.train_families_mesh_phase,
+              "legacy:runners": cs.legacy_runners_phase,
               "dryrun:production": cs.dryrun_production_phase,
               "dryrun:check": cs.dryrun_check_phase}
     unknown = [n for n in names if n not in phases]

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import policy as P
-from repro_torch.core.replay import replay_sample, replay_sample_global
+from repro_torch.core.replay import (replay_sample, replay_sample_global,
+                                     sample_indices)
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -282,3 +283,21 @@ def ddpg_update_rounds(state: DDPGState, cfg: DDPGConfig, buf, idx,
     if not infos:
         return state, {}
     return state, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+
+
+def ddpg_update_scan(state: DDPGState, cfg: DDPGConfig, buf: dict,
+                     gen: torch.Generator | None, num_updates: int,
+                     batch_size: int, idx=None
+                     ) -> tuple[DDPGState, dict, dict]:
+    """``num_updates`` updates of ``batch_size`` rows of the device ring
+    ``buf`` through :func:`ddpg_update_rounds`, on indices drawn from
+    ``gen`` (``replay.sample_indices``, one draw an update) or passed in
+    as ``idx`` (num_updates, batch_size).  Returns ``(state, buf,
+    infos)``: ``buf`` is the same object, unchanged and not copied (the
+    port's reading of the reference's donated buffer, which aliases
+    through to its output), ``infos`` stacked over the updates."""
+    if idx is None:
+        idx = torch.stack([sample_indices(buf, batch_size, gen)
+                           for _ in range(num_updates)])
+    state, infos = ddpg_update_rounds(state, cfg, buf, idx)
+    return state, buf, infos

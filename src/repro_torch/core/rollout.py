@@ -187,3 +187,108 @@ def evaluate_batch_baseline(env: SchedulingEnv, baseline_fn: Callable,
         states, traces, _seeds_generator(env, seeds),
         churn_scheds=(None if churn is None
                       else _eval_churn_schedules(env, churn, seeds))))
+
+
+# --------------------------------------------------------------------------
+# legacy per-period runners (the JAX package's compatibility wrappers, and
+# the "before" datapoint of its rollout benchmark)
+# --------------------------------------------------------------------------
+def make_policy_period(env: SchedulingEnv, pcfg: P.PolicyConfig):
+    """One period with the RELMAS actor: ``period(params, state, trace,
+    gen=None, sigma=0.0, noise=None)`` -> ``(new_state, transition,
+    info)`` on a one-stream state and trace (``S = 1``).
+
+    At ``sigma == 0`` the actions are the actor's, with no noise and no
+    clip (the reference's legacy act clips only with noise).  At
+    ``sigma > 0`` they get ``sigma`` times a standard-normal ``(1,
+    max_rq, G)`` block, ``noise`` if given (the draws as data) else
+    drawn from ``gen`` (a ``torch.Generator`` on the env's device), and
+    are clipped to [-1, 1].  The SA is ``argmax(a[..., 1:])``."""
+    @torch.no_grad()
+    def period(params, state, trace, gen=None, sigma: float = 0.0,
+               noise=None):
+        def act_fn(feats, mask, slots, st):
+            a = P.actor_apply(params, pcfg, feats, mask)
+            if sigma > 0.0:
+                if noise is None:
+                    z = torch.randn(a.shape, generator=gen,
+                                    device=env.device)
+                else:
+                    z = torch.as_tensor(noise, dtype=a.dtype,
+                                        device=env.device).reshape(a.shape)
+                a = torch.clamp(a + sigma * z, -1.0, 1.0)
+            return a, a[..., 0], torch.argmax(a[..., 1:], dim=-1)
+        return env.period(state, trace, act_fn)
+    return period
+
+
+def make_baseline_period(env: SchedulingEnv, baseline_fn: Callable):
+    """One period with a heuristic baseline ``baseline_fn(slots, state,
+    env, rand)``: ``period(state, trace, rand=None)`` -> ``(new_state,
+    transition, info)``, ``rand`` passed on to the baseline (MAGMA's
+    generator; the heuristics ignore it).  There is nothing to compile,
+    so the reference's ``jit`` flag has no counterpart."""
+    @torch.no_grad()
+    def period(state, trace, rand=None):
+        return env.period(state, trace,
+                          lambda feats, mask, slots, st: baseline_fn(
+                              slots, st, env, rand))
+    return period
+
+
+def run_episode(env: SchedulingEnv, period_fn, rng: np.random.Generator,
+                *, params=None, gen: torch.Generator | None = None,
+                sigma: float = 0.0, collect: bool = False, arrivals=None,
+                noise=None):
+    """One episode with the legacy per-period Python loop, on one stream.
+
+    The trace is the NumPy ``generate_trace`` from ``rng``, as the
+    reference's ``new_episode`` draws it.  With ``params`` the periods
+    are a policy's (:func:`make_policy_period`): each takes ``gen`` and
+    ``sigma``, or period p's slice of ``noise`` ``(periods, max_rq, G)``
+    (the draws as data); without, a baseline's
+    (:func:`make_baseline_period`), given ``gen`` as its ``rand``.  A
+    final drop pass counts the late jobs before the metrics.
+
+    Returns ``(metrics, transitions | None)``: ``metrics`` a dict of
+    Python floats, ``transitions`` (with ``collect``) one dict of NumPy
+    arrays a period, without the stream axis, as ``ReplayBuffer.add``
+    takes them.  Prefer :func:`collect_episodes` /
+    :func:`evaluate_batch`: this path pays a host loop per period and
+    exists for compatibility and as the benchmark's "before" arm.
+    """
+    tr = generate_trace(env.min_lat, arrivals or env.arrivals, rng)
+    trace = env.to_trace({k: np.asarray(v)[None] for k, v in tr.items()})
+    state = env.init_state(trace)
+    transitions = [] if collect else None
+    for p in range(env.cfg.periods):
+        if params is not None:
+            state, trans, _ = period_fn(
+                params, state, trace, gen, sigma,
+                None if noise is None else noise[p])
+        else:
+            state, trans, _ = period_fn(state, trace, gen)
+        if collect:
+            transitions.append({k: v[0].cpu().numpy()
+                                for k, v in trans.items()})
+    state = env.mark_drops(state, trace, state["t"])
+    metrics = {k: float(v[0]) for k, v in env.metrics(state, trace).items()}
+    return metrics, transitions
+
+
+def evaluate(env: SchedulingEnv, period_fn, seeds, *,
+             params=None) -> dict[str, float]:
+    """Mean metrics over one :func:`run_episode` per seed (NumPy
+    ``default_rng(seed)`` traces).  A policy's episode ``s`` takes a
+    generator on the env's device seeded ``s``, as the reference keys
+    each seed with ``PRNGKey(seed)`` (its own ``key`` argument is unused,
+    so it has no counterpart here)."""
+    out: dict[str, list[float]] = {}
+    for s in seeds:
+        g = (None if params is None else
+             torch.Generator(device=env.device).manual_seed(int(s)))
+        m, _ = run_episode(env, period_fn, np.random.default_rng(s),
+                           params=params, gen=g)
+        for k, v in m.items():
+            out.setdefault(k, []).append(v)
+    return {k: float(np.mean(v)) for k, v in out.items()}

@@ -22,8 +22,9 @@ so a driver resuming at a round draws what the uninterrupted run would
 have.  Where the JAX package fuses a round (and a chunk of rounds) into
 one jitted dispatch, here a round is eager PyTorch; the replay buffer
 and learner state are updated in place or rebound, as the JAX callers
-rebind donated arguments.  ``make_train_rounds`` and
-``train_rounds_host`` are the same per-round loop.
+rebind donated arguments.  ``make_train_rounds``, its call-style
+``train_rounds_scan`` and ``train_rounds_host`` are the same per-round
+loop.
 
 Every single-device round maker takes an optional ``churn`` (a
 ``repro_torch.sim.churn.ChurnConfig``): the round then draws a fresh
@@ -308,6 +309,17 @@ def make_train_rounds(env: SchedulingEnv, dcfg: D.DDPGConfig, **kw):
         return train_rounds_host(env, dcfg, state, buf, keys, sigma,
                                  do_update, **kw)
     return rounds_fn
+
+
+def train_rounds_scan(env: SchedulingEnv, dcfg: D.DDPGConfig, state, buf,
+                      keys, sigma, do_update, **kw):
+    """Call-style convenience over :func:`make_train_rounds`: the rounds
+    described by the per-round seeds ``keys`` and warm-up flags
+    ``do_update``, returning ``(state, buf, sigma, metrics)`` with
+    metrics stacked over the round axis.  ``buf`` is written in place,
+    as the reference's donated buffer is."""
+    return make_train_rounds(env, dcfg, **kw)(state, buf, keys, sigma,
+                                              do_update)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ the card, a fake route that gives the outputs' shapes for
 :func:`bytes_moved`).
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; ``SHAPES`` collects
+each launch's (B, F, H), so it can show which shapes those were.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from repro_torch.kernels import _build, _library
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 
 LAUNCHES = 0
+SHAPES: set = set()
 ROWS = 16                # batch rows per block (grid.y = ceil(B / ROWS))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -95,6 +97,7 @@ def _cuda(x, h, c, wx, wh, b):
             B, F, H, DTYPES[x.dtype], stream)
     _build.raise_on_error(lib, "lstm_cell", err)
     LAUNCHES += 1
+    SHAPES.add((B, F, H))
     return h2, c2
 
 

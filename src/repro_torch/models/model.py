@@ -307,3 +307,9 @@ class LM(torch.nn.Module):
                     else ssm_cache(nsb)
                     for i, (mixer, _) in enumerate(T.sb_layout(cfg))}
         return attn_cache(cfg.n_layers)
+
+
+def build_model(cfg: ArchConfig, device: str | torch.device = "cuda") -> LM:
+    """``LM(cfg)`` on ``device`` (the card unless the caller asks for the
+    CPU), the counterpart of the JAX package's ``build_model``."""
+    return LM(cfg, device=device)

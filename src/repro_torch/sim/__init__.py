@@ -5,8 +5,10 @@ arrival generation, and the periodic-scheduling environment, batched
 over a leading stream axis.
 """
 from repro_torch.sim.arrivals import ArrivalConfig, generate_trace
-from repro_torch.sim.engine import simulate, simulate_np
+from repro_torch.sim.engine import (commit_period_np, simulate,
+                                    simulate_np, simulate_segments)
 from repro_torch.sim.env import EnvConfig, SchedulingEnv
 
 __all__ = ["ArrivalConfig", "generate_trace", "simulate", "simulate_np",
-           "EnvConfig", "SchedulingEnv"]
+           "simulate_segments", "commit_period_np", "EnvConfig",
+           "SchedulingEnv"]

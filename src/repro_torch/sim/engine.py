@@ -22,6 +22,15 @@ Two implementations with identical semantics:
   it.  The host asks whether any stream is still live only every
   ``CHECK_EVERY`` iterations (each check is a device-to-host sync).
 
+``simulate_segments`` is the same loop with the per-SA reductions
+written as segment reductions (``scatter_reduce`` over the SA index)
+instead of the ``(S, n, M)`` one-hot: the counterpart of the JAX
+package's ``simulate_jax_segments``, the seed engine that its rollout
+benchmark times as the "before" arm.  It takes ``simulate``'s
+signature, so a caller swaps it in at module level
+(``engine.simulate = engine.simulate_segments``: ``SchedulingEnv``
+reads ``engine.simulate`` at call time).
+
 Times are in microseconds, bandwidths in GB/s.
 """
 from __future__ import annotations
@@ -118,6 +127,24 @@ def simulate_np(valid, assign, prio, cost, bw, dep, ready, sa_free, B):
     return start, finish
 
 
+def commit_period_np(start, finish, valid, assign, t_s, num_sas):
+    """Split a simulated schedule at the period boundary ``t_s`` (a copy
+    of the JAX package's NumPy helper).
+
+    Committed = SJs that *started* before t_s (non-preemptive: they run to
+    completion).  Returns (committed mask, residual mask, new sa_free
+    relative to the next period start).
+    """
+    committed = valid & (start < t_s)
+    residual = valid & ~committed
+    sa_free = np.zeros(num_sas)
+    for m in range(num_sas):
+        f = finish[committed & (assign == m)]
+        if f.size:
+            sa_free[m] = max(0.0, f.max() - t_s)
+    return committed, residual, sa_free
+
+
 # --------------------------------------------------------------------------
 # PyTorch engine (batched over streams)
 # --------------------------------------------------------------------------
@@ -138,6 +165,36 @@ def simulate(valid, assign, prio, cost, bw, dep, ready, sa_free, B, *,
     early exit: SJs that start before it get exact start and finish
     times, later starters may keep ``finish = INF``.
     """
+    return _event_loop(valid, assign, prio, cost, bw, dep, ready, sa_free,
+                       B, num_sas=num_sas, stop_start_after=stop_start_after,
+                       segments=False)
+
+
+def simulate_segments(valid, assign, prio, cost, bw, dep, ready, sa_free, B,
+                      *, num_sas: int, stop_start_after: float | None = None):
+    """:func:`simulate` with its per-SA reductions (busy SAs, each SA's
+    best candidate, the lowest tied slot) as ``scatter_reduce`` over the
+    SA index, the counterpart of the JAX package's
+    ``simulate_jax_segments``.  The same event sequence, so the same
+    start and finish times.  As in the reference, the serving-only
+    ``stop_start_after`` early exit is not implemented: any value other
+    than None raises before any work."""
+    if stop_start_after is not None:
+        raise ValueError("simulate_segments has no stop_start_after "
+                         "early exit (legacy engine; training/benchmark "
+                         "paths only)")
+    return _event_loop(valid, assign, prio, cost, bw, dep, ready, sa_free,
+                       B, num_sas=num_sas, stop_start_after=None,
+                       segments=True)
+
+
+def _event_loop(valid, assign, prio, cost, bw, dep, ready, sa_free, B, *,
+                num_sas: int, stop_start_after: float | None,
+                segments: bool):
+    """The event loop of :func:`simulate` and :func:`simulate_segments`;
+    ``segments`` picks how the per-SA max / min over the slots assigned
+    to each SA are taken: ``scatter_reduce`` over the SA index, or a
+    masked reduction over the ``(S, n, M)`` one-hot."""
     S, n = valid.shape
     M = num_sas
     dev = valid.device
@@ -153,9 +210,25 @@ def simulate(valid, assign, prio, cost, bw, dep, ready, sa_free, B, *,
     sa_free = sa_free.to(f32)
     B = torch.as_tensor(B, dtype=f32, device=dev).expand(S)[:, None]
     idx = torch.arange(n, device=dev)
-    # loop invariants: (S, n, M) SA one-hot, tie-broken scores, the
+    # loop invariants: the per-SA reductions (busy SAs, each SA's best
+    # score, each SA's lowest starting slot), tie-broken scores, the
     # per-slot time its SA becomes free, the dependency gather index
-    onehot = assign[..., None] == torch.arange(M, device=dev)
+    if segments:
+        def per_sa(x, fill, how):
+            return torch.full((S, M), fill, dtype=x.dtype,
+                              device=dev).scatter_reduce(1, assign, x, how)
+        sa_busy = lambda active: per_sa(active.to(torch.int32), 0,
+                                        "amax") > 0
+        sa_best = lambda score: per_sa(score, -INF, "amax")
+        sa_first = lambda starts: per_sa(torch.where(starts, idx, n), n,
+                                         "amin")
+    else:
+        onehot = assign[..., None] == torch.arange(M, device=dev)
+        sa_busy = lambda active: (active[..., None] & onehot).any(1)
+        sa_best = lambda score: torch.where(onehot, score[..., None],
+                                            -INF).amax(1)
+        sa_first = lambda starts: torch.where(starts[..., None] & onehot,
+                                              idx[:, None], n).amin(1)
     prio_tb = prio - idx.to(f32) * 1e-6
     enab_static = torch.maximum(torch.gather(sa_free, 1, assign), ready)
     has_dep = dep >= 0
@@ -183,17 +256,15 @@ def simulate(valid, assign, prio, cost, bw, dep, ready, sa_free, B, *,
         active = started & ~finished & valid
         dep_done = ~has_dep | torch.gather(finished, 1, dep_idx)
         # ---- start phase: per-SA best ready candidate on idle SAs
-        sa_busy = (active[..., None] & onehot).any(1)
-        sa_open = ~sa_busy & (sa_free <= tc + _EPS)
+        sa_open = ~sa_busy(active) & (sa_free <= tc + _EPS)
         cand = (valid & ~started & dep_done & (ready <= tc + _EPS)
                 & torch.gather(sa_open, 1, assign))
         score = torch.where(cand, prio_tb, -INF)
-        best = torch.where(onehot, score[..., None], -INF).amax(1)
+        best = sa_best(score)
         starts_now = (cand & (score >= torch.gather(best, 1, assign) - 1e-9)
                       & (score > -INF / 2))
         # guard against float ties admitting 2 SJs on one SA: lowest idx
-        first_idx = torch.where(starts_now[..., None] & onehot,
-                                idx[:, None], n).amin(1)
+        first_idx = sa_first(starts_now)
         starts_now = starts_now & (idx == torch.gather(first_idx, 1, assign))
         n_started = started | starts_now
         n_start = torch.where(starts_now, tc, start)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no JAX, nothing of ``repro``, and no
 quiet fallback to the CPU; it writes to stdout only through
-``telemetry/console.py``."""
+``telemetry/console.py``.  Its examples (``examples/torch_*.py``) import
+neither JAX nor ``repro`` either."""
+import importlib.util
 import pathlib
 import re
 import subprocess
@@ -18,8 +20,11 @@ PRINT = re.compile(r"\bprint\(")
 CONSOLE = PKG / "telemetry" / "console.py"
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
@@ -87,6 +92,29 @@ def test_every_module_imports_with_jax_blocked():
     assert int(res.stdout.strip()) >= 20
 
 
+def test_examples_import_with_jax_blocked():
+    """Importing an example runs nothing (its work is under the
+    ``__main__`` check) and pulls in no JAX."""
+    assert [p.name for p in EXAMPLES] == ["torch_quickstart.py"]
+    code = (
+        "import importlib.util, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main), path\n"
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n")
+    res = subprocess.run([sys.executable, "-c", code]
+                         + [str(p) for p in EXAMPLES], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == ""
+
+
 def test_default_device_entry_points_raise_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -94,12 +122,16 @@ def test_default_device_entry_points_raise_without_gpu():
     from repro_torch.core.policy import Actor, PolicyConfig
     from repro_torch.core import ddpg
     from repro_torch.launch import rl_train, serve, train
-    from repro_torch.models import LM
+    from repro_torch.models import LM, build_model
     from repro_torch.serving import ContinuousBatcher, MultiTenantService
     from repro_torch.sim.env import EnvConfig, SchedulingEnv
     from repro_torch.workloads import build_registry
     reg = build_registry("light")
     cfg = get_arch("internlm2-1.8b", smoke=True)
+    spec = importlib.util.spec_from_file_location("torch_quickstart",
+                                                  EXAMPLES[0])
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
     for fn in (lambda: MultiTenantService(reg),
                lambda: SchedulingEnv(reg, EnvConfig()),
                lambda: Actor(PolicyConfig(feat_dim=16, act_dim=7)),
@@ -114,6 +146,8 @@ def test_default_device_entry_points_raise_without_gpu():
                lambda: train.main(["--arch", "internlm2-1.8b", "--smoke",
                                    "--steps", "1"]),
                lambda: ddpg.init_ddpg(torch.Generator(), ddpg.DDPGConfig(
-                   PolicyConfig(feat_dim=16, act_dim=7)))):
+                   PolicyConfig(feat_dim=16, act_dim=7))),
+               lambda: build_model(cfg),
+               lambda: quickstart.main([])):
         with pytest.raises(RuntimeError, match="cuda"):
             fn()

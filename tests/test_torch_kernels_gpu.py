@@ -692,6 +692,76 @@ def test_lstm_cell_kernel_rejects_what_it_does_not_take(card):
 
 
 # ---------------------------------------------------------------------------
+# the legacy per-period runners and the segment engine on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_legacy_policy_period_on_the_card_matches_the_cpu(card, use_pallas):
+    """One ``run_episode`` through ``make_policy_period`` on the card
+    (``lstm_cell`` T times a period, or ``lstm_seq`` once) and on the CPU
+    (plain versions): ``counted`` equal, ``hits`` within 1% of it, the
+    transitions within 1e-4 (float32 sums in another order)."""
+    from repro_torch.core import policy as P
+    from repro_torch.core.rollout import make_policy_period, run_episode
+    from repro_torch.sim.env import EnvConfig, SchedulingEnv
+    from repro_torch.workloads import build_registry
+    ecfg = EnvConfig(periods=6, max_rq=32, max_jobs=16)
+    reg = build_registry("light", mas="paper6")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        env = SchedulingEnv(reg, ecfg, device=dev)
+        pcfg = P.PolicyConfig(feat_dim=env.feat_dim, act_dim=env.act_dim,
+                              hidden=64, use_pallas=use_pallas)
+        params = P.init_actor(torch.Generator().manual_seed(0), pcfg, dev)
+        ops_mod = ops if use_pallas else cell_ops
+        before = ops_mod.LAUNCHES
+        out[dev] = run_episode(env, make_policy_period(env, pcfg),
+                               np.random.default_rng(3), params=params,
+                               collect=True)
+        torch.cuda.synchronize()
+        want = (0 if dev == "cpu" else
+                ecfg.periods * (1 if use_pallas else env.seq_len))
+        assert ops_mod.LAUNCHES - before == want, dev
+    (mc, tc), (mg, tg) = out["cpu"], out["cuda"]
+    assert mc["counted"] == mg["counted"] > 0
+    assert abs(mc["hits"] - mg["hits"]) <= 0.01 * mc["counted"]
+    for a, b in zip(tc, tg):
+        for k in ("mask", "mask2"):
+            np.testing.assert_array_equal(a[k], b[k])
+        for k in ("s", "a", "r", "s2"):
+            np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,n,M", [(4, 12, 4), (32, 96, 6), (1, 96, 6)])
+def test_segment_engine_on_the_card_matches_simulate(card, S, n, M):
+    """``simulate_segments`` on the card equals ``simulate`` there (max
+    and min are exact, every other operation the same), and holds to
+    the CPU's ``simulate`` within rtol 1e-5 / atol 1e-3 us."""
+    from repro_torch.sim.engine import INF, simulate, simulate_segments
+    rng = np.random.default_rng(n + M)
+    # a valid prefix a row, so every dependency is a valid slot
+    valid = np.arange(n) < rng.integers(1, n + 1, (S, 1))
+    dep = np.where(rng.uniform(size=(S, n)) < 0.6, np.arange(n) - 1, -1)
+    args = [valid, rng.integers(0, M, (S, n)),
+            rng.uniform(-1, 1, (S, n)).astype(np.float32),
+            rng.uniform(0.5, 200.0, (S, n)).astype(np.float32),
+            rng.uniform(0.5, 16.0, (S, n)).astype(np.float32), dep,
+            (rng.uniform(0, 100, (S, n)) * (dep < 0)).astype(np.float32),
+            rng.uniform(0, 50, (S, M)).astype(np.float32)]
+    cpu = [torch.as_tensor(a) for a in args]
+    gpu = [a.cuda() for a in cpu]
+    sg, fg = simulate_segments(*gpu, 8.0, num_sas=M)
+    s1, f1 = simulate(*gpu, 8.0, num_sas=M)
+    sc, fc = simulate(*cpu, 8.0, num_sas=M)
+    torch.testing.assert_close(sg, s1, rtol=0, atol=0)
+    torch.testing.assert_close(fg, f1, rtol=0, atol=0)
+    assert bool((fg[torch.as_tensor(valid).cuda()] < INF / 2).all())
+    torch.testing.assert_close(sg.cpu(), sc, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(fg.cpu(), fc, rtol=1e-5, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
 # telemetry primitives on the card: no sync, the CPU's counts
 # ---------------------------------------------------------------------------
 def _tele_values(case, rng):
