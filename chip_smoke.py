@@ -83,7 +83,10 @@ no result:
                         fcfs: equal ``counted``, per-stream ``hits``
                         within 1% of ``counted``; with host-clock
                         spans (synchronised) around the engine, the
-                        actor and the greedy heuristic on the card run;
+                        actor and the greedy heuristic on the card run,
+                        each a share of the periods' wall time
+                        (``tick_wall_us``: from a period's staging to
+                        its completion records);
 8. ``lm:prefill_decode``  internlm2-1.8b at full width (24 layers,
                         bf16 weights drawn on the card from seed 0):
                         ``make_prefill_step`` on 4 prompts of 2048
@@ -197,7 +200,8 @@ no result:
                         big_little, a fleet it never trained on, 32
                         streams x 60 periods: ``lstm_seq`` exactly once a
                         tick at F = 84; tick p50/p99, then synchronised
-                        spans for the actor's and engine's shares;
+                        spans for the actor's and engine's shares (of
+                        ``tick_wall_us``, as in phase 7);
 22. ``generalist:parity``  one churned generalist round (hidden 256, 8
                         periods) on the CPU and on the card from the
                         same state, buffer and draws, held to phase
@@ -214,7 +218,11 @@ no result:
                         ``--profile-dir`` (off, on; four, in turns,
                         before phases 45-46), each trace read for the
                         tick loop's device busy share, each
-                        ``serving.*`` range's host time and the
+                        ``serving.*`` range's host time, each range
+                        checked by name and count (the tick's and the
+                        service loop's stage and read-back once a tick,
+                        records in at most every tick, resolve and
+                        flush once a run) and the
                         device-to-host copies a tick (equal in both),
                         printed by size and deleted;
 24. ``telemetry:train`` (run after phase 17) ``rl_train`` at hidden 256
@@ -4220,15 +4228,16 @@ def serve_trace_numbers(serve_cli, args, label, CARD) -> dict:
         raise AssertionError(f"{label}: {ticks} serving.admit ranges, "
                              f"{len(flush)} flushes, {out['ticks']} ticks")
     t0, t1 = admits[0]["ts"], flush[0]["ts"]
-    host = {}
+    host, n_ranges = {}, {}
     for e in ranges(events, "serving."):
         host[e["name"]] = host.get(e["name"], 0.0) + e["dur"]
+        n_ranges[e["name"]] = n_ranges.get(e["name"], 0) + 1
     return dict(out=out, ticks=ticks,
                 busy=device_busy_us(events, t0, t1) / (t1 - t0),
                 loop_ms=(t1 - t0) / 1e3,
                 d2h_per_tick=d2h_between(d2h_calls(events), t0, t1) / ticks,
                 range_ms={k: v / ticks / 1e3 for k, v in sorted(
-                    host.items())})
+                    host.items())}, n_ranges=n_ranges)
 
 
 def telemetry_serve_phase(serve_cli, ops, ref_out, ref_res, CARD):
@@ -4302,13 +4311,24 @@ def telemetry_serve_phase(serve_cli, ops, ref_out, ref_res, CARD):
               + " ".join(f"{k}={v:.3f}" for k, v in n["range_ms"].items())
               + f"; device-to-host copies a tick {n['d2h_per_tick']:.3f}",
               flush=True)
-    want = {"serving.admit", "serving.period", "serving.retire"}
+    # each range by name: the tick's and the loop's once a tick (the
+    # records only in a tick with completions), resolve and flush once
     runs = nums[True] + nums[False]
-    if any(set(n["range_ms"]) != want | {"serving.telemetry"}
-           for n in nums[True]) \
-            or any(set(n["range_ms"]) != want for n in nums[False]):
-        raise AssertionError("telemetry:serve: a profiled run lacks a "
-                             "range or has one too many")
+    for on in (False, True):
+        for n in nums[on]:
+            T = n["ticks"]
+            want = dict.fromkeys(("serving.admit", "serving.period",
+                                  "serving.retire", "serving.stage",
+                                  "serving.readback"), T)
+            want.update({"serving.resolve": 1, "serving.flush": 1})
+            if on:
+                want["serving.telemetry"] = T
+            got = dict(n["n_ranges"])
+            if not got.pop("serving.record", 0) <= T or got != want:
+                raise AssertionError(
+                    f"telemetry:serve {'on' if on else 'off'}: ranges "
+                    f"{n['n_ranges']}, want {want} and serving.record in "
+                    f"at most {T} ticks")
     if len({n["d2h_per_tick"] for n in runs}) != 1:
         raise AssertionError("telemetry:serve: telemetry changed the "
                              "device-to-host copies a tick")

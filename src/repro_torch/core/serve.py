@@ -21,21 +21,21 @@ also folds the tick's depth, committed sub-jobs and tick count into it
 (``serving.telemetry``); the flush surfaces the block as flat
 ``tele_*`` leaves.  The block only reads what the tick computes, so a
 queue without it runs the same ops otherwise.  The tick's phases are
-``torch.profiler`` ranges under the JAX package's scope names:
-``serving.admit``, ``serving.period``, ``serving.retire``,
-``serving.telemetry``.
+spans (``telemetry.profiler.span``: ``torch.profiler`` ranges while a
+profiler runs) under the JAX package's scope names: ``serving.admit``,
+``serving.period``, ``serving.retire``, ``serving.telemetry``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.serving.queue import (queue_admit, queue_metrics,
                                        queue_retire)
 from repro_torch.sim.env import SchedulingEnv
 from repro_torch.telemetry.metrics import counter_add, hist_add
+from repro_torch.telemetry.profiler import span
 
 
 def specialist_act(actor):
@@ -99,21 +99,21 @@ def make_serving_tick(env: SchedulingEnv, *, kind: str = "specialist",
 
     @torch.no_grad()
     def tick(queues, adm):
-        with record_function("serving.admit"):
+        with span("serving.admit"):
             n_adm = queue_admit(env, queues, adm)
         # commit_only: the transition is discarded, so the engine may
         # stop at the period-boundary start horizon
-        with record_function("serving.period"):
+        with span("serving.period"):
             state, _, info = env.period(queues["state"], queues["trace"],
                                         act, commit_only=True)
         queues["state"] = state
-        with record_function("serving.retire"):
+        with span("serving.retire"):
             out = queue_retire(env, queues)
         out.update(n_admitted=n_adm, committed=info["committed"],
                    t_us=state["t"])
         if "tele" in queues:
             # new tensors, never written into what the tick returns
-            with record_function("serving.telemetry"):
+            with span("serving.telemetry"):
                 t = queues["tele"]
                 queues["tele"] = dict(
                     depth_hist=hist_add(t["depth_hist"], out["depth"]),

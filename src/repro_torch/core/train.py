@@ -65,15 +65,15 @@ histograms, committed counter, replay-fill gauge) into its metrics.  It
 only reads what the round computes, and the round moves all of its
 metrics to the host in one transfer (stacked on the device, one
 ``.cpu()``), so the block rides that transfer as it does in JAX.  The
-phases are ``torch.profiler`` ranges under the JAX package's scope
-names: ``relmas.trace_gen`` (the draws), ``relmas.rollout``,
+phases are spans (``telemetry.profiler.span``: ``torch.profiler``
+ranges while a profiler runs) under the JAX package's scope names:
+``relmas.trace_gen`` (the draws), ``relmas.rollout``,
 ``relmas.ring_write``, ``relmas.ddpg_update``, ``relmas.telemetry``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import ddpg as D
 from repro_torch.core import rollout as R
@@ -85,6 +85,7 @@ from repro_torch.sim.env import SchedulingEnv
 from repro_torch.telemetry.metrics import (ROUND_TELE_COUNTS,
                                            ROUND_TELE_GAUGES,
                                            ROUND_TELE_KEYS, round_telemetry)
+from repro_torch.telemetry.profiler import span
 
 # update-info keys mirrored by the warm-up (no-update) branch of the
 # round body: ddpg_update's info dict exactly
@@ -197,25 +198,25 @@ def _round_body(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
 
     def round_fn(state: D.DDPGState, buf: dict, draws: dict, sigma: float,
                  do_update: bool):
-        with record_function("relmas.rollout"):
+        with span("relmas.rollout"):
             trans, einfos, mets = episodes(state.actor, draws, sigma)
         # (episodes, periods, ...) -> (episodes * periods, ...) ring write
         flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
                 for k, v in trans.items()}
-        with record_function("relmas.ring_write"):
+        with span("relmas.ring_write"):
             replay_add(buf, flat)
         vals = dict(sla=torch.mean(mets["sla_rate"]),
                     reward=torch.mean(einfos["reward"]),
                     energy_uj=torch.mean(mets["energy_uj"]))
         if do_update:
-            with record_function("relmas.ddpg_update"):
+            with span("relmas.ddpg_update"):
                 state, infos = D.ddpg_update_rounds(
                     state, dcfg, buf, draws["idx"].to(buf["r"].device),
                     transform)
             vals.update({k: infos[k][-1] for k in INFO_KEYS})
         tele = {}
         if telemetry:
-            with record_function("relmas.telemetry"):
+            with span("relmas.telemetry"):
                 tele = round_telemetry(mets["sla_rate"], einfos["reward"],
                                        einfos["committed"], buf["size"],
                                        buf["r"].shape[0])
@@ -273,7 +274,7 @@ def make_train_round(env: SchedulingEnv, dcfg: D.DDPGConfig, *,
     def round_fn(state, buf, seed: int, sigma: float, do_update: bool):
         cap = buf["r"].shape[0]
         size_after = min(buf["size"] + batch_episodes * periods, cap)
-        with record_function("relmas.trace_gen"):
+        with span("relmas.trace_gen"):
             draws = draws_fn(env, seed, batch_episodes=batch_episodes,
                              num_updates=num_updates, batch_size=batch_size,
                              size_after=size_after, arrivals=arrivals,
@@ -482,18 +483,18 @@ def _sharded_round_body(env, dcfg: D.DDPGConfig, *, num_devices: int,
 
     def round_fn(state: D.DDPGState, pairs: list, draws: list, sigma: float,
                  do_update: bool, comm):
-        with record_function("relmas.rollout"):
+        with span("relmas.rollout"):
             outs = [episodes(state.actor, d, sigma) for d in draws]
         info = {}
         if do_update:
-            with record_function("relmas.ddpg_update"):
+            with span("relmas.ddpg_update"):
                 reads = [p["read"] for p in pairs]
                 state, infos = D.ddpg_update_rounds(
                     state, dcfg, reads,
                     [d["idx"].to(r["r"].device) for d, r in zip(draws, reads)],
                     transform, comm, update_gather)
             info = {k: infos[k][-1] for k in INFO_KEYS}
-        with record_function("relmas.ring_write"):
+        with span("relmas.ring_write"):
             for p, (trans, _, _) in zip(pairs, outs):
                 replay_pair_step(p, {k: v.reshape((-1,) + tuple(v.shape[2:]))
                                      for k, v in trans.items()})
@@ -503,7 +504,7 @@ def _sharded_round_body(env, dcfg: D.DDPGConfig, *, num_devices: int,
                  for _, e, m in outs]
         tele = [{} for _ in pairs]
         if telemetry:
-            with record_function("relmas.telemetry"):
+            with span("relmas.telemetry"):
                 tele = [round_telemetry(m["sla_rate"], e["reward"],
                                         e["committed"], p["read"]["size"],
                                         p["read"]["r"].shape[0])
@@ -537,7 +538,7 @@ def _sharded_rounds(env, dcfg: D.DDPGConfig, comm, draws_fn, *,
     def loop(state, pairs, keys, shared, sigma, do_update):
         out = []
         for i, du in enumerate(do_update):
-            with record_function("relmas.trace_gen"):
+            with span("relmas.trace_gen"):
                 draws = [draws_fn(env, int(k[i]), int(shared[i]),
                                   batch_episodes=per_eps,
                                   num_updates=num_updates,

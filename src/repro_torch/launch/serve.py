@@ -16,7 +16,8 @@ Two serving modes:
   ``serving.loadgen`` scenario generator (``--scenario``/
   ``--rate-scale``/``--requests``), served by one tick per period
   across all streams; prints aggregate SLA, the per-tenant table and
-  the tick wall times.
+  the p50 / p99 of the period wall times (``stats["tick_wall_us"]``:
+  each period from its staging to its completion records).
 
 Telemetry, as in the JAX package's driver: ``--log-jsonl PATH`` streams
 schema'd records (``run_header`` / ``serve_window`` / ``serve_episode``

@@ -45,6 +45,7 @@ from repro_torch.sim.arrivals import ArrivalConfig, generate_trace
 from repro_torch.sim.engine import INF
 from repro_torch.sim.env import EnvConfig, SchedulingEnv
 from repro_torch.telemetry.console import console_line
+from repro_torch.telemetry.profiler import span
 
 
 def per_tenant_metrics(env: SchedulingEnv, state, trace) -> dict[str, dict]:
@@ -193,8 +194,16 @@ class MultiTenantService:
         Returns ``dict(metrics, aggregate, completions, stats)``:
         per-stream metric dicts in the schema of
         :meth:`serve_trace_host`, per-stream completion records, and
-        serving statistics (per-tick wall times, admitted/deferred
-        counts, queue depth).
+        serving statistics (``tick_wall_us``: each period's host wall
+        time as the loop runs it, from the staging of its admissions
+        through the read-back to its completion records; admitted/
+        deferred counts, queue depth).
+
+        Spans (``telemetry.profiler``, only while a profiler runs):
+        ``serving.resolve`` once a call, then each period
+        ``serving.stage``, the tick's spans, ``serving.readback`` and,
+        in a period with completions, ``serving.record``; last
+        ``serving.flush``.
 
         ``telemetry``: an optional :class:`repro_torch.telemetry.
         Telemetry` session.  When given, the queues carry the device
@@ -218,20 +227,23 @@ class MultiTenantService:
         K = tick_k
         n_req = np.array([len(st) for st in request_streams], np.int64)
         N = max(int(n_req.max()), 1)
-        cols = dict(rid=np.full((S, N), -1, np.int32),
-                    model=np.zeros((S, N), np.int32),
-                    arrival=np.full((S, N), np.float32(INF), np.float32),
-                    deadline=np.full((S, N), np.float32(INF), np.float32),
-                    q=np.ones((S, N), np.float32))
-        for s, stream in enumerate(request_streams):
-            for j, r in enumerate(sorted(stream,
-                                         key=lambda r: r.arrival_us)):
-                mid, arr, dl, q = resolve_request(r, names)
-                cols["rid"][s, j] = r.rid
-                cols["model"][s, j] = mid
-                cols["arrival"][s, j] = arr
-                cols["deadline"][s, j] = dl
-                cols["q"][s, j] = q
+        with span("serving.resolve"):
+            cols = dict(rid=np.full((S, N), -1, np.int32),
+                        model=np.zeros((S, N), np.int32),
+                        arrival=np.full((S, N), np.float32(INF),
+                                        np.float32),
+                        deadline=np.full((S, N), np.float32(INF),
+                                         np.float32),
+                        q=np.ones((S, N), np.float32))
+            for s, stream in enumerate(request_streams):
+                for j, r in enumerate(sorted(stream,
+                                             key=lambda r: r.arrival_us)):
+                    mid, arr, dl, q = resolve_request(r, names)
+                    cols["rid"][s, j] = r.rid
+                    cols["model"][s, j] = mid
+                    cols["arrival"][s, j] = arr
+                    cols["deadline"][s, j] = dl
+                    cols["q"][s, j] = q
         tick = core_serve.make_serving_tick(env, kind=self.policy_kind,
                                  actor=self.actor,
                                  baseline_fn=self._baseline_fn)
@@ -247,24 +259,30 @@ class MultiTenantService:
         w_first, w_adm, w_def, w_comp, w_depth = 0, 0, 0, 0, 0
         lane = np.arange(K)
         for i in range(n_ticks):
-            t_now = i * t_s
-            avail = (cols["arrival"] <= t_now).sum(axis=1)
-            n_stage = np.minimum(avail - head, K)
-            idx = np.minimum(head[:, None] + lane[None, :], N - 1)
-            adm = {k: torch.as_tensor(np.take_along_axis(cols[k], idx, 1),
-                                      device=dev)
-                   for k in ("model", "arrival", "deadline", "q", "rid")}
-            adm["valid"] = torch.as_tensor(lane[None, :] < n_stage[:, None],
-                                           device=dev)
             t0 = time.perf_counter()
+            with span("serving.stage"):
+                t_now = i * t_s
+                avail = (cols["arrival"] <= t_now).sum(axis=1)
+                n_stage = np.minimum(avail - head, K)
+                idx = np.minimum(head[:, None] + lane[None, :], N - 1)
+                adm = {k: torch.as_tensor(
+                           np.take_along_axis(cols[k], idx, 1), device=dev)
+                       for k in ("model", "arrival", "deadline", "q",
+                                 "rid")}
+                adm["valid"] = torch.as_tensor(
+                    lane[None, :] < n_stage[:, None], device=dev)
             out = tick(queues, adm)
-            n_adm = out["n_admitted"].cpu().numpy()
-            comp = out["completed"].cpu().numpy()
+            with span("serving.readback"):
+                n_adm = out["n_admitted"].cpu().numpy()
+                comp = out["completed"].cpu().numpy()
+                depth = int(out["depth"].sum())
+            if comp.any():
+                with span("serving.record"):
+                    self._record(out, comp, completions)
             tick_wall_us.append((time.perf_counter() - t0) * 1e6)
             head += n_adm
             admitted += int(n_adm.sum())
             deferred += int((n_stage - n_adm).sum())
-            depth = int(out["depth"].sum())
             depth_sum += depth
             if win:
                 w_adm += int(n_adm.sum())
@@ -281,21 +299,20 @@ class MultiTenantService:
                         mean_depth=w_depth / max(len(w_wall) * S, 1))
                     w_first, w_adm, w_def, w_comp, w_depth = \
                         i + 1, 0, 0, 0, 0
-            if comp.any():
-                self._record(out, comp, completions)
-        fout = flush(queues)
-        final = {k: v.cpu().numpy() for k, v in fout.items()}
-        self._record(final, final["completed"], completions)
-        metrics = []
-        for s in range(S):
-            m = dict(hits=float(final["hits"][s]),
-                     counted=float(final["counted"][s]),
-                     arrived=float(final["arrived"][s]),
-                     sla_rate=float(final["sla_rate"][s]),
-                     energy_uj=float(final["energy_uj"][s]))
-            m["per_tenant"] = _tenant_table(names, final["ten_counted"][s],
-                                            final["ten_hit"][s])
-            metrics.append(m)
+        with span("serving.flush"):
+            fout = flush(queues)
+            final = {k: v.cpu().numpy() for k, v in fout.items()}
+            self._record(final, final["completed"], completions)
+            metrics = []
+            for s in range(S):
+                m = dict(hits=float(final["hits"][s]),
+                         counted=float(final["counted"][s]),
+                         arrived=float(final["arrived"][s]),
+                         sla_rate=float(final["sla_rate"][s]),
+                         energy_uj=float(final["energy_uj"][s]))
+                m["per_tenant"] = _tenant_table(
+                    names, final["ten_counted"][s], final["ten_hit"][s])
+                metrics.append(m)
         tot_c = int(final["counted"].sum())
         tot_h = int(final["hits"].sum())
         aggregate = dict(

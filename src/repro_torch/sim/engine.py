@@ -38,6 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.telemetry.profiler import count, span
+
 INF = 1e30
 _EPS = 1e-5
 CHECK_EVERY = 16
@@ -188,13 +190,21 @@ def simulate_segments(valid, assign, prio, cost, bw, dep, ready, sa_free, B,
                        segments=True)
 
 
-def _event_loop(valid, assign, prio, cost, bw, dep, ready, sa_free, B, *,
-                num_sas: int, stop_start_after: float | None,
-                segments: bool):
-    """The event loop of :func:`simulate` and :func:`simulate_segments`;
-    ``segments`` picks how the per-SA max / min over the slots assigned
-    to each SA are taken: ``scatter_reduce`` over the SA index, or a
-    masked reduction over the ``(S, n, M)`` one-hot."""
+def _event_loop(*args, **kw):
+    """The event loop of :func:`simulate` and :func:`simulate_segments`
+    (:func:`_loop`) inside the span ``engine.simulate``; each host check
+    of the loop's condition is the span ``engine.check``, and the count
+    ``engine.iterations`` keeps the iterations run (both only while a
+    profiler runs, ``telemetry.profiler``)."""
+    with span("engine.simulate"):
+        return _loop(*args, **kw)
+
+
+def _loop(valid, assign, prio, cost, bw, dep, ready, sa_free, B, *,
+          num_sas: int, stop_start_after: float | None, segments: bool):
+    """``segments`` picks how the per-SA max / min over the slots
+    assigned to each SA are taken: ``scatter_reduce`` over the SA index,
+    or a masked reduction over the ``(S, n, M)`` one-hot."""
     S, n = valid.shape
     M = num_sas
     dev = valid.device
@@ -250,8 +260,11 @@ def _event_loop(valid, assign, prio, cost, bw, dep, ready, sa_free, B, *,
 
     for i in range(max_iters):
         go = cond()
-        if i % CHECK_EVERY == 0 and not bool(go.any()):
-            break
+        if i % CHECK_EVERY == 0:
+            with span("engine.check"):
+                live = bool(go.any())
+            if not live:
+                break
         tc = t[:, None]
         active = started & ~finished & valid
         dep_done = ~has_dep | torch.gather(finished, 1, dep_idx)
@@ -296,4 +309,7 @@ def _event_loop(valid, assign, prio, cost, bw, dep, ready, sa_free, B, *,
         finished = torch.where(g, n_finished, finished)
         t = torch.where(go, next_t[:, 0], t)
         it = it + go.to(torch.int64)
+    else:
+        i = max_iters
+    count("engine.iterations", i)
     return start, finish

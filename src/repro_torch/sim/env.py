@@ -49,6 +49,7 @@ from repro_torch.sim import engine
 from repro_torch.sim.arrivals import (ArrivalConfig, generate_traces,
                                       generate_traces_torch)
 from repro_torch.sim.engine import INF
+from repro_torch.telemetry.profiler import span
 
 State = dict[str, Any]
 Trace = dict[str, Any]
@@ -355,21 +356,30 @@ class SchedulingEnv:
         ``repro_torch.sim.churn`` schedule), injected into the state
         seen by :meth:`build_slots` and ``act_fn`` as ``sa_valid`` /
         ``lat_mult`` / ``bw_mult`` and stripped from the returned state.
+
+        Spans (``telemetry.profiler``): ``env.drops``, ``env.slots``,
+        ``env.encode``, ``env.act``, then the engine, then
+        ``env.commit``.
         """
         if churn is not None:
             state = {**state, "sa_valid": churn["valid"],
                      "lat_mult": churn["lat_mult"],
                      "bw_mult": churn["bw_mult"]}
         t = state["t"]
-        state = self.mark_drops(state, trace, t)
-        slots = self.build_slots(state, trace, cutoff=t)
-        feats, mask = self.encode(slots, state)
-        a, prio, sa_choice = act_fn(feats, mask, slots, state)
+        with span("env.drops"):
+            state = self.mark_drops(state, trace, t)
+        with span("env.slots"):
+            slots = self.build_slots(state, trace, cutoff=t)
+        with span("env.encode"):
+            feats, mask = self.encode(slots, state)
+        with span("env.act"):
+            a, prio, sa_choice = act_fn(feats, mask, slots, state)
         start, fin, cost, bw, en, sa = self.simulate(
             state, slots, prio, sa_choice, commit_only=commit_only)
-        new_state = self.commit(state, trace, slots, start, fin, en, sa)
-        info = dict(committed=(slots["valid"]
-                               & (start < self.cfg.t_s_us)).sum(1))
+        with span("env.commit"):
+            new_state = self.commit(state, trace, slots, start, fin, en, sa)
+            info = dict(committed=(slots["valid"]
+                                   & (start < self.cfg.t_s_us)).sum(1))
         if commit_only:
             return _strip(new_state), None, info
         r = self.reward(state, slots, fin)

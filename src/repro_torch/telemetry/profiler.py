@@ -1,22 +1,92 @@
-"""Profiler hooks: ``torch.profiler`` trace capture for drivers.
+"""Profiler hooks: ``torch.profiler`` trace capture for drivers, and the
+port's spans and counters.
 
 ``--profile-dir PATH`` on ``launch/rl_train.py`` / ``launch/serve.py``
-wraps the hot loop in :func:`profile_trace`.  The trace is readable
-because the round body and the serving tick are annotated with
-``torch.profiler.record_function`` ranges under the JAX package's
-``jax.named_scope`` names (``relmas.trace_gen``, ``relmas.rollout``,
-``relmas.ring_write``, ``relmas.ddpg_update``, ``relmas.telemetry``;
-``serving.admit``, ``serving.period``, ``serving.retire``,
-``serving.telemetry``).  The trace is a Chrome-trace JSON file,
-``<dir>/<host>_<pid>.<ns>.pt.trace.json``, for TensorBoard or
-Perfetto; its ``user_annotation`` events are those ranges on the host,
-its ``kernel`` and ``gpu_memcpy`` events the device's work.
+wraps the hot loop in :func:`profile_trace`.  The trace is a
+Chrome-trace JSON file, ``<dir>/<host>_<pid>.<ns>.pt.trace.json``, for
+TensorBoard or Perfetto; its ``user_annotation`` events are the spans
+below on the host, its ``kernel`` and ``gpu_memcpy`` events the device's
+work on the same clock.
+
+Every range of the port opens through :func:`span`, which enters
+``torch.profiler.record_function(name)`` only while a profiler runs and
+is a no-op context otherwise (a ``record_function`` costs ~14 us of
+host time even with no profiler; the check costs well under 1 us).
+:func:`count` keeps ``(name, time.time_ns(), n)`` in a bounded buffer,
+also only while a profiler runs; the profiler stamps its host events on
+the same epoch clock, so a count lands inside the range that took it.
+:func:`counts` returns the buffer.
+
+The spans (:data:`SPANS`), by layer; the tick's and the training
+round's carry the JAX package's ``jax.named_scope`` names:
+
+- service loop (``serving/service.py::serve_stream``):
+  ``serving.resolve`` (the requests into columns, once a call),
+  ``serving.stage`` (a period's admission rows and their copies to the
+  device), ``serving.readback`` (the admitted counts, the completion
+  mask and the depth to the host), ``serving.record`` (the completion
+  records of a period that has some), ``serving.flush`` (the flush,
+  its records and the metrics, once a call);
+- tick (``core/serve.py::make_serving_tick``): ``serving.admit``,
+  ``serving.period``, ``serving.retire``, ``serving.telemetry``;
+- period (``sim/env.py::SchedulingEnv.period``): ``env.drops``,
+  ``env.slots`` (the ready queue), ``env.encode``, ``env.act`` (the
+  actor or heuristic), ``env.commit``; the engine runs between
+  ``env.act`` and ``env.commit``;
+- engine (``sim/engine.py::_event_loop``): ``engine.simulate`` (the
+  whole call), ``engine.check`` (each host check of the loop's
+  condition, a device-to-host sync every ``CHECK_EVERY`` iterations);
+- training round (``core/train.py``): ``relmas.trace_gen``,
+  ``relmas.rollout``, ``relmas.ring_write``, ``relmas.ddpg_update``,
+  ``relmas.telemetry``.
+
+The counters (:data:`COUNTERS`): ``engine.iterations``, the event
+loop's iterations, once an engine call (engine layer).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import time
 
 import torch
+from torch.profiler import record_function
+
+SPANS = frozenset({
+    "serving.resolve", "serving.stage", "serving.readback",
+    "serving.record", "serving.flush",
+    "serving.admit", "serving.period", "serving.retire", "serving.telemetry",
+    "env.drops", "env.slots", "env.encode", "env.act", "env.commit",
+    "engine.simulate", "engine.check",
+    "relmas.trace_gen", "relmas.rollout", "relmas.ring_write",
+    "relmas.ddpg_update", "relmas.telemetry",
+})
+COUNTERS = frozenset({"engine.iterations"})
+COUNT_CAP = 1 << 16
+
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_COUNTS: collections.deque = collections.deque(maxlen=COUNT_CAP)
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler runs, else a no-op
+    context."""
+    if _profiling():
+        return record_function(name)
+    return _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Keep ``(name, time.time_ns(), n)`` while a profiler runs (the
+    last :data:`COUNT_CAP` of them)."""
+    if _profiling():
+        _COUNTS.append((name, time.time_ns(), int(n)))
+
+
+def counts() -> list:
+    """The kept counts, oldest first."""
+    return list(_COUNTS)
 
 
 def profile_trace(profile_dir: str | None,
