@@ -76,7 +76,16 @@ no result:
                         recorded (each call's longest valid prefix:
                         mean, p50, max) and the kernel is timed again on
                         every recorded call, beside the bound for its
-                        mask;
+                        mask; the event-loop kernel launches once an
+                        engine call, and on the run's engine calls, and
+                        on all of them stacked to S = 16384, and on
+                        S = 16384 random queues with the tick's horizon
+                        and without it, gives the eager loop's
+                        (``kernels/event_loop/ref.py::loop``) schedule
+                        (the same sub-jobs started and finished, times
+                        within rtol 1e-5 / atol 1e-3 us) and iterations
+                        a stream; its time on each at S = 16384 beside
+                        the eager loop's and the bound;
 6. ``serve:fcfs``       the same streams under the FCFS heuristic;
 7. ``parity``           the same streams through the port on the CPU
                         (plain versions) and on the card, relmas and
@@ -222,8 +231,11 @@ no result:
                         checked by name and count (the tick's and the
                         service loop's stage and read-back once a tick,
                         records in at most every tick, resolve and
-                        flush once a run) and the
-                        device-to-host copies a tick (equal in both),
+                        flush once a run; the engine on the event-loop
+                        kernel, ``engine.simulate`` and its one
+                        ``engine.check`` read-back once a tick) and the
+                        device-to-host copies a tick (equal in both, at
+                        least the engine's one),
                         printed by size and deleted;
 24. ``telemetry:train`` (run after phase 17) ``rl_train`` at hidden 256
                         with episodes cut to 5 periods (10 before phases
@@ -239,7 +251,11 @@ no result:
                         launches; then profiled with and without the
                         flag: the five ``relmas.*`` ranges (four
                         without), device-to-host copies a round no
-                        more than without;
+                        more than without, and in each round one
+                        ``engine.check`` read-back an engine call (the
+                        event-loop kernel; the eager loop checked every
+                        16 iterations, one copy each), no more than
+                        the round's copies;
 25. ``lm:whisper_prefill_decode`` (run after phase 14) whisper-tiny at
                         full width and depth (4 encoder and 4 decoder
                         layers, bf16 weights drawn on the card from
@@ -1216,20 +1232,38 @@ class Spans:
 
 
 def serve_phase(serve_cli, ops, policy, CARD):
+    """One serving run at SERVE_ARGS: one ``lstm_seq`` launch a relmas
+    tick, one event-loop launch an engine call; for relmas the actor's
+    masks and the event-loop kernel on the run's engine calls
+    (:func:`check_event_loop`, whose numbers it returns last)."""
+    from repro_torch.kernels.event_loop import ops as ev_ops
+    from repro_torch.sim import engine
     calls = []                  # the actor's (xs, mask, wx, wh, b) per tick
-    real = ops.lstm_seq
+    engine_calls = []           # the engine's (args, kwargs) per tick
+    real, real_sim = ops.lstm_seq, engine.simulate
 
     def recording(xs, mask, *w):
         calls.append((xs.clone(), mask.clone(), *w))
         return real(xs, mask, *w)
-    ops.lstm_seq = recording
+
+    def recording_sim(*a, **k):
+        engine_calls.append(([x.clone() if torch.is_tensor(x) else x
+                              for x in a], dict(k)))
+        return real_sim(*a, **k)
+    ops.lstm_seq, engine.simulate = recording, recording_sim
     with captured_serving(serve_cli) as results:
         ops.LAUNCHES = 0
+        ev_before = ev_ops.LAUNCHES
         try:
             out = serve_cli.main(SERVE_ARGS + ["--policy", policy])
         finally:
-            ops.lstm_seq = real
+            ops.lstm_seq, engine.simulate = real, real_sim
         launches = ops.LAUNCHES
+        ev_launches = ev_ops.LAUNCHES - ev_before
+    if not engine_calls or ev_launches != len(engine_calls):
+        raise AssertionError(f"serve:{policy}: {ev_launches} event_loop "
+                             f"launches for {len(engine_calls)} engine "
+                             f"calls")
     if not out["counted"] > 0 or not 0.0 <= out["sla_rate"] <= 1.0:
         raise AssertionError(f"serve:{policy}: counted={out['counted']} "
                              f"sla_rate={out['sla_rate']}")
@@ -1242,10 +1276,13 @@ def serve_phase(serve_cli, ops, policy, CARD):
           f"lstm_seq launches={launches} tick_p50_ms="
           f"{out['tick_p50_us'] / 1e3:.3f} tick_p99_ms="
           f"{out['tick_p99_us'] / 1e3:.3f} sla_rate={out['sla_rate']:.4f} "
-          f"counted={out['counted']}", flush=True)
-    if calls:
-        serve_masks(ops, calls, CARD)
-    return launches, out, results[0]
+          f"counted={out['counted']} event_loop launches={ev_launches} "
+          f"(one an engine call)", flush=True)
+    if not calls:
+        return launches, out, results[0], None
+    serve_masks(ops, calls, CARD)
+    ev_info = check_event_loop(engine_calls, CARD)
+    return launches, out, results[0], dict(launches=ev_launches, **ev_info)
 
 
 @contextlib.contextmanager
@@ -1292,6 +1329,123 @@ def serve_masks(ops, calls, CARD):
           f"{max(ms):.4f} (sum {np.sum(ms):.3f} ms per run), bound mean_ms="
           f"{np.mean(bound):.4f}; the same inputs with a full mask "
           f"{full_ms:.4f} ms", flush=True)
+
+
+EVENT_LOOP_S = 16384            # the benchmark's streams (portbench/)
+
+
+def event_loop_bound_ms(S, n, M) -> float:
+    """Least time of an event-loop call at 3.35 TB/s: every input read
+    once (valid 1 B, assign and dep 8 B each, prio, cost, bw and ready
+    4 B each a slot; sa_free 4 B an SA), start and finish (4 B each a
+    slot) and iters (4 B a stream) written once."""
+    return (S * n * 41 + S * M * 4 + S * 4) / 3.35e12 * 1e3
+
+
+def same_schedule(label, got, want) -> float:
+    """Raise unless ``got`` and ``want`` (start, finish) start and finish
+    the same sub-jobs, with times within rtol 1e-5 / atol 1e-3 us.
+    Returns the largest difference of a finite time."""
+    from repro_torch.sim.engine import INF
+    err = 0.0
+    for g, w in zip(got, want):
+        fin = w < INF / 2
+        if not torch.equal(g < INF / 2, fin) \
+                or not torch.allclose(g, w, rtol=1e-5, atol=1e-3):
+            raise AssertionError(f"{label}: the event-loop kernel's "
+                                 f"schedule differs from the eager loop's")
+        d = (g - w)[fin].abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def engine_queues(S, n, M, seed):
+    """Random schedules drawn as the gpu tests draw them
+    (``tests/test_torch_kernels_gpu.py::_engine_args``): a valid prefix
+    a row, chains of layers, so every dependency is a valid slot; on the
+    card."""
+    rng = np.random.default_rng(seed)
+    valid = np.arange(n) < rng.integers(1, n + 1, (S, 1))
+    dep = np.where(rng.uniform(size=(S, n)) < 0.6, np.arange(n) - 1, -1)
+    args = [valid, rng.integers(0, M, (S, n)),
+            rng.uniform(-1, 1, (S, n)).astype(np.float32),
+            rng.uniform(0.5, 200.0, (S, n)).astype(np.float32),
+            rng.uniform(0.5, 16.0, (S, n)).astype(np.float32), dep,
+            (rng.uniform(0, 100, (S, n)) * (dep < 0)).astype(np.float32),
+            rng.uniform(0, 50, (S, M)).astype(np.float32)]
+    return [torch.as_tensor(a).cuda() for a in args]
+
+
+def check_event_loop(calls, CARD) -> dict:
+    """The event-loop kernel against the eager loop (``ref.loop``) on a
+    serving run's engine calls, one a tick at the run's (S, 96, 6), on
+    all of them stacked and repeated to the benchmark's S = 16384, and
+    on S = 16384 random queues (:func:`engine_queues`) with the tick's
+    horizon and without it: the same schedule (:func:`same_schedule`)
+    and each stream's iterations equal.  Then the kernel's time (CUDA
+    events, back to back) on each of the three at S = 16384, the eager
+    loop's on the stacked calls (its host checks included) and the
+    bound.  The served calls are light (a stream runs a few iterations);
+    the random queues without a horizon are the heaviest, and their time
+    is the one returned as ``ms``."""
+    from repro_torch.kernels.event_loop import ops as ev_ops
+    from repro_torch.kernels.event_loop import ref as ev_ref
+
+    def both(a, k, label):
+        sk, fk, ik = ev_ops.event_loop(*a, **k)
+        sl, fl, il = ev_ref.loop(*a, **k, segments=False)
+        err = same_schedule(label, (sk, fk), (sl, fl))
+        if not torch.equal(ik.long(), il):
+            raise AssertionError(f"{label}: the event-loop kernel's "
+                                 f"iterations differ from the eager loop's")
+        return err, ik
+    err, iters = 0.0, []
+    for i, (a, k) in enumerate(calls):
+        e, ik = both(a, k, f"serve:relmas engine call {i}")
+        err, iters = max(err, e), iters + [int(ik.max())]
+    stacked = [torch.cat([c[0][j] for c in calls]) if torch.is_tensor(x)
+               else x for j, x in enumerate(calls[0][0])]
+    reps = -(-EVENT_LOOP_S // stacked[0].shape[0])
+    big = [x.repeat(reps, 1)[:EVENT_LOOP_S] if torch.is_tensor(x) else x
+           for x in stacked]
+    k = calls[0][1]
+    e_big, ik = both(big, k, f"event_loop at S = {EVENT_LOOP_S}")
+    err = max(err, e_big)
+    S, n = big[0].shape
+    M = big[7].shape[1]
+    served_ms = cuda_ms(lambda: ev_ops.event_loop(*big, **k), reps=20)
+    plain_ms = cuda_ms(lambda: ev_ref.loop(*big, **k, segments=False),
+                       reps=3, warmup=1)
+    queues = engine_queues(S, n, M, seed=S + n + M) + [big[8]]
+    full = {}
+    for name, stop in (("horizon", k["stop_start_after"]), ("whole", None)):
+        kq = dict(k, stop_start_after=stop)
+        e, iq = both(queues, kq, f"event_loop on random queues ({name})")
+        err = max(err, e)
+        full[name] = (cuda_ms(lambda: ev_ops.event_loop(*queues, **kq),
+                              reps=20), float(iq.float().mean()),
+                      int(iq.max()))
+    ms = full["whole"][0]
+    bound_ms = event_loop_bound_ms(S, n, M)
+    print(f"  serve:relmas event_loop [{CARD}]: {len(calls)} engine calls "
+          f"at {tuple(calls[0][0][0].shape)} M={M} the eager loop's "
+          f"schedule and iterations (most a call mean="
+          f"{np.mean(iters):.1f} max={max(iters)}); at (S, n, M) = "
+          f"({S}, {n}, {M}) the same schedule and iterations on the calls "
+          f"stacked (iterations a stream mean={float(ik.float().mean()):.1f}"
+          f" max={int(ik.max())}) and on random queues with the tick's "
+          f"horizon {k['stop_start_after']} us (mean={full['horizon'][1]:.1f}"
+          f" max={full['horizon'][2]}) and without it (mean="
+          f"{full['whole'][1]:.1f} max={full['whole'][2]}), max_abs_err="
+          f"{err:.3e} us; kernel_ms random queues whole={ms:.4f} horizon="
+          f"{full['horizon'][0]:.4f} served calls={served_ms:.4f}; "
+          f"plain_ms={plain_ms:.2f} (eager loop on the served calls, host "
+          f"checks included) bound_ms={bound_ms:.4f} (bytes, "
+          f"{bound_ms / ms:.3f} of the kernel's time on whole random "
+          f"queues)", flush=True)
+    return dict(ms=ms, horizon_ms=full["horizon"][0], served_ms=served_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None, max_abs_err=err)
 
 
 def parity_phase(serve_cli, policy, CARD):
@@ -4229,7 +4383,7 @@ def serve_trace_numbers(serve_cli, args, label, CARD) -> dict:
                              f"{len(flush)} flushes, {out['ticks']} ticks")
     t0, t1 = admits[0]["ts"], flush[0]["ts"]
     host, n_ranges = {}, {}
-    for e in ranges(events, "serving."):
+    for e in ranges(events, "serving.") + ranges(events, "engine."):
         host[e["name"]] = host.get(e["name"], 0.0) + e["dur"]
         n_ranges[e["name"]] = n_ranges.get(e["name"], 0) + 1
     return dict(out=out, ticks=ticks,
@@ -4312,14 +4466,18 @@ def telemetry_serve_phase(serve_cli, ops, ref_out, ref_res, CARD):
               + f"; device-to-host copies a tick {n['d2h_per_tick']:.3f}",
               flush=True)
     # each range by name: the tick's and the loop's once a tick (the
-    # records only in a tick with completions), resolve and flush once
+    # records only in a tick with completions), resolve and flush once;
+    # the engine on the event-loop kernel: one engine.check a call, the
+    # read-back of its iterations (the eager loop's checks came every 16
+    # iterations, one device-to-host copy each)
     runs = nums[True] + nums[False]
     for on in (False, True):
         for n in nums[on]:
             T = n["ticks"]
             want = dict.fromkeys(("serving.admit", "serving.period",
                                   "serving.retire", "serving.stage",
-                                  "serving.readback"), T)
+                                  "serving.readback", "engine.simulate",
+                                  "engine.check"), T)
             want.update({"serving.resolve": 1, "serving.flush": 1})
             if on:
                 want["serving.telemetry"] = T
@@ -4329,6 +4487,11 @@ def telemetry_serve_phase(serve_cli, ops, ref_out, ref_res, CARD):
                     f"telemetry:serve {'on' if on else 'off'}: ranges "
                     f"{n['n_ranges']}, want {want} and serving.record in "
                     f"at most {T} ticks")
+            if n["d2h_per_tick"] < 1:
+                raise AssertionError(f"telemetry:serve: "
+                                     f"{n['d2h_per_tick']} device-to-host "
+                                     f"copies a tick, under the engine's "
+                                     f"one read-back")
     if len({n["d2h_per_tick"] for n in runs}) != 1:
         raise AssertionError("telemetry:serve: telemetry changed the "
                              "device-to-host copies a tick")
@@ -4350,8 +4513,13 @@ def train_trace_numbers(args, label, CARD) -> dict:
     ends = starts[1:] + [last["ts"] + last["dur"]]
     names = {e["name"] for e in ranges(events, "relmas.")}
     calls = d2h_calls(events)
+    inside = lambda name, a, b: sum(a <= e["ts"] < b
+                                    for e in ranges(events, name))
     return dict(res=res, names=names,
-                d2h=[d2h_between(calls, a, b) for a, b in zip(starts, ends)])
+                d2h=[d2h_between(calls, a, b) for a, b in zip(starts, ends)],
+                engine=[(inside("engine.simulate", a, b),
+                         inside("engine.check", a, b))
+                        for a, b in zip(starts, ends)])
 
 
 def telemetry_train_phase(CARD):
@@ -4432,7 +4600,8 @@ def telemetry_train_phase(CARD):
                if flag else []), label, CARD)
         print(f"  {label} profiled [{CARD}]: ranges "
               f"{sorted(nums[flag]['names'])}; device-to-host copies a "
-              f"round {nums[flag]['d2h']}", flush=True)
+              f"round {nums[flag]['d2h']}; (engine calls, engine.check "
+              f"read-backs) a round {nums[flag]['engine']}", flush=True)
     scopes = {"relmas.trace_gen", "relmas.rollout", "relmas.ring_write",
               "relmas.ddpg_update"}
     if nums[True]["names"] != scopes | {"relmas.telemetry"} \
@@ -4442,6 +4611,15 @@ def telemetry_train_phase(CARD):
             or len(nums[True]["d2h"]) != 2:
         raise AssertionError("telemetry:train: telemetry added "
                              "device-to-host copies to a round")
+    # the engine on the event-loop kernel: one read-back (engine.check)
+    # a call, where the eager loop checked every 16 iterations
+    for flag in (True, False):
+        for (calls, checks), d2h in zip(nums[flag]["engine"],
+                                        nums[flag]["d2h"]):
+            if not 0 < calls == checks <= d2h:
+                raise AssertionError(f"telemetry:train: {calls} engine "
+                                     f"calls, {checks} engine.check "
+                                     f"read-backs, {d2h} copies a round")
     if metrics(nums[True]["res"]) != metrics(off):
         raise AssertionError("telemetry:train: the profiled run differs")
 
@@ -5513,7 +5691,7 @@ def run_all() -> int:
 
     with phase("build"):
         build_all(["lstm_seq", "flash_attention", "decode_gqa", "ssd_chunk",
-                   "lstm_cell"])
+                   "lstm_cell", "event_loop"])
     with phase("kernel:lstm_seq"):
         kinfo = check_kernel(ops, ref, CARD)
     with phase("kernel:flash_attention"):
@@ -5525,8 +5703,8 @@ def run_all() -> int:
     with phase("kernel:lstm_cell"):
         cell_info = check_cell(cell_ops, cell_ref, CARD)
     with phase("serve:relmas"):
-        launches, relmas_out, relmas_res = serve_phase(serve_cli, ops,
-                                                       "relmas", CARD)
+        launches, relmas_out, relmas_res, ev_info = serve_phase(
+            serve_cli, ops, "relmas", CARD)
     with phase("serve:fcfs"):
         serve_phase(serve_cli, ops, "fcfs", CARD)
     with phase("parity"):
@@ -5633,7 +5811,13 @@ def run_all() -> int:
         dict(name="lstm_cell", route="cuda",
              source="src/repro_torch/csrc/lstm_cell.cu",
              replaces="src/repro/kernels/lstm_cell/lstm_cell.py:51",
-             launches=cell_launches, **cell_info)]
+             launches=cell_launches, **cell_info),
+        dict(name="event_loop", route="cuda",
+             source="src/repro_torch/csrc/event_loop.cu",
+             replaces="none: the eager loop src/repro_torch/kernels/"
+                      "event_loop/ref.py::loop (the JAX package's "
+                      "lax.while_loop)",
+             **ev_info)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@
   SSD forward built on it;
 - ``lstm_cell``: one fused LSTM step, the step of the policy's
   recurrence in training (an ``autograd.Function`` with a plain
-  backward).
+  backward);
+- ``event_loop``: the contention engine's whole event loop, a warp a
+  stream (``sim/engine.py::simulate`` on the card; its plain version,
+  ``ref.loop``, is the engine on the CPU).
 
 Every kernel package holds ``ref.py`` (the plain version, used for CPU
 tensors and as the oracle on the card) and ``ops.py`` (the wrapper:

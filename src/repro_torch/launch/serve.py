@@ -83,7 +83,9 @@ def parse_args(argv=None):
                          "(repro_torch.costmodel.fleets; default: paper6, "
                          "or datacenter for lm_* workloads)")
     ap.add_argument("--t-s", type=float, default=-1.0)
-    ap.add_argument("--max-rq", type=int, default=96)
+    ap.add_argument("--max-rq", type=int, default=96,
+                    help="ready-queue slots a stream (at most 256 on "
+                         "--device cuda, the event-loop kernel's limit)")
     ap.add_argument("--max-jobs", type=int, default=64)
     ap.add_argument("--phase", default="decode",
                     choices=["decode", "prefill"])

@@ -34,14 +34,20 @@ round's carry the JAX package's ``jax.named_scope`` names:
   actor or heuristic), ``env.commit``; the engine runs between
   ``env.act`` and ``env.commit``;
 - engine (``sim/engine.py::_event_loop``): ``engine.simulate`` (the
-  whole call), ``engine.check`` (each host check of the loop's
-  condition, a device-to-host sync every ``CHECK_EVERY`` iterations);
+  whole call), ``engine.check`` (each host check of the plain loop's
+  condition, a device-to-host sync every ``CHECK_EVERY`` iterations; on
+  the kernel route the one read-back of its iterations);
 - training round (``core/train.py``): ``relmas.trace_gen``,
   ``relmas.rollout``, ``relmas.ring_write``, ``relmas.ddpg_update``,
   ``relmas.telemetry``.
 
-The counters (:data:`COUNTERS`): ``engine.iterations``, the event
-loop's iterations, once an engine call (engine layer).
+The counters (:data:`COUNTERS`), once an engine call (engine layer):
+``engine.iterations``, the event loop's iterations (on the kernel route
+the most any stream ran); ``engine.kernel``, 1 on the kernel route
+(``kernels/event_loop``) and 0 on the plain loop.
+
+:func:`profiling` says whether a profiler runs, for a site whose count
+costs a sync.
 """
 from __future__ import annotations
 
@@ -61,10 +67,10 @@ SPANS = frozenset({
     "relmas.trace_gen", "relmas.rollout", "relmas.ring_write",
     "relmas.ddpg_update", "relmas.telemetry",
 })
-COUNTERS = frozenset({"engine.iterations"})
+COUNTERS = frozenset({"engine.iterations", "engine.kernel"})
 COUNT_CAP = 1 << 16
 
-_profiling = torch._C._autograd._profiler_enabled
+profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _COUNTS: collections.deque = collections.deque(maxlen=COUNT_CAP)
 
@@ -72,7 +78,7 @@ _COUNTS: collections.deque = collections.deque(maxlen=COUNT_CAP)
 def span(name: str):
     """``record_function(name)`` while a profiler runs, else a no-op
     context."""
-    if _profiling():
+    if profiling():
         return record_function(name)
     return _OFF
 
@@ -80,7 +86,7 @@ def span(name: str):
 def count(name: str, n: int) -> None:
     """Keep ``(name, time.time_ns(), n)`` while a profiler runs (the
     last :data:`COUNT_CAP` of them)."""
-    if _profiling():
+    if profiling():
         _COUNTS.append((name, time.time_ns(), int(n)))
 
 

@@ -1,5 +1,9 @@
 """The PyTorch port's batched contention engine against the JAX engine
-(per stream) and the float64 NumPy oracle.
+(per stream) and the float64 NumPy oracle, and its route: CPU tensors
+and the segment engine run the eager loop ``_loop``; CUDA tensors the
+event-loop kernel, which raises for shapes beyond its limits (here on
+fake CUDA tensors, which launch nothing).  The kernel itself is held to
+``_loop`` on the card (``tests/test_torch_kernels_gpu.py``).
 
 Inputs are drawn with NumPy from a seed and handed to all three.
 Tolerances: against ``simulate_jax`` the event sequence is the same in
@@ -13,8 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.profiler import ProfilerActivity, profile
+
 from repro.sim.engine import simulate_jax
+from repro_torch.kernels.event_loop import ops as ev_ops
+from repro_torch.sim import engine
 from repro_torch.sim.engine import INF, simulate, simulate_np
+from repro_torch.telemetry import profiler as P
 
 torch.set_num_threads(1)
 
@@ -110,3 +120,113 @@ def test_streams_do_not_couple():
     s1, f1 = _torch(one, 4, None)
     np.testing.assert_array_equal(s1[0], start[2])
     np.testing.assert_array_equal(f1[0], finish[2])
+
+
+def _args(sc):
+    return [torch.as_tensor(sc[k]) for k in
+            ("valid", "assign", "prio", "cost", "bw", "dep", "ready",
+             "sa_free")]
+
+
+def test_cpu_tensors_run_the_loop_and_count_no_kernel():
+    """On the CPU ``simulate`` is ``_loop``, bit for bit; under a
+    profiler the call counts ``engine.kernel`` 0 and its
+    ``engine.iterations``."""
+    sc = _draw(5, 4, 24, 3)
+    before = len(P.counts())
+    with profile(activities=[ProfilerActivity.CPU]):
+        s1, f1 = simulate(*_args(sc), float(sc["B"]), num_sas=3)
+    cnt = [(name, n) for name, _, n in P.counts()[before:]]
+    assert ("engine.kernel", 0) in cnt
+    assert [name for name, _ in cnt] == ["engine.kernel",
+                                         "engine.iterations"]
+    s2, f2, it = engine._loop(*_args(sc), float(sc["B"]), num_sas=3,
+                              stop_start_after=None, segments=False)
+    assert torch.equal(s1, s2) and torch.equal(f1, f2)
+    assert it.shape == (4,) and 1 <= int(it.max()) <= 3 * 24 + 3 + 16
+
+
+def _fake_call(device, S, n, M, fn=simulate):
+    with FakeTensorMode():
+        e = lambda *shape, dtype=torch.float32: torch.empty(
+            shape, dtype=dtype, device=device)
+        i64 = torch.int64
+        out = fn(e(S, n, dtype=torch.bool), e(S, n, dtype=i64), e(S, n),
+                 e(S, n), e(S, n), e(S, n, dtype=i64), e(S, n), e(S, M),
+                 8.0, num_sas=M)
+        return [(tuple(o.shape), o.device.type) for o in out]
+
+
+@pytest.mark.parametrize("S,n,M,fits", [
+    (1, 96, 6, True), (16384, 96, 6, True), (3, 256, 32, True),
+    (1, 1, 1, True), (1, 257, 6, False), (4, 96, 33, False),
+    (0, 96, 6, True), (4, 96, 0, False)])
+def test_kernel_limits(S, n, M, fits):
+    """The operator takes n <= 256 slots on 1 <= M <= 32 SAs and any
+    number of streams; its checks run on the fake route as on the
+    card's, so a shape beyond them raises before any launch."""
+    call = lambda: _fake_call("cuda", S, n, M, ev_ops.event_loop)
+    if fits:
+        assert call() == [((S, n), "cuda")] * 2 + [((S,), "cuda")]
+    else:
+        with pytest.raises(ValueError, match="n <= 256 slots on 1 <= M "
+                                             "<= 32 SAs"):
+            call()
+
+
+@pytest.mark.parametrize("device,S,n,M,route", [
+    ("cuda", 16384, 96, 6, "kernel"), ("cuda", 3, 256, 32, "kernel"),
+    ("cuda", 2, 257, 6, "raises"), ("cuda", 2, 96, 33, "raises"),
+    ("cuda", 0, 96, 6, "kernel"), ("cpu", 4, 96, 6, "loop"),
+    ("cpu", 2, 257, 33, "loop")])
+def test_route_by_device_and_shape(monkeypatch, device, S, n, M, route):
+    """CUDA tensors go to the operator (its fake route here: the
+    outputs' shapes, no launch), which raises for a shape beyond the
+    kernel's limits; CPU tensors, of any shape, to ``_loop``.
+    ``engine.kernel`` says which."""
+    counted, loops = [], []
+
+    def loop(valid, *a, **k):
+        loops.append(k["segments"])
+        return valid.float(), valid.float(), valid.sum(1)
+    monkeypatch.setattr(engine, "_loop", loop)
+    monkeypatch.setattr(engine, "count", lambda name, v: counted.append(
+        (name, v)))
+    launches = ev_ops.LAUNCHES
+    if route == "raises":
+        with pytest.raises(ValueError, match="event_loop kernel takes"):
+            _fake_call(device, S, n, M)
+    else:
+        assert _fake_call(device, S, n, M) == [((S, n), device)] * 2
+    assert ev_ops.LAUNCHES == launches
+    assert counted == [("engine.kernel", int(route != "loop"))]
+    assert loops == ([False] if route == "loop" else [])
+
+
+def test_segment_engine_never_takes_the_kernel(monkeypatch):
+    loops = []
+
+    def loop(valid, *a, **k):
+        loops.append(k["segments"])
+        return valid.float(), valid.float(), valid.sum(1)
+    monkeypatch.setattr(engine, "_loop", loop)
+    _fake_call("cuda", 4, 96, 6, engine.simulate_segments)
+    assert loops == [True]
+
+
+@pytest.mark.parametrize("stop", [None, 250.0])
+def test_operator_cpu_route_is_the_loop(stop):
+    """``event_loop`` on CPU tensors runs ``_loop``: ``simulate``'s start
+    and finish bit for bit, and each stream's iterations as int32 (0
+    for a stream with nothing valid); a per-stream ``B`` is
+    ``simulate``'s with that tensor."""
+    sc = _draw(21, 5, 32, 4)
+    sc["valid"][3] = False
+    B = torch.as_tensor(np.linspace(4.0, 16.0, 5), dtype=torch.float32)
+    for b in (float(sc["B"]), B):
+        s1, f1 = simulate(*_args(sc), b, num_sas=4, stop_start_after=stop)
+        s2, f2, it = ev_ops.event_loop(*_args(sc), b, num_sas=4,
+                                       stop_start_after=stop)
+        assert torch.equal(s1, s2) and torch.equal(f1, f2)
+        assert it.dtype == torch.int32 and int(it[3]) == 0
+        assert 1 <= int(it.max()) <= 3 * 32 + 4 + 16

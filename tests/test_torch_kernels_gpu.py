@@ -15,7 +15,9 @@ within ``repro_torch.kernels.attn_tolerance`` (one bf16 ulp plus 1.5e-2
 of the row's RMS in bfloat16, 1e-4 of both in float32); ``ssd_chunk``
 each element within 1e-4 of its (batch*chunk, head) block's RMS
 (``ssd_chunk.ref.ssd_err``: float32 sums over N and C in another
-order).
+order); the event-loop kernel the same sub-jobs started and finished
+as the eager loop, times within rtol 1e-5 / atol 1e-3 us (the warp sums
+the bandwidth demand in another order).
 """
 import numpy as np
 import pytest
@@ -24,6 +26,8 @@ import torch
 from repro_torch.kernels.attn_tolerance import attn_err
 from repro_torch.kernels.decode_gqa import ops as dec_ops
 from repro_torch.kernels.decode_gqa import ref as dec_ref
+from repro_torch.kernels.event_loop import ops as ev_ops
+from repro_torch.kernels.event_loop import ref as ev_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.lstm_cell import lstm_cell_ref
@@ -732,15 +736,10 @@ def test_legacy_policy_period_on_the_card_matches_the_cpu(card, use_pallas):
             np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("S,n,M", [(4, 12, 4), (32, 96, 6), (1, 96, 6)])
-def test_segment_engine_on_the_card_matches_simulate(card, S, n, M):
-    """``simulate_segments`` on the card equals ``simulate`` there (max
-    and min are exact, every other operation the same), and holds to
-    the CPU's ``simulate`` within rtol 1e-5 / atol 1e-3 us."""
-    from repro_torch.sim.engine import INF, simulate, simulate_segments
-    rng = np.random.default_rng(n + M)
-    # a valid prefix a row, so every dependency is a valid slot
+def _engine_args(S, n, M, seed):
+    """Random schedules shaped like the env's packing: a valid prefix a
+    row and chains of layers, so every dependency is a valid slot."""
+    rng = np.random.default_rng(seed)
     valid = np.arange(n) < rng.integers(1, n + 1, (S, 1))
     dep = np.where(rng.uniform(size=(S, n)) < 0.6, np.arange(n) - 1, -1)
     args = [valid, rng.integers(0, M, (S, n)),
@@ -749,16 +748,149 @@ def test_segment_engine_on_the_card_matches_simulate(card, S, n, M):
             rng.uniform(0.5, 16.0, (S, n)).astype(np.float32), dep,
             (rng.uniform(0, 100, (S, n)) * (dep < 0)).astype(np.float32),
             rng.uniform(0, 50, (S, M)).astype(np.float32)]
-    cpu = [torch.as_tensor(a) for a in args]
+    return [torch.as_tensor(a) for a in args]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,n,M", [(4, 12, 4), (32, 96, 6), (1, 96, 6)])
+def test_segment_engine_on_the_card_matches_simulate(card, S, n, M):
+    """``simulate_segments`` on the card equals the eager loop there
+    (``ev_ref.loop``: max and min are exact, every other operation the
+    same), and it and ``simulate`` (the event-loop kernel) hold to the
+    CPU's ``simulate`` within rtol 1e-5 / atol 1e-3 us."""
+    from repro_torch.sim.engine import INF, simulate, simulate_segments
+    cpu = _engine_args(S, n, M, n + M)
     gpu = [a.cuda() for a in cpu]
     sg, fg = simulate_segments(*gpu, 8.0, num_sas=M)
-    s1, f1 = simulate(*gpu, 8.0, num_sas=M)
+    s1, f1, _ = ev_ref.loop(*gpu, 8.0, num_sas=M, stop_start_after=None,
+                            segments=False)
+    sk, fk = simulate(*gpu, 8.0, num_sas=M)
     sc, fc = simulate(*cpu, 8.0, num_sas=M)
     torch.testing.assert_close(sg, s1, rtol=0, atol=0)
     torch.testing.assert_close(fg, f1, rtol=0, atol=0)
-    assert bool((fg[torch.as_tensor(valid).cuda()] < INF / 2).all())
-    torch.testing.assert_close(sg.cpu(), sc, rtol=1e-5, atol=1e-3)
-    torch.testing.assert_close(fg.cpu(), fc, rtol=1e-5, atol=1e-3)
+    assert bool((fg[gpu[0]] < INF / 2).all())
+    for s, f in ((sg, fg), (sk, fk)):
+        torch.testing.assert_close(s.cpu(), sc, rtol=1e-5, atol=1e-3)
+        torch.testing.assert_close(f.cpu(), fc, rtol=1e-5, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the event-loop kernel (csrc/event_loop.cu) against the eager loop
+# ---------------------------------------------------------------------------
+def _same_schedule(got, want):
+    """The same sub-jobs started and finished, their times within rtol
+    1e-5 / atol 1e-3 us (the warp sums the bandwidth demand D in another
+    order than ``torch.sum``)."""
+    from repro_torch.sim.engine import INF
+    for g, w in zip(got, want):
+        assert torch.equal(g < INF / 2, w < INF / 2)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+
+
+def _kernel_and_loop(args, B, M, stop):
+    before = ev_ops.LAUNCHES
+    sk, fk, it_k = ev_ops.event_loop(*args, B, num_sas=M,
+                                     stop_start_after=stop)
+    assert ev_ops.LAUNCHES == before + 1
+    sl, fl, it_l = ev_ref.loop(*args, B, num_sas=M, stop_start_after=stop,
+                               segments=False)
+    torch.cuda.synchronize()
+    return (sk, fk, it_k), (sl, fl, it_l)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stop", [None, 250.0])
+@pytest.mark.parametrize("S,n,M", [(4, 2, 1), (6, 12, 4), (3, 32, 6),
+                                   (2, 96, 6), (1, 96, 6), (16384, 96, 6),
+                                   # the kernel's limits
+                                   (64, 256, 6), (16, 256, 32),
+                                   (8, 33, 32)])
+def test_event_loop_kernel_matches_the_loop(card, S, n, M, stop):
+    """One launch gives the eager loop's schedule and each stream's
+    iterations; ``simulate`` on these CUDA tensors is that launch."""
+    from repro_torch.sim.engine import simulate
+    args = [a.cuda() for a in _engine_args(S, n, M, 7 * n + M)]
+    (sk, fk, it_k), (sl, fl, it_l) = _kernel_and_loop(args, 8.0, M, stop)
+    _same_schedule((sk, fk), (sl, fl))
+    assert torch.equal(it_k.long(), it_l)
+    before = ev_ops.LAUNCHES
+    s, f = simulate(*args, 8.0, num_sas=M, stop_start_after=stop)
+    assert ev_ops.LAUNCHES == before + 1
+    assert torch.equal(s, sk) and torch.equal(f, fk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stop", [None, 250.0])
+def test_event_loop_kernel_takes_a_bandwidth_a_stream(card, stop):
+    S, n, M = 257, 96, 6
+    args = [a.cuda() for a in _engine_args(S, n, M, 5)]
+    B = torch.linspace(2.0, 40.0, S, device="cuda")
+    (sk, fk, it_k), (sl, fl, it_l) = _kernel_and_loop(args, B, M, stop)
+    _same_schedule((sk, fk), (sl, fl))
+    assert torch.equal(it_k.long(), it_l)
+
+
+@pytest.mark.gpu
+def test_event_loop_kernel_early_starters_and_lone_streams(card):
+    """The CPU tests' two properties on the kernel: under
+    ``stop_start_after`` every sub-job that starts before the horizon
+    has the full run's start and finish bit for bit; a stream run alone
+    gives its batched numbers bit for bit."""
+    from repro_torch.sim.engine import INF
+    S, n, M = 512, 96, 6
+    args = [a.cuda() for a in _engine_args(S, n, M, 11)]
+    s_full, f_full, _ = ev_ops.event_loop(*args, 8.0, num_sas=M)
+    started = s_full < INF / 2
+    stop = float(s_full[started].median())
+    s_cut, f_cut, _ = ev_ops.event_loop(*args, 8.0, num_sas=M,
+                                        stop_start_after=stop)
+    early = s_full < stop
+    assert bool(early.any()) and not bool(early[started].all())
+    assert torch.equal(s_cut[early], s_full[early])
+    assert torch.equal(f_cut[early], f_full[early])
+    for row in (0, 100, S - 1):
+        one = [a[row:row + 1] for a in args]
+        s1, f1, _ = ev_ops.event_loop(*one, 8.0, num_sas=M)
+        assert torch.equal(s1[0], s_full[row])
+        assert torch.equal(f1[0], f_full[row])
+
+
+@pytest.mark.gpu
+def test_event_loop_kernel_on_an_empty_batch(card):
+    """No streams, or no slots: empty start and finish, no iterations,
+    no launch; ``simulate`` stays on the kernel's route."""
+    from repro_torch.sim.engine import simulate
+    for S, n in ((0, 96), (4, 0)):
+        args = [a.cuda() for a in _engine_args(max(S, 1), max(n, 1), 6, 2)]
+        args = [a[:S, :n] if i < 7 else a[:S] for i, a in enumerate(args)]
+        args = [a.contiguous() for a in args]
+        before = ev_ops.LAUNCHES
+        s, f, it = ev_ops.event_loop(*args, 8.0, num_sas=6)
+        assert ev_ops.LAUNCHES == before
+        assert s.shape == f.shape == (S, n) and s.is_cuda
+        assert it.shape == (S,) and not bool(it.any())
+        s2, f2 = simulate(*args, 8.0, num_sas=6)
+        assert s2.shape == (S, n) and s2.is_cuda
+
+
+@pytest.mark.gpu
+def test_event_loop_kernel_rejects_what_it_does_not_take(card):
+    args = [a.cuda() for a in _engine_args(4, 12, 3, 1)]
+    op = torch.ops.repro_torch.event_loop
+    with pytest.raises(ValueError, match="n <= 256"):
+        big = [a.cuda() for a in _engine_args(2, 257, 3, 1)]
+        op(*big, None, 8.0, 3, ev_ops.INF)
+    with pytest.raises(ValueError, match="M <= 32"):
+        from repro_torch.sim.engine import simulate
+        wide = [a.cuda() for a in _engine_args(2, 96, 33, 1)]
+        simulate(*wide, 8.0, num_sas=33)
+    with pytest.raises(TypeError, match="assign"):
+        op(args[0], args[1].int(), *args[2:], None, 8.0, 3, ev_ops.INF)
+    with pytest.raises(ValueError, match="contiguous"):
+        op(*args[:2], args[2].t().contiguous().t(), *args[3:], None, 8.0,
+           3, ev_ops.INF)
+    with pytest.raises(ValueError, match="sa_free"):
+        op(*args[:7], args[7][:, :2].contiguous(), None, 8.0, 3, ev_ops.INF)
 
 
 # ---------------------------------------------------------------------------
@@ -881,6 +1013,7 @@ def _operator_cases():
     seq = _args(97, 32, 16, 256)
     ssd = (rnd(4, 64, 32), rnd(4, 64, 32), rnd(4, 9, 64, 16),
            -torch.cumsum(rnd(4, 9, 64).abs() * 0.1, dim=-1))
+    eng = [a.cuda() for a in _engine_args(64, 96, 6, 3)]
     return {
         "flash_attention": (fa_ops, lambda: fa_ops.flash_attention(q, k, v),
                             lambda: fa_ops._cuda(q, k, v, True, 0)),
@@ -893,12 +1026,17 @@ def _operator_cases():
                      lambda: ops._cuda(*seq)),
         "ssd_chunk": (ssd_ops, lambda: ssd_ops.ssd_intra(*ssd),
                       lambda: ssd_ops._cuda(*ssd)),
+        "event_loop": (ev_ops, lambda: ev_ops.event_loop(*eng, 8.0,
+                                                         num_sas=6),
+                       lambda: ev_ops._cuda(*eng, None, 8.0, 6,
+                                            ev_ops.INF)),
     }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["flash_attention", "decode_gqa",
-                                  "lstm_cell", "lstm_seq", "ssd_chunk"])
+                                  "lstm_cell", "lstm_seq", "ssd_chunk",
+                                  "event_loop"])
 def test_operator_is_its_cuda_route_bit_for_bit(card, name):
     mod, call, direct = _operator_cases()[name]
     with torch.no_grad():

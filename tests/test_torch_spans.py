@@ -8,7 +8,8 @@ the serving path, on the CPU at 3 streams.
   loop's spans outside the tick's.
 - ``engine.iterations`` equals the iterations the profiler saw (one
   ``aten::isfinite`` an iteration), and each count carries a time
-  inside its ``engine.simulate`` range as the profiler reports it.
+  inside its ``engine.simulate`` range as the profiler reports it;
+  ``engine.kernel`` counts 0 for each call (the CPU's eager loop).
 - With no profiler running no span enters ``record_function`` and no
   count is kept.
 - ``serve_stream``'s outputs are bit-equal with the profiler on and off.
@@ -133,6 +134,22 @@ def test_engine_iterations_match_the_profiled_iterations(traced):
         # or at its bound without one
         checks = sum(_inside(c, s) for c in _named(evs, "engine.check"))
         assert checks == (n // 16 + 1 if n % 16 == 0 else -(-n // 16))
+
+
+def test_each_cpu_engine_call_counts_the_plain_route(traced):
+    """On the CPU every engine call runs the eager loop: one
+    ``engine.kernel`` count of 0 each, taken inside its
+    ``engine.simulate`` range; the counter is listed in ``COUNTERS``,
+    the docstring and the README."""
+    _, evs, cnt = traced
+    sims = _named(evs, "engine.simulate")
+    kern = [c for c in cnt if c[0] == "engine.kernel"]
+    assert [n for _, _, n in kern] == [0] * len(sims) == [0] * PERIODS
+    for (_, t_ns, _), s in zip(kern, sims):
+        assert s[1] <= t_ns <= s[2]
+    assert "engine.kernel" in P.COUNTERS
+    assert "``engine.kernel``" in P.__doc__
+    assert "`engine.kernel`" in (ROOT / "README.md").read_text()
 
 
 def test_a_count_carries_the_time_of_its_range():
